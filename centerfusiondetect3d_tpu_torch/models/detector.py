@@ -1,0 +1,116 @@
+"""The flagship model: DLA-34 + DLAUp/IDAUp + CenterFusion heads.
+
+The port of ``centerfusiondetect3d_tpu/models/detector.py`` (reference
+DLASeg/BaseModel, dla.py:571-635 and base_model.py:30-106): backbone ->
+hierarchical upsampling to stride 4 -> first-stage CenterNet heads ->
+(middle fusion) frustum radar association -> secondary heads. Eval only:
+BatchNorm uses its running statistics. Names follow the reference
+state_dict (``base.*``, ``dla_up.*``, ``ida_up.*``, ``detectHead_0.*``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.frustum import get_pc_frustum_heatmap
+from .dla import DLA, DLA34_CHANNELS
+from .heads import SECONDARY_HEADS, DetectHeadSet, resize_nearest
+from .upsample import DLAUp, IDAUp
+
+FIRST_LEVEL = 2  # log2(down_ratio=4)
+LAST_LEVEL = 5
+
+
+class CenterFusionDLA(nn.Module):
+    def __init__(self, heads: Mapping[str, int],
+                 head_conv: Mapping[str, Sequence[int]],
+                 node: str = "DeformConv", fusion_strategy: Optional[str] =
+                 "middle", radar_pc: bool = True, frustum: bool = True,
+                 one_hot_pc: bool = False, max_pc_dist: float = 60.0,
+                 top_k: int = 100):
+        super().__init__()
+        self.fusion_strategy = fusion_strategy
+        self.radar_pc = radar_pc
+        self.frustum = frustum
+        self.one_hot_pc = one_hot_pc
+        self.max_pc_dist = float(max_pc_dist)
+        self.top_k = int(top_k)
+        channels = DLA34_CHANNELS
+        pc_channels = 3 * int(max_pc_dist) if one_hot_pc else 3
+        early = radar_pc and fusion_strategy == "early"
+        self.base = DLA(3 + (pc_channels if early else 0))
+        scales = [2 ** i for i in range(len(channels[FIRST_LEVEL:]))]
+        self.dla_up = DLAUp(FIRST_LEVEL, channels[FIRST_LEVEL:], scales, node)
+        self.ida_up = IDAUp(
+            channels[FIRST_LEVEL], channels[FIRST_LEVEL:LAST_LEVEL],
+            [2 ** i for i in range(LAST_LEVEL - FIRST_LEVEL)], node)
+        secondary = (tuple(h for h in heads if h in SECONDARY_HEADS)
+                     if fusion_strategy == "middle" and radar_pc else ())
+        self.detectHead_0 = DetectHeadSet(
+            channels[FIRST_LEVEL], heads, head_conv, secondary, pc_channels)
+
+    @property
+    def pc_slice(self) -> int:
+        return int(self.max_pc_dist) if self.one_hot_pc else 1
+
+    def img2feats(self, x):
+        feats = self.base(x)
+        pyramid = self.dla_up(feats)
+        y = list(pyramid[: LAST_LEVEL - FIRST_LEVEL])
+        return self.ida_up(y, 0, len(y))[-1]
+
+    def frustum_heatmap(self, y: Dict[str, torch.Tensor], pc_dep, calib):
+        """Radar heatmap from the first-stage boxes (pointcloud.py:331-394)."""
+        return get_pc_frustum_heatmap(y, pc_dep, calib, self.top_k,
+                                      self.max_pc_dist)
+
+    def forward(self, image, pc_dep=None, calib=None):
+        """image (B, 3, H, W) normalized; pc_dep (B, C_pc, H/4, W/4) raw radar
+        map [d, vx, vz]; calib (B, 3, 4). Returns a dict of NCHW float32 head
+        outputs (plus ``calib``)."""
+        x = image
+        pc_hm = None
+        if self.radar_pc and not (self.frustum
+                                  and self.fusion_strategy == "middle"):
+            # eval-time radar normalization (base_model.py:67-79)
+            s = self.pc_slice
+            pc_hm = torch.cat([1.0 - pc_dep[:, :s] / self.max_pc_dist,
+                               pc_dep[:, s:]], dim=1)
+        if self.radar_pc and self.fusion_strategy == "early":
+            x = torch.cat([x, resize_nearest(pc_hm, x.shape[-2:])], dim=1)
+
+        feats = self.img2feats(x)
+        y = self.detectHead_0.first_stage(feats)
+        y["calib"] = calib
+        if self.radar_pc and self.fusion_strategy == "middle":
+            # outside the frustum path the reference stores the normalized
+            # map (its eval normalization mutates pc_dep in place)
+            y["pc_hm_in"] = (pc_hm if not self.frustum else pc_dep)[
+                :, : self.pc_slice]
+            if self.frustum:
+                pc_hm = self.frustum_heatmap(y, pc_dep, calib)
+            y["pc_hm"] = pc_hm[:, 0:1]
+            y.update(self.detectHead_0.second_stage(feats, pc_hm,
+                                                    self.pc_slice))
+        return y
+
+
+def build_model(config) -> CenterFusionDLA:
+    """Model from a finalized config (model/model.py:18-44)."""
+    if config.MODEL.ARCH != "dla_34":
+        raise NotImplementedError(
+            f"architecture {config.MODEL.ARCH!r} is not ported yet (dla_34)")
+    return CenterFusionDLA(
+        heads={k: int(v) for k, v in config.heads.items()},
+        head_conv={k: tuple(v) for k, v in config.head_conv.items()},
+        node=config.MODEL.DLA.NODE,
+        fusion_strategy=config.MODEL.FUSION_STRATEGY,
+        radar_pc=bool(config.DATASET.RADAR_PC),
+        frustum=bool(config.MODEL.FRUSTUM),
+        one_hot_pc=bool(config.DATASET.ONE_HOT_PC),
+        max_pc_dist=float(config.DATASET.MAX_PC_DIST),
+        top_k=int(config.MODEL.K),
+    )

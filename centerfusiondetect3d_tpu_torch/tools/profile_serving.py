@@ -1,0 +1,151 @@
+"""Where the serving path's time goes: ``torch.profiler`` over ``Detector.run``.
+
+    python -m centerfusiondetect3d_tpu_torch.tools.profile_serving
+    python -m centerfusiondetect3d_tpu_torch.tools.profile_serving \\
+        --device cpu --tiny            # rehearsal: CPU ops, nothing measured
+
+Builds the serving detector at the main-path configuration of
+``chip_smoke.py`` (``runtime/synthetic.py``: 448x800, 6 cameras, seeded
+weights, BatchNorm calibrated on the synthetic batch), warms it up, then
+profiles ``--runs`` calls of ``Detector.run``. On the card it prints, per
+run: the wall time, the device's busy time (the union of its kernels'
+intervals) and idle share, device time by kernel group (the DCN kernel,
+convolutions and GEMMs, sort/top-k, the rest) and the top kernels by device
+time; ``--trace`` also writes a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..config import load_config
+from ..runtime.detector import Detector
+from ..runtime.synthetic import (
+    MAIN_PATH_OPTS,
+    calibrate_batchnorm,
+    seeded_weights,
+    synthetic_frames,
+)
+
+GROUPS = (
+    ("dcn_fwd (hand-written DCNv2)", ("dcn_fwd",)),
+    ("convolution / GEMM (cuDNN, cuBLAS, their layout copies)",
+     ("convolve", "conv2d", "cudnn", "gemm", "xmma", "cutlass", "winograd",
+      "implicit", "fprop", "nchwtonhwc", "nhwctonchw")),
+    ("sort / top-k", ("sort", "radix", "topk")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other (elementwise, reductions, copies, gathers)"
+
+
+def union_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tiny", action="store_true",
+                    help="64x128, 2 cameras (the CPU rehearsal)")
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    args = ap.parse_args(argv)
+    on_card = args.device == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise SystemExit("profile_serving: no CUDA device available")
+    if not on_card and not args.tiny:
+        raise SystemExit("profile_serving: --device cpu runs only with --tiny")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    opts = list(MAIN_PATH_OPTS)
+    n_cams, frame_hw = 6, (450, 800)
+    if args.tiny:
+        opts += ["MODEL.INPUT_SIZE", "(64, 128)"]
+        n_cams, frame_hw = 2, (72, 128)
+    det = Detector(load_config(opts=opts, num_classes=10), device=args.device)
+    seeded_weights(det.model, 0)
+    frames = synthetic_frames(n_cams, *frame_hw, seed=0)
+    calibrate_batchnorm(det, frames)
+    for _ in range(2):
+        det.run(*frames)
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    det.timer.reset()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.runs):
+            det.run(*frames)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    stages = det.timer.summary()
+    print(f"{args.runs} runs of Detector.run, {n_cams} cameras, "
+          f"{frame_hw[1]}x{frame_hw[0]} frames; per run: wall "
+          f"{wall_us / 1e3 / args.runs:.2f} ms; stages (ms) "
+          + ", ".join(f"{k} {1e3 * v:.2f}" for k, v in stages.items()))
+    if not on_card:
+        ops = collections.Counter()
+        for evt in prof.key_averages():
+            ops[evt.key] += evt.self_cpu_time_total
+        print("host ops by self CPU time (ms per run), device time not "
+              "measured: " + ", ".join(
+                  f"{k} {v / 1e3 / args.runs:.2f}"
+                  for k, v in ops.most_common(args.top)))
+        return 0
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("device time: not measured (the profiler saw no CUDA kernel)")
+        return 1
+    busy_us = union_us((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+    print(f"device busy {busy_us / 1e3 / args.runs:.2f} ms per run, idle "
+          f"share {1 - busy_us / wall_us:.3f} of the profiled wall time, "
+          f"{len(kernels) / args.runs:.0f} kernels per run")
+    by_group = collections.Counter()
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_group[group_of(e.name)] += dur
+        by_name[e.name] += dur
+        count[e.name] += 1
+    total = sum(by_group.values())
+    for group, us in by_group.most_common():
+        print(f"  {group}: {us / 1e3 / args.runs:.2f} ms per run "
+              f"({us / total:.1%} of kernel time)")
+    print(f"top {args.top} kernels by device time (ms per run, launches "
+          "per run):")
+    for name, us in by_name.most_common(args.top):
+        print(f"  {us / 1e3 / args.runs:8.3f}  {count[name] / args.runs:5.0f}"
+              f"  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
