@@ -74,6 +74,12 @@ def get_affine_transform(
     return solve_affine(src, dst)
 
 
+def apply_affine(points: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """Apply a (2, 3) affine matrix to (N, 2) points."""
+    mat = np.asarray(mat, dtype=points.dtype)
+    return points @ mat[:, :2].T + mat[:, 2]
+
+
 def stack_inverse_transforms(centers, scales, out_wh) -> np.ndarray:
     """Per-image inverse affines -> one (B, 2, 3) float32 stack.
 

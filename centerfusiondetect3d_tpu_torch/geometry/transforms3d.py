@@ -4,9 +4,9 @@ The port's own copy of what the serving path needs from
 ``centerfusiondetect3d_tpu/geometry/transforms3d.py`` (reference
 ``src/lib/utils/pointcloud.py:195-328`` and ``src/lib/utils/ddd.py:8-199``).
 The JAX package runs one set of functions on numpy and jax.numpy; here the
-device side takes torch tensors, and the two functions the host radar
-pipeline calls (``get_3d_box_np``, ``project_3d_points_np``) stay numpy so the
-host raster keeps numpy's float32 rounding.
+device side takes torch tensors, and what the host radar pipeline and the
+training target builder call (the ``*_np`` functions and the rotation-bin
+encoders) stays numpy so the host keeps numpy's float32 rounding.
 """
 
 from __future__ import annotations
@@ -101,17 +101,59 @@ def distance_thresh(calib, center, dim, alpha):
     return z.amax(dim=-1) - z.amin(dim=-1) / 2.0
 
 
-def get_3d_box_np(dim: np.ndarray, location: np.ndarray,
-                  yaw: np.ndarray) -> np.ndarray:
-    """numpy ``get_3d_box`` for the host radar pipeline."""
+def get_3d_corners_np(dim: np.ndarray, yaw: np.ndarray) -> np.ndarray:
+    """numpy ``get_3d_corners``."""
     h, w, l = dim[..., 0:1], dim[..., 1:2], dim[..., 2:3]
     x = l * np.asarray(_X_SIGNS, np.float32)
     y = h * np.asarray(_Y_SIGNS, np.float32)
     z = w * np.asarray(_Z_SIGNS, np.float32)
     c = np.cos(yaw)[..., None]
     s = np.sin(yaw)[..., None]
-    corners = np.stack([c * x + s * z, y, -s * x + c * z], axis=-1)
-    return corners + location[..., None, :]
+    return np.stack([c * x + s * z, y, -s * x + c * z], axis=-1)
+
+
+def get_3d_box_np(dim: np.ndarray, location: np.ndarray,
+                  yaw: np.ndarray) -> np.ndarray:
+    """numpy ``get_3d_box`` for the host radar pipeline."""
+    return get_3d_corners_np(dim, yaw) + location[..., None, :]
+
+
+def distance_thresh_np(calib, center, dim, alpha) -> np.ndarray:
+    """numpy ``distance_thresh`` for the training target builder."""
+    cx = calib[:, None, 0, 2]
+    f = calib[:, None, 0, 0]
+    yaw = alpha + np.arctan2(center[..., 0] - cx, f)
+    yaw = yaw - 2 * PI * (yaw > PI)
+    yaw = yaw + 2 * PI * (yaw < -PI)
+    z = get_3d_corners_np(dim, yaw)[..., 2]
+    return z.max(axis=-1) - z.min(axis=-1) / 2.0
+
+
+def encode_alpha_8bin(alpha: float) -> np.ndarray:
+    """A scalar alpha -> the 8-bin rotation target vector."""
+    ret = np.array([0, 0, 0, 1, 0, 0, 0, 1], np.float32)
+    if alpha < PI / 6.0 or alpha > 5 * PI / 6.0:
+        r = alpha - (-0.5 * PI)
+        ret[1] = 1
+        ret[2], ret[3] = np.sin(r), np.cos(r)
+    if alpha > -PI / 6.0 or alpha < -5 * PI / 6.0:
+        r = alpha - (0.5 * PI)
+        ret[5] = 1
+        ret[6], ret[7] = np.sin(r), np.cos(r)
+    return ret
+
+
+def encode_rotbin_rotres(alpha: float):
+    """Rotation-bin classification targets and residuals."""
+    rotbin = np.zeros(2, np.int64)
+    rotres = np.zeros(2, np.float32)
+    if alpha < PI / 6.0 or alpha > 5 * PI / 6.0:
+        rotbin[0] = 1
+        rotres[0] = alpha - (-0.5 * PI)
+    if alpha > -PI / 6.0 or alpha < -5 * PI / 6.0:
+        rotbin[1] = 1
+        rotres[1] = alpha - (0.5 * PI)
+    return rotbin, rotres
 
 
 def project_3d_points_np(points_3d: np.ndarray,

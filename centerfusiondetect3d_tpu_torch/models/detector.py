@@ -3,9 +3,20 @@
 The port of ``centerfusiondetect3d_tpu/models/detector.py`` (reference
 DLASeg/BaseModel, dla.py:571-635 and base_model.py:30-106): backbone ->
 hierarchical upsampling to stride 4 -> first-stage CenterNet heads ->
-(middle fusion) frustum radar association -> secondary heads. Eval only:
-BatchNorm uses its running statistics. Names follow the reference
-state_dict (``base.*``, ``dla_up.*``, ``ida_up.*``, ``detectHead_0.*``).
+(middle fusion) frustum radar association -> secondary heads. Names follow
+the reference state_dict (``base.*``, ``dla_up.*``, ``ida_up.*``,
+``detectHead_0.*``).
+
+Serving calls ``forward(image, pc_dep, calib)`` in eval mode. Training calls
+``forward(image, pc_dep, calib, pc_hm, train=True)`` (the JAX package's
+``train=True`` branches, ``models/detector.py:149-200``): the secondary heads
+take the ground-truth frustum heatmap ``pc_hm`` of the batch, no frustum
+association runs, and ``pc_hm_in`` is the raw ``pc_dep``. BatchNorm follows
+the module mode, as everywhere in PyTorch: after ``model.train()`` it uses
+batch statistics and updates its running statistics, and with
+``norm_eval`` (``MODEL.NORM_EVAL``) ``train()`` keeps the backbone's
+BatchNorm in eval. Freezing the backbone (``backbone_parameters``) removes
+only its gradients; its BatchNorm statistics still update.
 """
 
 from __future__ import annotations
@@ -22,6 +33,9 @@ from .upsample import DLAUp, IDAUp
 
 FIRST_LEVEL = 2  # log2(down_ratio=4)
 LAST_LEVEL = 5
+# the backbone subtrees that MODEL.FREEZE_BACKBONE freezes (the JAX
+# package's training/state.py:BACKBONE_KEYS); every DCN node lives in them
+BACKBONE_KEYS = ("base", "dla_up", "ida_up")
 
 
 class CenterFusionDLA(nn.Module):
@@ -30,8 +44,9 @@ class CenterFusionDLA(nn.Module):
                  node: str = "DeformConv", fusion_strategy: Optional[str] =
                  "middle", radar_pc: bool = True, frustum: bool = True,
                  one_hot_pc: bool = False, max_pc_dist: float = 60.0,
-                 top_k: int = 100):
+                 top_k: int = 100, norm_eval: bool = False):
         super().__init__()
+        self.norm_eval = bool(norm_eval)
         self.fusion_strategy = fusion_strategy
         self.radar_pc = radar_pc
         self.frustum = frustum
@@ -52,6 +67,22 @@ class CenterFusionDLA(nn.Module):
         self.detectHead_0 = DetectHeadSet(
             channels[FIRST_LEVEL], heads, head_conv, secondary, pc_channels)
 
+    def backbone_parameters(self):
+        """(name, parameter) of ``base``, ``dla_up`` and ``ida_up``."""
+        return [(n, p) for n, p in self.named_parameters()
+                if n.split(".")[0] in BACKBONE_KEYS]
+
+    def train(self, mode: bool = True):
+        """``nn.Module.train``, except that ``norm_eval`` holds the
+        backbone's BatchNorm in eval (running statistics, no updates)."""
+        super().train(mode)
+        if mode and self.norm_eval:
+            for key in BACKBONE_KEYS:
+                for m in getattr(self, key).modules():
+                    if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                        m.eval()
+        return self
+
     @property
     def pc_slice(self) -> int:
         return int(self.max_pc_dist) if self.one_hot_pc else 1
@@ -67,14 +98,20 @@ class CenterFusionDLA(nn.Module):
         return get_pc_frustum_heatmap(y, pc_dep, calib, self.top_k,
                                       self.max_pc_dist)
 
-    def forward(self, image, pc_dep=None, calib=None):
+    def forward(self, image, pc_dep=None, calib=None, pc_hm=None,
+                train: bool = False):
         """image (B, 3, H, W) normalized; pc_dep (B, C_pc, H/4, W/4) raw radar
-        map [d, vx, vz]; calib (B, 3, 4). Returns a dict of NCHW float32 head
-        outputs (plus ``calib``)."""
+        map [d, vx, vz]; calib (B, 3, 4); pc_hm (B, C_pc, H/4, W/4) the
+        batch's radar heatmap, read only with ``train=True`` (where a radar
+        model needs it). Returns a dict of NCHW float32 head outputs (plus
+        ``calib``)."""
         x = image
-        pc_hm = None
-        if self.radar_pc and not (self.frustum
-                                  and self.fusion_strategy == "middle"):
+        if train:
+            if self.radar_pc and pc_hm is None:
+                raise ValueError("forward(train=True) needs the batch's "
+                                 "radar heatmap pc_hm")
+        elif self.radar_pc and not (self.frustum
+                                    and self.fusion_strategy == "middle"):
             # eval-time radar normalization (base_model.py:67-79)
             s = self.pc_slice
             pc_hm = torch.cat([1.0 - pc_dep[:, :s] / self.max_pc_dist,
@@ -88,9 +125,9 @@ class CenterFusionDLA(nn.Module):
         if self.radar_pc and self.fusion_strategy == "middle":
             # outside the frustum path the reference stores the normalized
             # map (its eval normalization mutates pc_dep in place)
-            y["pc_hm_in"] = (pc_hm if not self.frustum else pc_dep)[
-                :, : self.pc_slice]
-            if self.frustum:
+            y["pc_hm_in"] = (pc_hm if not (train or self.frustum)
+                             else pc_dep)[:, : self.pc_slice]
+            if self.frustum and not train:
                 pc_hm = self.frustum_heatmap(y, pc_dep, calib)
             y["pc_hm"] = pc_hm[:, 0:1]
             y.update(self.detectHead_0.second_stage(feats, pc_hm,
@@ -113,4 +150,5 @@ def build_model(config) -> CenterFusionDLA:
         one_hot_pc=bool(config.DATASET.ONE_HOT_PC),
         max_pc_dist=float(config.DATASET.MAX_PC_DIST),
         top_k=int(config.MODEL.K),
+        norm_eval=bool(config.MODEL.NORM_EVAL),
     )

@@ -43,6 +43,11 @@ def resize_nearest(x, size_hw):
     return x.index_select(-2, iy).index_select(-1, ix)
 
 
+def at_least_f32(x):
+    """x in float32, or in its own wider type (float64 reference runs)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def head_tower(cin: int, nout: int, hidden: Sequence[int],
                is_heatmap: bool) -> nn.Sequential:
     layers = []
@@ -76,7 +81,7 @@ class DetectHeadSet(nn.Module):
                                            "heatmap" in name))
 
     def first_stage(self, feats) -> Dict[str, torch.Tensor]:
-        y = {n: getattr(self, n)(feats).float() for n in self.first}
+        y = {n: at_least_f32(getattr(self, n)(feats)) for n in self.first}
         for name in list(y):
             if "heatmap" in name:
                 y[name] = clamp_sigmoid(y[name])
@@ -91,9 +96,10 @@ class DetectHeadSet(nn.Module):
         (detectHeads.py:185)."""
         pc_resized = resize_nearest(pc_hm, feats.shape[-2:]).to(feats.dtype)
         sec_feats = torch.cat([feats, pc_resized], dim=1)
-        y = {n: getattr(self, n)(sec_feats).float() for n in self.secondary}
+        y = {n: at_least_f32(getattr(self, n)(sec_feats))
+             for n in self.secondary}
         if "depth2" in y:
             y["depthMap"] = y["depth2"]
             y["depth2"] = sigmoid_depth(y["depth2"])
-        y["pc_hm_out"] = pc_resized[:, :pc_slice].float()
+        y["pc_hm_out"] = at_least_f32(pc_resized[:, :pc_slice])
         return y

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
@@ -42,7 +43,8 @@ class KernelLibrary:
 
 
 _LOADED: Dict[str, KernelLibrary] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}  # one per source
 
 
 def find_nvcc() -> str:
@@ -65,9 +67,18 @@ def find_nvcc() -> str:
 def load_kernel_library(source: str) -> KernelLibrary:
     """Build (once per source hash) and load ``csrc/<source>``."""
     with _LOCK:
+        lock = _LOCKS.setdefault(source, threading.Lock())
+    with lock:
         if source not in _LOADED:
             _LOADED[source] = _build_and_load(CSRC_DIR / source)
         return _LOADED[source]
+
+
+def load_kernel_libraries(sources) -> Dict[str, KernelLibrary]:
+    """Build and load several sources at once: one nvcc each, together."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return dict(zip(sources, pool.map(load_kernel_library, sources)))
 
 
 def _build_and_load(src: Path) -> KernelLibrary:

@@ -1,11 +1,15 @@
-"""Modulated 3x3 stride-1 deformable convolution (DCNv2), NCHW.
+"""Modulated 3x3 stride-1 deformable convolution (DCNv2), NCHW, with autograd.
 
-The op of every ``DeformConvNode`` and the one kernel of the serving path.
-``deform_conv2d`` is the entry point: on a CPU tensor it runs the plain
-PyTorch version, ``deform_conv2d_plain``; on a CUDA tensor it launches the
-hand-written CUDA kernel ``csrc/dcn_fwd.cu`` (which replaces the Pallas
-kernels of ``centerfusiondetect3d_tpu/ops/pallas_dcn.py``) or raises. It
-never falls back from the card to the plain version.
+The op of every ``DeformConvNode``. ``deform_conv2d`` is the entry point: on
+a CPU tensor it runs the plain PyTorch version, ``deform_conv2d_plain``, and
+autograd differentiates that; on a CUDA tensor it runs ``DeformConv2dFunction``,
+whose forward launches the hand-written kernel ``csrc/dcn_fwd.cu`` (which
+replaces the Pallas forward kernels of
+``centerfusiondetect3d_tpu/ops/pallas_dcn.py``) and whose backward launches
+the kernels of ``csrc/dcn_bwd.cu`` (which replace the backward of
+``deform_conv2d_fast``, ``pallas_dcn.py:409``) around two plain matrix
+products. On the card a kernel launches or the call raises: nothing falls
+back to the plain version.
 
 Semantics are those of ``centerfusiondetect3d_tpu/ops/dcn.py:deform_conv2d``
 and of the reference's ``torchvision.ops.deform_conv2d``: offsets in the
@@ -13,9 +17,11 @@ torchvision layout (``offset[:, 2k] = dy_k``, ``offset[:, 2k+1] = dx_k``,
 taps ``k = 3i + j`` in row-major order), a sigmoided mask, bilinear sampling
 in which a corner outside the image contributes zero, no offset clamp.
 ``max_offset`` clamps dy and dx to ``[-max_offset, max_offset]`` before
-sampling; it reproduces the TPU kernels (8 for ``deform_conv2d_pallas``, 1
-for ``deform_conv2d_pallas_static``) for tests, and the serving path leaves
-it at ``None``.
+sampling, inside the differentiated function, so an offset outside the range
+gets a zero gradient; it reproduces the TPU kernels (8 for
+``deform_conv2d_pallas`` and ``deform_conv2d_fast``, 1 for
+``deform_conv2d_pallas_static``) for tests, and the model leaves it at
+``None``.
 """
 
 from __future__ import annotations
@@ -28,17 +34,12 @@ import torch
 from .cuda_build import load_kernel_library
 
 KERNEL_SOURCE = "dcn_fwd.cu"
+BACKWARD_SOURCE = "dcn_bwd.cu"
 
 
-def deform_conv2d_plain(x, offset, mask, weight, bias=None,
-                        max_offset: Optional[float] = None):
-    """Plain PyTorch DCNv2: flattened-row gathers, then one matmul per tap.
-
-    x (B, C, H, W); offset (B, 18, H, W); mask (B, 9, H, W); weight
-    (O, C, 3, 3); bias (O,) or None. Returns (B, O, H, W).
-    """
+def _plain_taps(x, offset, mask, max_offset):
+    """(i, j, tap) for the 9 taps: tap (B, C, HW) = mask * bilinear samples."""
     b, c, h, w = x.shape
-    o = weight.shape[0]
     hw = h * w
     flat = x.reshape(b, c, hw)
     off = offset.reshape(b, 9, 2, hw)
@@ -48,8 +49,6 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None,
     pos = torch.arange(hw, device=x.device)
     base_y = torch.div(pos, w, rounding_mode="floor").to(x.dtype)
     base_x = (pos % w).to(x.dtype)
-
-    out = None
     for k in range(9):
         i, j = divmod(k, 3)
         py = (base_y + (i - 1)) + off[:, k, 0]
@@ -70,7 +69,20 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None,
                        * valid.to(x.dtype))
                 term = vals * wgt[:, None, :]
                 tap = term if tap is None else tap + term
-        tap = tap * msk[:, k:k + 1]
+        yield i, j, tap * msk[:, k:k + 1]
+
+
+def deform_conv2d_plain(x, offset, mask, weight, bias=None,
+                        max_offset: Optional[float] = None):
+    """Plain PyTorch DCNv2: flattened-row gathers, then one matmul per tap.
+
+    x (B, C, H, W); offset (B, 18, H, W); mask (B, 9, H, W); weight
+    (O, C, 3, 3); bias (O,) or None. Returns (B, O, H, W).
+    """
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    out = None
+    for i, j, tap in _plain_taps(x, offset, mask, max_offset):
         term = torch.matmul(weight[:, :, i, j], tap)  # (B, O, HW)
         out = term if out is None else out + term
     if bias is not None:
@@ -78,36 +90,215 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None,
     return out.reshape(b, o, h, w)
 
 
+def dcn_im2col_plain(x, offset, mask, max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_im2col`` kernel: the modulated sampled
+    columns (B, 9C, H*W), row ``c*9 + k``, the row order of
+    ``weight.reshape(O, 9C)``."""
+    b, c, h, w = x.shape
+    taps = [tap for _, _, tap in _plain_taps(x, offset, mask, max_offset)]
+    return torch.stack(taps, dim=2).reshape(b, 9 * c, h * w)
+
+
+def dcn_col2im_plain(dcols, x, offset, mask,
+                     max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_col2im`` kernel: dx, the gradient of
+    :func:`dcn_im2col_plain` with respect to x for column gradients
+    ``dcols`` (x only gives the shape: the columns are linear in it)."""
+    with torch.enable_grad():
+        xs = torch.zeros_like(x).requires_grad_(True)
+        cols = dcn_im2col_plain(xs, offset.detach(), mask.detach(),
+                                max_offset)
+        return torch.autograd.grad(cols, xs, dcols)[0]
+
+
+def dcn_col2im_coord_plain(dcols, x, offset, mask,
+                           max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_col2im_coord`` kernel: (doffset, dmask),
+    the gradients of :func:`dcn_im2col_plain` with respect to offset and
+    mask for column gradients ``dcols``."""
+    with torch.enable_grad():
+        leaves = [offset.detach().requires_grad_(True),
+                  mask.detach().requires_grad_(True)]
+        cols = dcn_im2col_plain(x.detach(), *leaves, max_offset)
+        return tuple(torch.autograd.grad(cols, leaves, dcols))
+
+
+def deform_conv2d_backward_plain(x, offset, mask, weight, bias, grad_out,
+                                 max_offset: Optional[float] = None):
+    """Plain backward: (dx, doffset, dmask, dweight, dbias) by autograd of
+    :func:`deform_conv2d_plain`; dbias is None when bias is None. The card's
+    backward kernels are held against it."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, offset, mask, weight)]
+        if bias is not None:
+            leaves.append(bias.detach().requires_grad_(True))
+        out = deform_conv2d_plain(*leaves[:4],
+                                  leaves[4] if bias is not None else None,
+                                  max_offset=max_offset)
+        grads = torch.autograd.grad(out, leaves, grad_out)
+    return tuple(grads) + ((None,) if bias is None else ())
+
+
 def deform_conv2d(x, offset, mask, weight, bias=None,
                   max_offset: Optional[float] = None):
-    """DCNv2 forward: the CUDA kernel on the card, the plain version on CPU.
+    """DCNv2 with autograd: the CUDA kernels on the card, the plain version
+    on the CPU.
 
     Same arguments and result as :func:`deform_conv2d_plain`. On CUDA every
     tensor must be contiguous float32 on one device; anything else raises.
-    ``deform_conv2d.launches`` counts the kernel's launches.
+    ``deform_conv2d.launches`` counts the forward kernel's launches; each
+    backward kernel's wrapper (:func:`dcn_im2col`, :func:`dcn_col2im`,
+    :func:`dcn_col2im_coord`) counts its own.
     """
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, max_offset)
     if x.device.type != "cuda":
         raise RuntimeError(f"deform_conv2d: no kernel for device {x.device}")
-    return _launch(x, offset, mask, weight, bias, max_offset)
+    tensors = (x, offset, mask, weight) + ((bias,) if bias is not None else ())
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return _launch(x, offset, mask, weight, bias, max_offset)
+    return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
+                                      max_offset)
 
 
 deform_conv2d.launches = 0
 
 
+class DeformConv2dFunction(torch.autograd.Function):
+    """``dcn_fwd`` forward; backward = the ``dcn_bwd.cu`` kernels around
+    two plain GEMMs, recomputing the columns from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, max_offset):
+        out = _launch(x, offset, mask, weight, bias, max_offset)
+        ctx.save_for_backward(x, offset, mask, weight)
+        ctx.has_bias = bias is not None
+        ctx.max_offset = max_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, offset, mask, weight = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = deform_conv2d_backward(
+            x, offset, mask, weight, grad_out, ctx.max_offset,
+            need_x=need[0], need_offset=need[1], need_mask=need[2],
+            need_weight=need[3], need_bias=ctx.has_bias and need[4])
+        return (*grads, None)
+
+
+def deform_conv2d_backward(x, offset, mask, weight, grad_out,
+                           max_offset: Optional[float] = None,
+                           need_x: bool = True, need_offset: bool = True,
+                           need_mask: bool = True, need_weight: bool = True,
+                           need_bias: bool = True):
+    """(dx, doffset, dmask, dweight, dbias) on the card (on CPU tensors the
+    kernels' plain versions run); a gradient that is not needed is None and
+    costs nothing (dweight alone needs no ``dcn_col2im``/``dcn_col2im_coord``,
+    dx alone no ``dcn_im2col``).
+
+    dweight = sum_b g_b . cols_b^T and dcols = W^T . g are plain fp32
+    matrix products (``torch.matmul``), as the JAX package leaves them to
+    XLA; the rest are the hand-written kernels.
+    """
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    g = grad_out.contiguous().view(b, o, h * w)
+    dx = doffset = dmask = dweight = dbias = None
+    if need_weight:
+        cols = dcn_im2col(x, offset, mask, max_offset)
+        dweight = torch.matmul(g, cols.transpose(1, 2)).sum(0).view(
+            o, c, 3, 3)
+        del cols
+    if need_x or need_offset or need_mask:
+        dcols = torch.matmul(weight.reshape(o, 9 * c).t(),
+                             g).contiguous()  # (B, 9C, HW)
+        if need_x:
+            dx = dcn_col2im(dcols, offset, mask, max_offset)
+        if need_offset or need_mask:
+            doffset, dmask = dcn_col2im_coord(dcols, x, offset, mask,
+                                              max_offset)
+            doffset = doffset if need_offset else None
+            dmask = dmask if need_mask else None
+    if need_bias:
+        dbias = grad_out.sum((0, 2, 3))
+    return dx, doffset, dmask, dweight, dbias
+
+
+def dcn_im2col(x, offset, mask, max_offset: Optional[float] = None):
+    """The ``dcn_im2col`` kernel: (B, 9C, H*W) columns, as
+    :func:`dcn_im2col_plain` (which runs instead on CPU tensors).
+    ``dcn_im2col.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return dcn_im2col_plain(x, offset, mask, max_offset)
+    _require_cuda(x)
+    b, c, h, w = _check_sampling(x, offset, mask, max_offset)
+    cols = torch.empty((b, 9 * c, h * w), device=x.device, dtype=x.dtype)
+    _run(x, "cfd_dcn_im2col", x.data_ptr(), offset.data_ptr(),
+         mask.data_ptr(), cols.data_ptr(), b, c, h, w, _clamp(max_offset))
+    dcn_im2col.launches += 1
+    return cols
+
+
+def dcn_col2im(dcols, offset, mask, max_offset: Optional[float] = None):
+    """The ``dcn_col2im`` kernel: dx (B, C, H, W) from the column gradients
+    (B, 9C, H*W), as :func:`dcn_col2im_plain` (which runs instead on CPU
+    tensors). ``dcn_col2im.launches`` counts launches."""
+    if dcols.device.type == "cpu":
+        b, rows, _ = dcols.shape
+        x = dcols.new_empty((b, rows // 9) + tuple(offset.shape[2:]))
+        return dcn_col2im_plain(dcols, x, offset, mask, max_offset)
+    _require_cuda(dcols)
+    b, c, h, w = _check_columns(dcols, offset, mask, max_offset)
+    dx = torch.zeros((b, c, h, w), device=dcols.device, dtype=dcols.dtype)
+    _run(dcols, "cfd_dcn_col2im", dcols.data_ptr(), offset.data_ptr(),
+         mask.data_ptr(), dx.data_ptr(), b, c, h, w, _clamp(max_offset))
+    dcn_col2im.launches += 1
+    return dx
+
+
+def dcn_col2im_coord(dcols, x, offset, mask,
+                     max_offset: Optional[float] = None):
+    """The ``dcn_col2im_coord`` kernel: (doffset (B, 18, H, W), dmask
+    (B, 9, H, W)) from the column gradients and the saved inputs, as
+    :func:`dcn_col2im_coord_plain` (which runs instead on CPU tensors).
+    ``dcn_col2im_coord.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return dcn_col2im_coord_plain(dcols, x, offset, mask, max_offset)
+    _require_cuda(x)
+    b, c, h, w = _check_sampling(x, offset, mask, max_offset)
+    if tuple(_check(dcols, "dcols", 3)) != (b, 9 * c, h * w):
+        raise ValueError(f"dcols must be ({b}, {9 * c}, {h * w}), got "
+                         f"{tuple(dcols.shape)}")
+    if dcols.device != x.device:
+        raise ValueError("deform_conv2d: all tensors must be on one device")
+    doffset = torch.empty_like(offset)
+    dmask = torch.empty_like(mask)
+    _run(x, "cfd_dcn_col2im_coord", dcols.data_ptr(), x.data_ptr(),
+         offset.data_ptr(), mask.data_ptr(), doffset.data_ptr(),
+         dmask.data_ptr(), b, c, h, w, _clamp(max_offset))
+    dcn_col2im_coord.launches += 1
+    return doffset, dmask
+
+
+dcn_im2col.launches = 0
+dcn_col2im.launches = 0
+dcn_col2im_coord.launches = 0
+BACKWARD_KERNELS = {"dcn_im2col": dcn_im2col, "dcn_col2im": dcn_col2im,
+                    "dcn_col2im_coord": dcn_col2im_coord}
+
+
 def _launch(x, offset, mask, weight, bias, max_offset):
+    """The ``dcn_fwd`` kernel, without autograd: under grad mode it takes
+    no tensor that requires grad (``DeformConv2dFunction`` calls it, and
+    autograd runs a Function's forward with grad mode off)."""
     b, c, h, w = _check(x, "x", 4)
     o = _check(weight, "weight", 4)[0]
     if tuple(weight.shape) != (o, c, 3, 3):
         raise ValueError(f"weight must be ({o}, {c}, 3, 3), got "
                          f"{tuple(weight.shape)}")
-    if tuple(_check(offset, "offset", 4)) != (b, 18, h, w):
-        raise ValueError(f"offset must be ({b}, 18, {h}, {w}), got "
-                         f"{tuple(offset.shape)}")
-    if tuple(_check(mask, "mask", 4)) != (b, 9, h, w):
-        raise ValueError(f"mask must be ({b}, 9, {h}, {w}), got "
-                         f"{tuple(mask.shape)}")
+    _check_sampling(x, offset, mask, max_offset)
     tensors = [offset, mask, weight]
     if bias is not None:
         if tuple(_check(bias, "bias", 1)) != (o,):
@@ -115,26 +306,17 @@ def _launch(x, offset, mask, weight, bias, max_offset):
         tensors.append(bias)
     if any(t.device != x.device for t in tensors):
         raise ValueError("deform_conv2d: all tensors must be on one device")
-    if max_offset is not None and not float(max_offset) >= 0:
-        raise ValueError(f"max_offset must be >= 0 or None, got {max_offset}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in [x, *tensors]):
-        raise RuntimeError("deform_conv2d: the CUDA kernel has no backward "
-                           "yet; call it under torch.no_grad()")
+        raise RuntimeError("deform_conv2d: _launch records no gradient; "
+                           "call deform_conv2d")
 
-    lib = _kernel()
     # (O, C, 3, 3) -> (C, 3, 3, O): each chunk's weight rows are contiguous
     wt = weight.permute(1, 2, 3, 0).contiguous()
     out = torch.empty((b, o, h, w), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.cfd_dcn_fwd(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            b, c, h, w, o,
-            -1.0 if max_offset is None else float(max_offset), stream)
-    if err != 0:
-        raise RuntimeError(f"dcn_fwd kernel launch failed: CUDA error {err}")
+    _run(x, "cfd_dcn_fwd", x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+         wt.data_ptr(), bias.data_ptr() if bias is not None else None,
+         out.data_ptr(), b, c, h, w, o, _clamp(max_offset))
     deform_conv2d.launches += 1
     return out
 
@@ -150,11 +332,70 @@ def _check(t, name: str, ndim: int):
     return t.shape
 
 
-def _kernel():
-    built = load_kernel_library(KERNEL_SOURCE)
-    fn = built.lib.cfd_dcn_fwd
+def _check_sampling(x, offset, mask, max_offset):
+    """Checks x, offset, mask and max_offset; returns (B, C, H, W)."""
+    b, c, h, w = _check(x, "x", 4)
+    if tuple(_check(offset, "offset", 4)) != (b, 18, h, w):
+        raise ValueError(f"offset must be ({b}, 18, {h}, {w}), got "
+                         f"{tuple(offset.shape)}")
+    if tuple(_check(mask, "mask", 4)) != (b, 9, h, w):
+        raise ValueError(f"mask must be ({b}, 9, {h}, {w}), got "
+                         f"{tuple(mask.shape)}")
+    if offset.device != x.device or mask.device != x.device:
+        raise ValueError("deform_conv2d: all tensors must be on one device")
+    if max_offset is not None and not float(max_offset) >= 0:
+        raise ValueError(f"max_offset must be >= 0 or None, got {max_offset}")
+    return b, c, h, w
+
+
+def _check_columns(dcols, offset, mask, max_offset):
+    """Checks (B, 9C, H*W) column gradients against offset and mask;
+    returns (B, C, H, W)."""
+    b, rows, hw = _check(dcols, "dcols", 3)
+    _, _, h, w = _check(offset, "offset", 4)
+    if rows % 9 or hw != h * w or tuple(offset.shape) != (b, 18, h, w):
+        raise ValueError(f"dcols {tuple(dcols.shape)} does not match offset "
+                         f"{tuple(offset.shape)}")
+    if tuple(_check(mask, "mask", 4)) != (b, 9, h, w):
+        raise ValueError(f"mask must be ({b}, 9, {h}, {w}), got "
+                         f"{tuple(mask.shape)}")
+    if offset.device != dcols.device or mask.device != dcols.device:
+        raise ValueError("deform_conv2d: all tensors must be on one device")
+    if max_offset is not None and not float(max_offset) >= 0:
+        raise ValueError(f"max_offset must be >= 0 or None, got {max_offset}")
+    return b, rows // 9, h, w
+
+
+def _require_cuda(t) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(f"deform_conv2d: no kernel for device {t.device}")
+
+
+def _clamp(max_offset) -> float:
+    return -1.0 if max_offset is None else float(max_offset)
+
+
+# C signatures: pointer arguments, then the int shape arguments, then the
+# float clamp and the stream
+_SIGNATURES = {
+    "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5),
+    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4),
+    "cfd_dcn_col2im": (BACKWARD_SOURCE, 4, 4),
+    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4),
+}
+
+
+def _run(like, name: str, *args) -> None:
+    """Builds (once) and calls the C entry point ``name`` on the current
+    stream of ``like``'s device; raises on a launch error."""
+    source, n_ptr, n_int = _SIGNATURES[name]
+    fn = getattr(load_kernel_library(source).lib, name)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
-    return built.lib
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -1,0 +1,126 @@
+"""The training loop: the reference Trainer on one CUDA card.
+
+The port of ``centerfusiondetect3d_tpu/runtime/fit.py:Trainer`` (reference
+``src/lib/trainer.py:20-127`` and its Lightning callbacks) as far as the
+training epochs go: per epoch the frozen-or-not decision of
+``MODEL.FREEZE_BACKBONE`` / ``MODEL.DEFREEZE``, the epoch's learning rate in
+every parameter group, one ``train_step`` per batch, running-average
+meters, a step timer that waits for the device, ``history["train"]`` and
+the non-finite-loss guard of ``TRAIN.NONFINITE_TOLERANCE``.
+
+Not ported yet (ROADMAP.md, Queue 1): validation inside the Trainer,
+checkpoint save and resume, ``MetricsLogger``, ``DeviceHealthMonitor``,
+loss plots and the profiler hook.
+"""
+
+from __future__ import annotations
+
+import logging
+from collections import defaultdict
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..data.pipeline import Loader, to_device
+from ..losses import GenericLoss
+from ..models import build_model
+from ..training import learning_rate, make_optimizer, train_step
+from ..utils.device import resolve_device
+from ..utils.observability import AverageMeter, StageTimer, ToleranceCounter
+from .synthetic import seeded_weights
+
+
+class Trainer:
+    """Builds the model and loss of ``config`` on ``device`` (the CUDA card
+    unless the caller names another) and trains it on ``dataset_train``
+    (any object with ``__len__`` and ``get_item(index, rng)``).
+
+    ``on_step(epoch, step, frozen, metrics)``, when given, is called after
+    every step with the step's metrics as floats.
+    """
+
+    def __init__(self, config, dataset_train=None, device=None,
+                 logger: Optional[logging.Logger] = None,
+                 on_step: Optional[Callable] = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = build_model(config).to(self.device)
+        self.loss_fn = GenericLoss(config)
+        self.dataset_train = dataset_train
+        self.logger = logger or logging.getLogger("cfd3d.trainer")
+        self.on_step = on_step
+        self.history: Dict[str, Dict[str, list]] = {"train": {}}
+        self.steps: List[dict] = []  # per step: epoch, frozen, seconds, total
+        self.start_epoch = 0
+        self.optimizer = None
+        self.timer = StageTimer(self.device)
+        tol = int(config.TRAIN.get("NONFINITE_TOLERANCE", 5))
+        self._nonfinite = ToleranceCounter(tol) if tol > 0 else None
+
+    def init_state(self, state_dict=None, seed: Optional[int] = None):
+        """Weights from ``state_dict`` (e.g. ``weights.state_dict_from_jax``,
+        loaded strictly) or else from ``runtime/synthetic.py:seeded_weights``
+        with ``seed`` (``RANDOM_SEED`` by default); then a fresh optimizer."""
+        if state_dict is not None:
+            self.model.load_state_dict(
+                {k: v.to(self.device) for k, v in state_dict.items()},
+                strict=True)
+        else:
+            seeded_weights(self.model, int(self.config.RANDOM_SEED
+                                           if seed is None else seed))
+        self.optimizer = make_optimizer(self.config, self.model)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.logger.info("parameters: %.2fM", n_params / 1e6)
+
+    def train(self):
+        cfg = self.config
+        if self.optimizer is None:
+            self.init_state()
+        loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
+                        shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED)
+        accum = int(cfg.TRAIN.get("GRAD_ACCUM", 1))
+        for epoch in range(self.start_epoch, cfg.TRAIN.EPOCHS):
+            frozen = (bool(cfg.MODEL.FREEZE_BACKBONE)
+                      and epoch <= cfg.MODEL.DEFREEZE)
+            lr = learning_rate(cfg, epoch, self.start_epoch)
+            meters = defaultdict(AverageMeter)
+            self.timer.reset()
+            loader.epoch = epoch
+            for i, batch in enumerate(loader):
+                batch = to_device(batch, self.device)
+                self.timer.start("step")
+                metrics = train_step(self.model, self.optimizer, self.loss_fn,
+                                     batch, lr, frozen, accum)
+                seconds = self.timer.stop("step")
+                metrics = {k: float(v) for k, v in metrics.items()}
+                for k, v in metrics.items():
+                    meters[k].update(v)
+                self.steps.append({"epoch": epoch, "frozen": frozen,
+                                   "seconds": seconds,
+                                   "total": metrics["total"]})
+                self._guard_nonfinite(metrics["total"], epoch, i)
+                if self.on_step is not None:
+                    self.on_step(epoch, i, frozen, metrics)
+            self.logger.info(
+                "epoch %d lr %.2e frozen %s (%.0f ms/step) %s", epoch, lr,
+                frozen, 1e3 * self.timer.meters["step"].avg,
+                " ".join(f"{k} {m.avg:.4f}" for k, m in sorted(meters.items())))
+            for k, m in meters.items():
+                self.history["train"].setdefault(k, []).append(m.avg)
+        return self.history
+
+    def _guard_nonfinite(self, total: float, epoch: int, step: int):
+        """Raise after ``TRAIN.NONFINITE_TOLERANCE`` consecutive non-finite
+        losses (the reference's guarded logger, logger.py:463-485)."""
+        if self._nonfinite is None:
+            return
+        if np.isfinite(total):
+            self._nonfinite.ok()
+            return
+        self.logger.warning("non-finite total loss (%s) at epoch %d step %d",
+                            total, epoch, step)
+        if self._nonfinite.fail():
+            raise RuntimeError(
+                f"total loss non-finite for {self._nonfinite.tolerance} "
+                "consecutive steps - training diverged; restart with a "
+                "lower LR")

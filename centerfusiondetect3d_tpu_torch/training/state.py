@@ -1,0 +1,97 @@
+"""Optimizer and the train step.
+
+The port of ``centerfusiondetect3d_tpu/training/state.py`` (reference
+``src/lib/model/modelWithLoss.py:43-77,275-299`` and ``trainer.py:65-69``):
+one step = train-mode forward + GenericLoss + backward + one optimizer
+update, with the BatchNorm running statistics updated by the forward.
+
+Freezing the backbone (``MODEL.FREEZE_BACKBONE`` up to ``MODEL.DEFREEZE``)
+turns ``requires_grad`` off on ``base``, ``dla_up`` and ``ida_up``, as the
+reference does (dla.py:618-621): autograd then prunes the whole backbone
+backward, DCN nodes included, and the frozen parameters keep ``.grad =
+None``, so ``torch.optim`` neither decays them nor ticks their per-parameter
+step counts. The JAX package imitates that with ``scale_by_adam_perparam``,
+which infers activity from nonzero gradient values; the two agree whenever a
+live parameter's gradient is not exactly zero (state.py:57-71 there).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+WEIGHT_DECAY = 5e-4
+
+
+def make_optimizer(config, model: torch.nn.Module) -> torch.optim.Optimizer:
+    """AdamW (weight decay 5e-4) or SGD (momentum 0.9, weight decay 5e-4)
+    over every parameter; the Trainer sets the LR of each step."""
+    name = config.TRAIN.OPTIMIZER
+    params = list(model.parameters())
+    lr = float(config.TRAIN.LR)
+    if name == "adam":
+        return torch.optim.AdamW(params, lr=lr, weight_decay=WEIGHT_DECAY)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr, momentum=0.9,
+                               weight_decay=WEIGHT_DECAY)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def set_backbone_frozen(model, frozen: bool) -> None:
+    """requires_grad off (frozen) or on for ``base``, ``dla_up``, ``ida_up``."""
+    for _, p in model.backbone_parameters():
+        p.requires_grad_(not frozen)
+
+
+def _microbatches(batch, n: int):
+    """Split every tensor of a (nested) batch dict on its leading axis."""
+    if n == 1:
+        return [batch]
+    out = [dict() for _ in range(n)]
+    for key, value in batch.items():
+        parts = (_microbatches(value, n) if isinstance(value, dict)
+                 else value.chunk(n, dim=0))
+        for i in range(n):
+            out[i][key] = parts[i]
+    return out
+
+
+def train_step(model, optimizer, loss_fn, batch: Dict, lr: float,
+               frozen: bool = False, accum_steps: int = 1
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer update on a device batch (``data/pipeline.py:to_device``).
+
+    ``accum_steps > 1`` (``TRAIN.GRAD_ACCUM``) runs the forward and backward
+    over that many sequential microbatches and applies one update with the
+    mean gradient, like ``make_train_step`` and the reference's DDP ranks:
+    each microbatch normalizes its own loss, and BatchNorm statistics update
+    microbatch after microbatch. A batch size that ``accum_steps`` does not
+    divide is rejected. Returns the loss parts (``total`` included) averaged
+    over the microbatches, and ``grad_norm``, the global norm of the applied
+    gradient, as 0-d tensors on the device.
+    """
+    b = batch["image"].shape[0]
+    if accum_steps < 1 or b % accum_steps:
+        raise ValueError(f"TRAIN.GRAD_ACCUM={accum_steps} must divide the "
+                         f"batch size {b}")
+    model.train()
+    set_backbone_frozen(model, frozen)
+    optimizer.zero_grad(set_to_none=True)
+    sums: Dict[str, torch.Tensor] = {}
+    for micro in _microbatches(batch, accum_steps):
+        outputs = model(micro["image"], micro.get("pc_dep"),
+                        micro.get("calib"), micro.get("pc_hm"), train=True)
+        total, parts = loss_fn([outputs], micro)
+        (total / accum_steps).backward()
+        for k, v in parts.items():
+            v = v.detach()
+            sums[k] = sums[k] + v if k in sums else v
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    metrics = {k: v / accum_steps for k, v in sums.items()}
+    metrics["grad_norm"] = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+    optimizer.step()
+    return metrics

@@ -1,8 +1,9 @@
-"""Per-stage wall timing with device synchronisation.
+"""Per-stage wall timing with device synchronisation, meters, a tolerance
+counter.
 
-The port of ``AverageMeter`` and ``StageTimer`` from
+The port of ``AverageMeter``, ``StageTimer`` and ``ToleranceCounter`` from
 ``centerfusiondetect3d_tpu/utils/observability.py`` (reference
-``src/lib/utils/utils.py:52-66,324-339``). PyTorch returns before the card
+``src/lib/utils/utils.py:52-66,324-339`` and ``logger.py:463-485``). PyTorch returns before the card
 finishes, so on a CUDA device ``stop`` first waits for the device with
 ``torch.cuda.synchronize`` and a stage's time covers its device work.
 """
@@ -54,3 +55,18 @@ class StageTimer:
     def reset(self):
         self.meters.clear()
         self._start.clear()
+
+
+class ToleranceCounter:
+    """N consecutive failures trip the guard (logger.py:463-485)."""
+
+    def __init__(self, tolerance: int = 5):
+        self.tolerance = tolerance
+        self.count = 0
+
+    def ok(self):
+        self.count = 0
+
+    def fail(self) -> bool:
+        self.count += 1
+        return self.count >= self.tolerance

@@ -20,14 +20,34 @@ On the card it:
    detections are finite;
 5. runs the model once more with the plain DCN and holds every head against
    the kernel run;
-6. prints a ``{"kernels": [...]}`` line and, last, the
+6. holds the DCN backward kernels (``csrc/dcn_bwd.cu``: ``dcn_im2col``,
+   ``dcn_col2im``, ``dcn_col2im_coord``, around two plain GEMMs) against the
+   plain backward (autograd of the plain DCN) at every distinct node shape
+   with B=2, at max_offset None, 8 and 1, each kernel also against its own
+   plain version, and times the backward, its parts and the plain backward;
+7. trains with ``runtime/fit.py:Trainer`` at the same full width:
+   ``TRAIN.BATCH_SIZE 26`` in 2 microbatches of 13 (``GRAD_ACCUM 2``) on 52
+   synthetic items, ``FREEZE_BACKBONE`` with ``DEFREEZE 0`` and 2 epochs:
+   2 frozen steps, then 2 unfrozen ones (after one untimed warm-up step
+   that is undone); checks that every loss part is finite, that the
+   backbone stays bitwise unchanged through the frozen steps and changes in
+   the unfrozen ones, that the heads change in both, and that the kernels
+   launched once per DCN node per microbatch (the backward ones only in
+   unfrozen steps); reports ms per step, images/s and peak memory;
+8. runs one unfrozen train step of B=2 at full width three times on the
+   same seeded weights and batch: with the kernel DCN, the plain DCN, and
+   the plain DCN in float64; holds each DCN node's in-step backward against
+   the plain backward on its own tensors, and every loss part and parameter
+   gradient of the kernel step against the float64 step, at the float32
+   noise floor the plain step measures;
+9. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
-rehearsal runs the same path at 64x128 with 2 cameras on the CPU, where the
-DCN op is the plain version; its last line is ``{"ok": true, "rehearsal":
-"cpu"}``.
+rehearsal runs the same path at 64x128 with 2 cameras (and a training batch
+of 4 in 2 microbatches) on the CPU, where the DCN op is the plain version;
+its last line is ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
@@ -44,19 +64,25 @@ import numpy as np
 import torch
 
 from centerfusiondetect3d_tpu_torch.config import load_config
+from centerfusiondetect3d_tpu_torch.data.pipeline import stack_items, to_device
+from centerfusiondetect3d_tpu_torch.losses import GenericLoss
+from centerfusiondetect3d_tpu_torch.models import build_model
 from centerfusiondetect3d_tpu_torch.models.layers import DeformConvNode
 from centerfusiondetect3d_tpu_torch.ops import dcn
-from centerfusiondetect3d_tpu_torch.ops.cuda_build import load_kernel_library
+from centerfusiondetect3d_tpu_torch.ops.cuda_build import load_kernel_libraries
 from centerfusiondetect3d_tpu_torch.ops.rasterize import (
     paint_rects_device_batch,
 )
 from centerfusiondetect3d_tpu_torch.runtime.detector import Detector
+from centerfusiondetect3d_tpu_torch.runtime.fit import Trainer
 from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     MAIN_PATH_OPTS,
+    SyntheticTrainingSet,
     calibrate_batchnorm,
     seeded_weights,
     synthetic_frames,
 )
+from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
 
 SEED = 0
 TIMED_RUNS = 5
@@ -71,6 +97,25 @@ KERNEL_RTOL = 1e-4
 # heads, kernel DCN vs plain DCN: max |a - b| / max |b| per head; the
 # per-node difference above passes through the rest of DLA-34
 HEADS_RTOL = 1e-3
+# backward kernels vs plain backward: max |kernel - plain| / max |plain| per
+# gradient tensor; sums over C, B*H*W or 9C in another order, and dx with
+# fp32 atomics whose order changes from run to run: the forward's limit
+GRAD_RTOL = 1e-4
+# one train step, kernel DCN against the float64 plain step: each loss part
+# and parameter gradient within NOISE_MULT times the plain float32 step's
+# own deviation plus STEP_RTOL (the heads' limit) of the float64 tensor's
+# largest magnitude; see step_kernel_vs_plain for why the float32 noise
+# floor and not STEP_RTOL alone
+STEP_RTOL = 1e-3
+NOISE_MULT = 4  # the JAX package's golden train-step test's multiple
+BWD_BATCH = 2  # the backward check's batch: the plain autograd must fit
+# the training main path: the flagship's batch of 26 (MAIN_PATH_OPTS) in
+# microbatches of 13; 2 epochs of 2 steps, the first frozen
+TRAIN_OPTS = ["TRAIN.GRAD_ACCUM", "2", "MODEL.DEFREEZE", "0",
+              "TRAIN.EPOCHS", "2"]
+TRAIN_ITEMS = 52
+BWD_KERNELS = ("dcn_im2col", "dcn_col2im", "dcn_col2im_coord")
+GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
 
 
 def log(msg: str) -> None:
@@ -261,6 +306,385 @@ def check_heads(det: Detector, frames):
     return worst, same_frustum
 
 
+def time_one(fn, reps: int) -> float:
+    """Median ms of fn with CUDA events, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bwd_bounds(shape):
+    """Least time on an H100 SXM (fp32: 67 TFLOP/s, 3.35 TB/s) of each part
+    of one node's backward: (flops, bytes, bound ms, bound_by) per part and
+    for the whole backward; each input read and each output written once.
+    Flops per column element: im2col 7 (4 products, 3 sums), col2im 8 (4
+    products and 4 atomic adds), coord 25 (the sample and its 2 bilinear
+    derivatives, 3 multiply-adds); GEMMs 2 x 2*B*O*9C*HW."""
+    b, c, h, w, o = shape
+    hw = h * w
+    cols = 9 * b * c * hw
+    x, om, g, wt = b * c * hw, 27 * b * hw, b * o * hw, 9 * c * o
+    parts = {
+        "dcn_im2col": (7 * cols, 4 * (x + om + cols)),
+        "dcn_col2im": (8 * cols, 4 * (cols + om + x)),
+        "dcn_col2im_coord": (25 * cols, 4 * (cols + x + om + om)),
+        "gemms": (4 * b * o * 9 * c * hw, 4 * (g + cols + wt + wt + cols)),
+    }
+    parts["backward"] = (sum(f for f, _ in parts.values()),
+                         4 * (x + om + wt + g + x + om + wt + o))
+    out = {}
+    for name, (flops, nbytes) in parts.items():
+        t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        out[name] = (flops, nbytes, 1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def check_backward(shapes, device, timed: bool, micro: int):
+    """Backward kernels vs plain at each distinct node shape with B=2 and
+    max_offset in (None, 8, 1): the five gradients, and each kernel against
+    its own plain version on the same inputs. On the card also the CUDA-event
+    medians of the backward, its parts and the plain versions, and of the
+    forward and backward kernels at the training microbatch ``micro``."""
+    rows = []
+    for i, full in enumerate(sorted(set(shapes), key=shapes.index)):
+        shape = (BWD_BATCH,) + tuple(full[1:])
+        b, c, h, w, o = shape
+        x, off, mask, wt, bias = dcn_inputs(shape, device, SEED + 100 + i)
+        gen = torch.Generator(device=device).manual_seed(SEED + 200 + i)
+        g = torch.randn((b, o, h, w), generator=gen, device=device)
+        errs = {k: 0.0 for k in BWD_KERNELS}
+        worst = 0.0
+
+        def dcols_of():
+            return torch.matmul(wt.reshape(o, 9 * c).t(),
+                                g.view(b, o, h * w)).contiguous()
+
+        for max_offset in (None, 8.0, 1.0):
+            got = dcn.deform_conv2d_backward(x, off, mask, wt, g, max_offset)
+            want = dcn.deform_conv2d_backward_plain(x, off, mask, wt, bias, g,
+                                                    max_offset)
+            for name, a, ref in zip(GRAD_NAMES, got, want):
+                rel = rel_err(a, ref)
+                worst = max(worst, rel)
+                if not (math.isfinite(rel) and rel <= GRAD_RTOL):
+                    raise AssertionError(
+                        f"DCN backward {name} disagrees with the plain "
+                        f"backward at {shape}, max_offset={max_offset}: "
+                        f"relative {rel:.3e} > {GRAD_RTOL}")
+            dcols = dcols_of()
+            pairs = {
+                "dcn_im2col": [(dcn.dcn_im2col(x, off, mask, max_offset),
+                                dcn.dcn_im2col_plain(x, off, mask,
+                                                     max_offset))],
+                "dcn_col2im": [(dcn.dcn_col2im(dcols, off, mask, max_offset),
+                                dcn.dcn_col2im_plain(dcols, x, off, mask,
+                                                     max_offset))],
+                "dcn_col2im_coord": list(zip(
+                    dcn.dcn_col2im_coord(dcols, x, off, mask, max_offset),
+                    dcn.dcn_col2im_coord_plain(dcols, x, off, mask,
+                                               max_offset))),
+            }
+            for name, items in pairs.items():
+                for a, ref in items:
+                    rel = rel_err(a, ref)
+                    if not (math.isfinite(rel) and rel <= GRAD_RTOL):
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version at "
+                            f"{shape}, max_offset={max_offset}: relative "
+                            f"{rel:.3e} > {GRAD_RTOL}")
+                    errs[name] = max(errs[name],
+                                     float((a - ref).abs().max()))
+        bounds = bwd_bounds(shape)
+        row = {"shape": list(shape), "nodes": shapes.count(full),
+               "max_rel_err": worst, "max_abs_err": errs,
+               "bound_ms": {k: v[2] for k, v in bounds.items()},
+               "bound_by": {k: v[3] for k, v in bounds.items()},
+               "gflop": {k: v[0] / 1e9 for k, v in bounds.items()},
+               "mbytes": {k: v[1] / 1e6 for k, v in bounds.items()}}
+        if timed:
+            dcols = dcols_of()
+            cols = dcn.dcn_im2col(x, off, mask)
+            ms, plain = {}, {}
+            ms["backward"], plain["backward"] = time_pair(
+                lambda: dcn.deform_conv2d_backward(x, off, mask, wt, g),
+                lambda: dcn.deform_conv2d_backward_plain(
+                    x, off, mask, wt, bias, g), TIMING_REPS)
+            ms["dcn_im2col"], plain["dcn_im2col"] = time_pair(
+                lambda: dcn.dcn_im2col(x, off, mask),
+                lambda: dcn.dcn_im2col_plain(x, off, mask), TIMING_REPS)
+            ms["dcn_col2im"], plain["dcn_col2im"] = time_pair(
+                lambda: dcn.dcn_col2im(dcols, off, mask),
+                lambda: dcn.dcn_col2im_plain(dcols, x, off, mask),
+                TIMING_REPS)
+            ms["dcn_col2im_coord"], plain["dcn_col2im_coord"] = time_pair(
+                lambda: dcn.dcn_col2im_coord(dcols, x, off, mask),
+                lambda: dcn.dcn_col2im_coord_plain(dcols, x, off, mask),
+                TIMING_REPS)
+            ms["gemms"] = time_one(lambda: (
+                torch.matmul(g.view(b, o, h * w), cols.transpose(1, 2)).sum(0),
+                dcols_of()), TIMING_REPS)
+            row["ms"], row["plain_ms"] = ms, plain
+            # kernel times at the training microbatch, for the step shares
+            mshape = (micro,) + tuple(full[1:])
+            mx, moff, mmask, mwt, mbias = dcn_inputs(mshape, device, SEED)
+            mg = torch.randn((micro, o, h, w), generator=gen, device=device)
+            row["micro_ms"] = {
+                "forward": time_one(lambda: dcn.deform_conv2d(
+                    mx, moff, mmask, mwt, mbias), 5),
+                "backward": time_one(lambda: dcn.deform_conv2d_backward(
+                    mx, moff, mmask, mwt, mg), 5)}
+        rows.append(row)
+        log(f"  dcn backward {shape} x{row['nodes']}: max rel err "
+            f"{worst:.2e} (limit {GRAD_RTOL}), per kernel abs "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + ("" if not timed else
+               "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+               + f"; plain backward {plain['backward']:.4f} ms; bound "
+               f"{bounds['backward'][2]:.4f} ms ({bounds['backward'][3]})"
+               f"; at B={micro}: forward {row['micro_ms']['forward']:.3f} ms"
+               f", backward {row['micro_ms']['backward']:.3f} ms"))
+    return rows
+
+
+def launch_counts():
+    return {"dcn_fwd": dcn.deform_conv2d.launches,
+            **{k: f.launches for k, f in dcn.BACKWARD_KERNELS.items()}}
+
+
+def reset_launch_counts():
+    dcn.deform_conv2d.launches = 0
+    for f in dcn.BACKWARD_KERNELS.values():
+        f.launches = 0
+
+
+def train_main_path(device, rehearsal: bool):
+    """Phase 7: the Trainer at full width, counted; returns its report."""
+    opts = MAIN_PATH_OPTS + TRAIN_OPTS
+    n_items = TRAIN_ITEMS
+    if rehearsal:
+        opts = opts + ["MODEL.INPUT_SIZE", "(64, 128)", "TRAIN.BATCH_SIZE",
+                       "4"]
+        n_items = 8
+    cfg = load_config(opts=opts, num_classes=10)
+    accum = int(cfg.TRAIN.GRAD_ACCUM)
+    batch_size = int(cfg.TRAIN.BATCH_SIZE)
+    t0 = time.perf_counter()
+    ds = SyntheticTrainingSet(cfg, n_items, seed=SEED)
+    trainer = Trainer(cfg, ds, device=device)
+    trainer.init_state(seed=SEED)
+    model = trainer.model
+    n_nodes = sum(isinstance(m, DeformConvNode) for m in model.modules())
+    # one untimed warm-up step (kernel builds, library handles), undone
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    first = to_device(stack_items([ds.get_item(i)
+                                   for i in range(batch_size)]), device)
+    train_step(model, make_optimizer(cfg, model), trainer.loss_fn, first, 0.0,
+               False, accum)
+    model.load_state_dict(saved)
+    model.zero_grad(set_to_none=True)
+    del first, saved
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t0
+
+    def snapshot():
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    snaps, counts, parts = [snapshot()], [], []
+
+    def on_step(epoch, step, frozen, metrics):
+        counts.append(launch_counts())
+        snaps.append(snapshot())
+        parts.append(metrics)
+
+    trainer.on_step = on_step
+    reset_launch_counts()
+    trainer.train()
+    steps = trainer.steps
+    phases = [s["frozen"] for s in steps]
+    want_phases = [True] * (n_items // batch_size) + [False] * (
+        n_items // batch_size)
+    if phases != want_phases:
+        raise AssertionError(f"frozen per step {phases}, want {want_phases}")
+    for k, metrics in enumerate(parts):
+        bad = [n for n, v in metrics.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {k}: non-finite loss parts {bad}")
+    backbone_names = {n for n, _ in model.backbone_parameters()}
+    for k, frozen in enumerate(phases):
+        prev, cur = snaps[k], snaps[k + 1]
+        phase = "frozen" if frozen else "unfrozen"
+        for name in cur:
+            same = torch.equal(prev[name], cur[name])
+            backbone = name in backbone_names
+            if backbone and frozen and not same:
+                raise AssertionError(f"frozen step {k} changed {name}")
+            if (not backbone or not frozen) and same:
+                raise AssertionError(f"{phase} step {k} left {name} "
+                                     "unchanged")
+    # launches per step: forward once per node per microbatch; backward
+    # kernels the same, in unfrozen steps only; none on the CPU
+    per_node = 0 if rehearsal else n_nodes * accum
+    prev = {k: 0 for k in counts[0]}
+    for k, (frozen, cur) in enumerate(zip(phases, counts)):
+        delta = {n: cur[n] - prev[n] for n in cur}
+        want = {n: (per_node if n == "dcn_fwd" or not frozen else 0)
+                for n in cur}
+        if delta != want:
+            phase = "frozen" if frozen else "unfrozen"
+            raise AssertionError(f"{phase} step {k}: launches {delta}, want "
+                                 f"{want}")
+        prev = cur
+    ms = {ph: [1e3 * s["seconds"] for s in steps if s["frozen"] == fz]
+          for ph, fz in (("frozen", True), ("unfrozen", False))}
+    report = {
+        "batch": batch_size, "grad_accum": accum, "items": n_items,
+        "steps": len(steps), "launches": counts[-1],
+        "expected_backward_launches": per_node * phases.count(False),
+        "ms_per_step": {k: statistics.mean(v) for k, v in ms.items()},
+        "ms_steps": ms,
+        "images_per_s": {k: batch_size / (statistics.mean(v) / 1e3)
+                         for k, v in ms.items()},
+        "setup_s": setup_s,
+        "total": [s["total"] for s in steps],
+    }
+    if not rehearsal:
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return report
+
+
+def record_dcn_nodes(model):
+    """Route every DCN node through a recorder of what its op sees in a
+    train step: inputs, weight, output gradient, and the gradients the op
+    returns for x, offset and mask (the weight's and bias's are the
+    parameters' own .grad). Returns the list the step fills."""
+    records = []
+
+    def make(node):
+        def fn(x, offset, mask, weight, bias, max_offset=None):
+            xv = x.view_as(x)  # the op's own handle on x: only it feeds dx
+            rec = {"node": node, "x": x.detach(), "offset": offset.detach(),
+                   "mask": mask.detach(), "weight": weight.detach().clone(),
+                   "bias": bias.detach().clone()}
+            for name, t in (("dx", xv), ("doffset", offset), ("dmask", mask)):
+                t.register_hook(lambda g, name=name: rec.__setitem__(name, g))
+            out = dcn.deform_conv2d(xv, offset, mask, weight, bias,
+                                    max_offset)
+            out.register_hook(lambda g: rec.__setitem__("grad_out", g))
+            records.append(rec)
+            return out
+        return fn
+
+    for m in model.modules():
+        if isinstance(m, DeformConvNode):
+            m.dcn_fn = make(m)
+    return records
+
+
+def step_kernel_vs_plain(device, rehearsal: bool):
+    """Phase 8: one unfrozen B=2 step on the same seeded weights and batch,
+    with the kernel DCN (float32), the plain DCN (float32) and the plain
+    DCN in float64. Inside the kernel step, each DCN node's backward is held
+    against the plain backward on the very tensors it saw (GRAD_RTOL). The
+    whole step's loss parts and parameter gradients, kernel against the
+    float64 step, are held to NOISE_MULT times the plain float32 step's own
+    deviation from it, plus STEP_RTOL: a float32 train step of this seeded
+    DLA-34 is chaotic (train-mode BatchNorm over nearly constant channels
+    amplifies rounding), so two correct float32 steps differ far more than
+    STEP_RTOL (measured up to 1.4x a gradient's largest magnitude)."""
+    opts = MAIN_PATH_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"]
+                             if rehearsal else [])
+    cfg = load_config(opts=opts, num_classes=10)
+    ds = SyntheticTrainingSet(cfg, BWD_BATCH, seed=SEED + 1)
+    host = stack_items([ds.get_item(i) for i in range(BWD_BATCH)])
+    runs, records = {}, []
+    for tag, fn, dtype in (("kernel", dcn.deform_conv2d, torch.float32),
+                           ("plain", dcn.deform_conv2d_plain, torch.float32),
+                           ("plain64", dcn.deform_conv2d_plain,
+                            torch.float64)):
+        model = build_model(cfg)
+        seeded_weights(model, SEED)
+        model = model.to(device, dtype)
+        if tag == "kernel":
+            records = record_dcn_nodes(model)
+        else:
+            for m in model.modules():
+                if isinstance(m, DeformConvNode):
+                    m.dcn_fn = fn
+
+        def cast(v):
+            return v.to(dtype) if v.is_floating_point() else v
+
+        batch = {k: ({kk: cast(vv) for kk, vv in v.items()}
+                     if isinstance(v, dict) else cast(v))
+                 for k, v in to_device(host, device).items()}
+        metrics = train_step(model, make_optimizer(cfg, model),
+                             GenericLoss(cfg), batch, float(cfg.TRAIN.LR))
+        runs[tag] = ({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.double() for n, p in model.named_parameters()})
+        if tag == "kernel":
+            node_worst = 0.0
+            for rec in records:
+                want = dcn.deform_conv2d_backward_plain(
+                    rec["x"], rec["offset"], rec["mask"], rec["weight"],
+                    rec["bias"], rec["grad_out"])
+                got = (rec["dx"], rec["doffset"], rec["dmask"],
+                       rec["node"].weight.grad, rec["node"].bias.grad)
+                for name, a, ref in zip(GRAD_NAMES, got, want):
+                    rel = rel_err(a, ref)
+                    node_worst = max(node_worst, rel)
+                    if not (math.isfinite(rel) and rel <= GRAD_RTOL):
+                        raise AssertionError(
+                            f"in-step DCN backward {name} at "
+                            f"{tuple(rec['x'].shape)}: relative {rel:.3e} "
+                            f"> {GRAD_RTOL} against the plain backward")
+            n_nodes = len(records)
+            records = []
+        del model, batch
+    (m_k, g_k), (m_p, g_p), (m_64, g_64) = (runs[t] for t in
+                                            ("kernel", "plain", "plain64"))
+    worst = {"loss_kernel": 0.0, "loss_plain": 0.0, "grad_kernel": 0.0,
+             "grad_plain": 0.0, "ratio": 0.0}
+
+    def held(what, ek, ep, kind):
+        worst[f"{kind}_kernel"] = max(worst[f"{kind}_kernel"], ek)
+        worst[f"{kind}_plain"] = max(worst[f"{kind}_plain"], ep)
+        worst["ratio"] = max(worst["ratio"], ek / max(ep, 1e-30))
+        if not (math.isfinite(ek) and ek <= NOISE_MULT * ep + STEP_RTOL):
+            raise AssertionError(
+                f"{what}: kernel step {ek:.3e} from the float64 step, plain "
+                f"float32 step {ep:.3e}; limit {NOISE_MULT} x plain + "
+                f"{STEP_RTOL}")
+
+    for k, want in m_64.items():
+        scale = max(abs(want), 1e-30)
+        held(f"loss {k}", abs(m_k[k] - want) / scale,
+             abs(m_p[k] - want) / scale, "loss")
+    for name, want in g_64.items():
+        base = name[:-len(".bias")]
+        if name.endswith(".bias") and base + ".conv_offset_mask.weight" in g_64:
+            continue  # exact gradient 0 (train-mode BatchNorm follows)
+        held(f"gradient {name}", rel_err(g_k[name], want),
+             rel_err(g_p[name], want), "grad")
+    return {"nodes_checked": n_nodes, "node_rel": node_worst,
+            "tensors": len(g_64), **worst}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -287,11 +711,15 @@ def main(argv=None) -> int:
     if not rehearsal:
         card = nvidia_smi()
         log(f"card: {card}")
-        built = load_kernel_library(dcn.KERNEL_SOURCE)
-        log(f"dcn_fwd.cu built with nvcc in {built.build_seconds:.1f} s "
-            f"-> {built.path.name}")
-        for line in built.ptxas:
-            log(f"  ptxas: {line}")
+        t_build = time.perf_counter()
+        built = load_kernel_libraries([dcn.KERNEL_SOURCE,
+                                       dcn.BACKWARD_SOURCE])
+        log(f"built {len(built)} sources with nvcc in parallel in "
+            f"{time.perf_counter() - t_build:.1f} s")
+        for source, lib in built.items():
+            log(f"{source}: nvcc {lib.build_seconds:.1f} s -> {lib.path.name}")
+            for line in lib.ptxas:
+                log(f"  ptxas: {line}")
     log(f"phase environment: {time.perf_counter() - t0:.1f} s")
 
     # 2. the detector at full width, seeded weights, warm-up run
@@ -359,6 +787,64 @@ def main(argv=None) -> int:
         f"selection identical: {same_frustum}")
     log("  " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     log(f"phase heads: {time.perf_counter() - t0:.1f} s")
+    serving_launches = launches
+    del det
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    # 6. backward kernels vs plain backward at every distinct node shape
+    t0 = time.perf_counter()
+    micro = (int(MAIN_PATH_OPTS[MAIN_PATH_OPTS.index("TRAIN.BATCH_SIZE") + 1])
+             // int(TRAIN_OPTS[TRAIN_OPTS.index("TRAIN.GRAD_ACCUM") + 1]))
+    bwd_rows = check_backward(shapes, args.device, timed=not rehearsal,
+                              micro=micro)
+    log(f"phase backward-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+    # 7. the Trainer at full width, counted
+    t0 = time.perf_counter()
+    train = train_main_path(args.device, rehearsal)
+    log(f"training: batch {train['batch']} in {train['grad_accum']} "
+        f"microbatches, {train['steps']} steps ({train['steps'] // 2} frozen, "
+        f"{train['steps'] // 2} unfrozen) after 1 untimed warm-up step; "
+        f"launches {train['launches']} (backward kernels expected "
+        f"{train['expected_backward_launches']} each); losses "
+        + ", ".join(f"{v:.4f}" for v in train["total"]) + ", all finite")
+    for phase in ("frozen", "unfrozen"):
+        log(f"  {phase}: {train['ms_per_step'][phase]:.1f} ms per step ("
+            + ", ".join(f"{v:.1f}" for v in train["ms_steps"][phase])
+            + f"), {train['images_per_s'][phase]:.2f} images/s"
+            + (" on the host CPU (rehearsal)" if rehearsal else f" on {card}"))
+    if not rehearsal:
+        fwd = sum(r["micro_ms"]["forward"] * r["nodes"] for r in bwd_rows)
+        bwd = sum(r["micro_ms"]["backward"] * r["nodes"] for r in bwd_rows)
+        accum = train["grad_accum"]
+        train["dcn_share"] = {
+            "forward_ms_per_step": fwd * accum,
+            "backward_ms_per_step": bwd * accum,
+            "frozen_forward": fwd * accum / train["ms_per_step"]["frozen"],
+            "unfrozen_forward": fwd * accum
+            / train["ms_per_step"]["unfrozen"],
+            "unfrozen_backward": bwd * accum
+            / train["ms_per_step"]["unfrozen"]}
+        log(f"  peak memory {train['peak_mem_gb']:.2f} GB; DCN kernels per "
+            f"step (node times at B={micro}, x{accum} microbatches): forward "
+            f"{fwd * accum:.1f} ms, backward {bwd * accum:.1f} ms = "
+            f"{100 * train['dcn_share']['unfrozen_backward']:.1f}% of an "
+            f"unfrozen step")
+    log(f"phase training: {time.perf_counter() - t0:.1f} s")
+
+    # 8. one unfrozen step, kernel DCN vs plain DCN
+    t0 = time.perf_counter()
+    step = step_kernel_vs_plain(args.device, rehearsal)
+    log(f"train step B={BWD_BATCH}: in-step backward of {step['nodes_checked']}"
+        f" DCN nodes within {step['node_rel']:.2e} of the plain backward on "
+        f"their own tensors (limit {GRAD_RTOL}); against the float64 plain "
+        f"step, the kernel step's loss parts within {step['loss_kernel']:.2e}"
+        f" (plain float32 step {step['loss_plain']:.2e}) and its "
+        f"{step['tensors']} gradients within {step['grad_kernel']:.2e} "
+        f"(plain float32 {step['grad_plain']:.2e}); worst kernel/plain ratio "
+        f"{step['ratio']:.2f} (limit {NOISE_MULT} x plain + {STEP_RTOL})")
+    log(f"phase step-vs-plain: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -369,7 +855,8 @@ def main(argv=None) -> int:
         "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_fwd.cu",
         "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:117",
         "also_replaces": ["centerfusiondetect3d_tpu/ops/pallas_dcn.py:240"],
-        "launches": launches,
+        "launches": serving_launches,
+        "training_launches": train["launches"]["dcn_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per forward of the main path: the sum over its DCN node launches
         "ms": sum(r["ms"] * r["nodes"] for r in rows),
@@ -380,8 +867,34 @@ def main(argv=None) -> int:
         "library_ms": None,
         "per_node_shape": rows,
     }
+    kernels = [kernel]
+    for name in BWD_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_bwd.cu",
+            "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:409",
+            "launches": train["launches"][name],
+            "max_abs_err": max(r["max_abs_err"][name] for r in bwd_rows),
+            # per backward of the model at B=2: sum over its DCN nodes
+            "ms": sum(r["ms"][name] * r["nodes"] for r in bwd_rows),
+            "plain_ms": sum(r["plain_ms"][name] * r["nodes"]
+                            for r in bwd_rows),
+            "bound_ms": sum(r["bound_ms"][name] * r["nodes"]
+                            for r in bwd_rows),
+            "bound_by": "operations" if all(
+                r["bound_by"][name] == "operations" for r in bwd_rows)
+            else "bytes",
+            "library_ms": None,
+            "per_node_shape": [
+                {"shape": r["shape"], "nodes": r["nodes"],
+                 "ms": r["ms"][name], "plain_ms": r["plain_ms"][name],
+                 "bound_ms": r["bound_ms"][name],
+                 "max_abs_err": r["max_abs_err"][name]} for r in bwd_rows],
+        })
+    log(json.dumps({"backward_per_node_shape": bwd_rows}))
+    log(json.dumps({"training": train, "step_kernel_vs_plain": step}))
     log(card)  # as nvidia-smi --query-gpu=name,power.limit gives it
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

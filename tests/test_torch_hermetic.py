@@ -4,7 +4,7 @@ orbax, pyyaml, opencv or anything of the JAX package.
 The machine that runs the CPU tests has all of them, so a subprocess hides
 them (``sys.modules[name] = None`` makes every import of the name fail) and
 then imports every module of the port and runs the ``chip_smoke.py``
-rehearsal to its last line. An AST scan checks the sources as well: the
+rehearsal, serving and training, to its last line. An AST scan checks the sources as well: the
 port never imports the JAX stack, and imports pyyaml and opencv only inside
 the functions that need them.
 """
@@ -48,8 +48,11 @@ with contextlib.redirect_stdout(out):
     rc = chip_smoke.main(["--device", "cpu", "--tiny"])
 loaded = sorted(n for n, m in sys.modules.items()
                 if n.split(".")[0] in BLOCKED and m is not None)
+lines = out.getvalue().strip().splitlines()
 print(json.dumps({{"rc": rc, "modules": len(mods), "loaded": loaded,
-                   "last": out.getvalue().strip().splitlines()[-1]}}))
+                   "phases": [l.split(":")[0] for l in lines
+                              if l.startswith("phase ")],
+                   "last": lines[-1]}}))
 """
 
 
@@ -91,7 +94,28 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     assert report["rc"] == 0
     assert report["modules"] >= 20
     assert report["loaded"] == [], report["loaded"]
+    # serving, then the DCN backward check, the Trainer and the
+    # kernel-vs-plain train step
+    assert report["phases"] == [
+        "phase environment", "phase build+warm-up", "phase kernel-vs-plain",
+        "phase main path", "phase heads", "phase backward-vs-plain",
+        "phase training", "phase step-vs-plain"], report["phases"]
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
+
+
+def test_kernel_sources_ship_as_package_data():
+    """Every CUDA source under csrc/ (the forward and the backward DCN
+    kernels) is package data, so an installed port can build them."""
+    import fnmatch
+    import tomllib
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"][PACKAGE.name]
+    sources = sorted(p.relative_to(PACKAGE).as_posix()
+                     for p in (PACKAGE / "csrc").iterdir())
+    assert {"csrc/dcn_fwd.cu", "csrc/dcn_bwd.cu"} <= set(sources)
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, g) for g in globs), src
 
 
 def test_config_yaml_reader_names_the_missing_package():
