@@ -1,16 +1,23 @@
 """Default configuration schema.
 
 The same keys as ``centerfusiondetect3d_tpu/config/defaults.py``, so that every
-YAML under ``configs/`` and every dotted override loads unchanged. The port
-always computes the exact ops, so the keys that select a TPU approximation or
-a TPU runtime setting are accepted and ignored:
+YAML under ``configs/`` and every dotted override loads unchanged.
+
+``MIXED_PRECISION`` (default true, as in every shipped config) is honoured as
+the JAX package honours it: ``models/detector.py:build_model`` makes a model
+that computes in bfloat16 with float32 parameters, BatchNorm statistics and
+head outputs, and serves through the bf16 DCN kernel. ``runtime/fit.py``'s
+Trainer raises on it until the bf16 DCN backward is ported; set it false to
+train (or to serve) in float32.
+
+The port always computes the exact ops, so the keys that select a TPU
+approximation or a TPU runtime setting are accepted and ignored:
 
 - ``MODEL.DLA.DCN_IMPL``, ``DCN_DEEP_IMPL``, ``DCN_DEEP_MIN_CH``,
   ``DCN_MAX_OFFSET``, ``DCN_CORRECT_FRAC``, ``DCN_CORRECT_APPROX`` and
   ``S2D_STEM``: every DCN node runs the unclamped op on the plain stem;
 - ``MODEL.APPROX_TOPK`` and ``MODEL.FUSED_HEAD_TOWERS``: top-k is exact and
   every head tower runs on its own;
-- ``MIXED_PRECISION``: the port computes in float32;
 - ``TEST.MAX_DEVICE_BATCH``, ``TEST.DEVICE_BATCH_MAP`` and ``TPU.*``.
 """
 
@@ -27,7 +34,7 @@ def default_config() -> ConfigNode:
     c.DEBUG = 0
     c.EVAL = False
     c.RANDOM_SEED = 0
-    c.MIXED_PRECISION = True  # ignored: the port computes in float32
+    c.MIXED_PRECISION = True  # bf16 compute, float32 parameters
     c.CONF_THRESH = 0.3
     c.WANDB_RESUME = False
     c.WANDB_RESUBMIT = False

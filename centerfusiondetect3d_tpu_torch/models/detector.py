@@ -17,6 +17,14 @@ batch statistics and updates its running statistics, and with
 ``norm_eval`` (``MODEL.NORM_EVAL``) ``train()`` keeps the backbone's
 BatchNorm in eval. Freezing the backbone (``backbone_parameters``) removes
 only its gradients; its BatchNorm statistics still update.
+
+``build_model`` resolves the compute dtype from ``MIXED_PRECISION`` as the
+JAX package's does (``models/detector.py:204-207``): bfloat16 when it is
+true (the default of every shipped config), float32 otherwise. A bf16 model
+keeps float32 parameters and BatchNorm statistics, casts the normalized
+image to bf16, computes the backbone, neck and head towers in bf16
+(``models/layers.py``) and returns head outputs in float32; the radar maps
+and the frustum association stay float32.
 """
 
 from __future__ import annotations
@@ -44,8 +52,10 @@ class CenterFusionDLA(nn.Module):
                  node: str = "DeformConv", fusion_strategy: Optional[str] =
                  "middle", radar_pc: bool = True, frustum: bool = True,
                  one_hot_pc: bool = False, max_pc_dist: float = 60.0,
-                 top_k: int = 100, norm_eval: bool = False):
+                 top_k: int = 100, norm_eval: bool = False,
+                 compute_dtype=None):
         super().__init__()
+        dt = self.compute_dtype = compute_dtype
         self.norm_eval = bool(norm_eval)
         self.fusion_strategy = fusion_strategy
         self.radar_pc = radar_pc
@@ -56,16 +66,18 @@ class CenterFusionDLA(nn.Module):
         channels = DLA34_CHANNELS
         pc_channels = 3 * int(max_pc_dist) if one_hot_pc else 3
         early = radar_pc and fusion_strategy == "early"
-        self.base = DLA(3 + (pc_channels if early else 0))
+        self.base = DLA(3 + (pc_channels if early else 0), compute_dtype=dt)
         scales = [2 ** i for i in range(len(channels[FIRST_LEVEL:]))]
-        self.dla_up = DLAUp(FIRST_LEVEL, channels[FIRST_LEVEL:], scales, node)
+        self.dla_up = DLAUp(FIRST_LEVEL, channels[FIRST_LEVEL:], scales, node,
+                            dt)
         self.ida_up = IDAUp(
             channels[FIRST_LEVEL], channels[FIRST_LEVEL:LAST_LEVEL],
-            [2 ** i for i in range(LAST_LEVEL - FIRST_LEVEL)], node)
+            [2 ** i for i in range(LAST_LEVEL - FIRST_LEVEL)], node, dt)
         secondary = (tuple(h for h in heads if h in SECONDARY_HEADS)
                      if fusion_strategy == "middle" and radar_pc else ())
         self.detectHead_0 = DetectHeadSet(
-            channels[FIRST_LEVEL], heads, head_conv, secondary, pc_channels)
+            channels[FIRST_LEVEL], heads, head_conv, secondary, pc_channels,
+            dt)
 
     def backbone_parameters(self):
         """(name, parameter) of ``base``, ``dla_up`` and ``ida_up``."""
@@ -103,9 +115,10 @@ class CenterFusionDLA(nn.Module):
         """image (B, 3, H, W) normalized; pc_dep (B, C_pc, H/4, W/4) raw radar
         map [d, vx, vz]; calib (B, 3, 4); pc_hm (B, C_pc, H/4, W/4) the
         batch's radar heatmap, read only with ``train=True`` (where a radar
-        model needs it). Returns a dict of NCHW float32 head outputs (plus
-        ``calib``)."""
-        x = image
+        model needs it). Returns a dict of NCHW head outputs in at least
+        float32 (plus ``calib``)."""
+        x = image if self.compute_dtype is None else image.to(
+            self.compute_dtype)
         if train:
             if self.radar_pc and pc_hm is None:
                 raise ValueError("forward(train=True) needs the batch's "
@@ -117,7 +130,8 @@ class CenterFusionDLA(nn.Module):
             pc_hm = torch.cat([1.0 - pc_dep[:, :s] / self.max_pc_dist,
                                pc_dep[:, s:]], dim=1)
         if self.radar_pc and self.fusion_strategy == "early":
-            x = torch.cat([x, resize_nearest(pc_hm, x.shape[-2:])], dim=1)
+            x = torch.cat([x, resize_nearest(pc_hm, x.shape[-2:]).to(x.dtype)],
+                          dim=1)
 
         feats = self.img2feats(x)
         y = self.detectHead_0.first_stage(feats)
@@ -135,12 +149,23 @@ class CenterFusionDLA(nn.Module):
         return y
 
 
-def build_model(config) -> CenterFusionDLA:
-    """Model from a finalized config (model/model.py:18-44)."""
+def build_model(config, dtype=None) -> CenterFusionDLA:
+    """Model from a finalized config (model/model.py:18-44).
+
+    ``dtype``: bfloat16 (mixed precision: float32 parameters, bf16 compute),
+    float32 or float64 (parameters and compute); None takes bfloat16 when
+    ``MIXED_PRECISION`` is true, else float32.
+    """
     if config.MODEL.ARCH != "dla_34":
         raise NotImplementedError(
             f"architecture {config.MODEL.ARCH!r} is not ported yet (dla_34)")
-    return CenterFusionDLA(
+    if dtype is None:
+        dtype = torch.bfloat16 if config.MIXED_PRECISION else torch.float32
+    if dtype not in (torch.bfloat16, torch.float32, torch.float64):
+        raise TypeError(f"build_model: no {dtype} model; bfloat16 (mixed "
+                        "precision), float32 or float64")
+    mixed = dtype == torch.bfloat16
+    model = CenterFusionDLA(
         heads={k: int(v) for k, v in config.heads.items()},
         head_conv={k: tuple(v) for k, v in config.head_conv.items()},
         node=config.MODEL.DLA.NODE,
@@ -151,4 +176,6 @@ def build_model(config) -> CenterFusionDLA:
         max_pc_dist=float(config.DATASET.MAX_PC_DIST),
         top_k=int(config.MODEL.K),
         norm_eval=bool(config.MODEL.NORM_EVAL),
+        compute_dtype=dtype if mixed else None,
     )
+    return model if mixed else model.to(dtype)

@@ -6,7 +6,9 @@ The port of ``centerfusiondetect3d_tpu/models/heads.py`` (reference
 ``nn.Sequential`` (``detectHead_0.heatmap.0.weight``, ``.2.weight``, ...);
 sigmoid-clamped heatmap with -4.6 bias init; the ``1/sigmoid - 1`` depth
 transform; and the middle-fusion secondary heads fed with the image features
-concatenated with the radar heatmap. Outputs are NCHW float32.
+concatenated with the radar heatmap. The towers compute in
+``compute_dtype`` (``models/layers.py``); outputs are NCHW in at least
+float32.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Dict, Mapping, Sequence
 
 import torch
 from torch import nn
+
+from .layers import Conv2d
 
 SECONDARY_HEADS = ("velocity", "nuscenes_att", "depth2", "rotation2")
 
@@ -49,14 +53,17 @@ def at_least_f32(x):
 
 
 def head_tower(cin: int, nout: int, hidden: Sequence[int],
-               is_heatmap: bool) -> nn.Sequential:
+               is_heatmap: bool, compute_dtype=None) -> nn.Sequential:
+    dt = compute_dtype
     layers = []
     if hidden:
-        layers += [nn.Conv2d(cin, hidden[0], 3, padding=1), nn.ReLU(inplace=True)]
+        layers += [Conv2d(cin, hidden[0], 3, padding=1, compute_dtype=dt),
+                   nn.ReLU(inplace=True)]
         for prev, h in zip(hidden[:-1], hidden[1:]):
-            layers += [nn.Conv2d(prev, h, 1), nn.ReLU(inplace=True)]
+            layers += [Conv2d(prev, h, 1, compute_dtype=dt),
+                       nn.ReLU(inplace=True)]
         cin = hidden[-1]
-    out = nn.Conv2d(cin, nout, 1)
+    out = Conv2d(cin, nout, 1, compute_dtype=dt)
     nn.init.constant_(out.bias, -4.6 if is_heatmap else 0.0)
     return nn.Sequential(*layers, out)
 
@@ -65,12 +72,14 @@ class DetectHeadSet(nn.Module):
     """All first-stage and (optionally) secondary towers of one pyramid level.
 
     heads: head name -> output channels; head_conv: head name -> hidden widths
-    (the derived config); secondary: the heads fed with radar features.
+    (the derived config); secondary: the heads fed with radar features;
+    compute_dtype: the towers' (``models/layers.py``).
     """
 
     def __init__(self, cin: int, heads: Mapping[str, int],
                  head_conv: Mapping[str, Sequence[int]],
-                 secondary: Sequence[str] = (), pc_channels: int = 3):
+                 secondary: Sequence[str] = (), pc_channels: int = 3,
+                 compute_dtype=None):
         super().__init__()
         self.first = [n for n in heads if n not in secondary]
         self.secondary = [n for n in secondary if n in heads]
@@ -78,7 +87,7 @@ class DetectHeadSet(nn.Module):
             width = cin + (pc_channels if name in self.secondary else 0)
             setattr(self, name, head_tower(width, int(nout),
                                            tuple(head_conv.get(name, ())),
-                                           "heatmap" in name))
+                                           "heatmap" in name, compute_dtype))
 
     def first_stage(self, feats) -> Dict[str, torch.Tensor]:
         y = {n: at_least_f32(getattr(self, n)(feats)) for n in self.first}

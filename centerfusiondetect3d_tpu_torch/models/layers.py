@@ -8,25 +8,90 @@ is ``convLeft``/``convRight`` plus ``activation.0``, and ``DeformConv`` is
 ``weight``/``bias``/``conv_offset_mask`` plus ``activation.0``. BatchNorm is
 ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1), which in eval mode is exactly the
 JAX package's ``TorchBatchNorm``.
+
+Mixed precision follows the JAX modules' ``dtype`` fields: every module takes
+a ``compute_dtype`` (None: the parameters' own dtype). With bfloat16 the
+parameters and BatchNorm statistics stay float32 (so the state_dict and
+checkpoints do not change), convolutions cast their input, weight and bias
+to bf16 and return bf16, BatchNorm normalizes in float32 and returns bf16,
+and a DCN node promotes its offset/mask projection to float32 before the
+slice and the sigmoid and feeds the DCN bf16 ``x``, weight and bias
+(``centerfusiondetect3d_tpu/models/layers.py:66, 88, 226-229, 304-306``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import deform_conv2d
 
 
+def _cast(t, dtype):
+    return t if dtype is None or t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``: input, weight and bias
+    are cast to it and so is the result (the JAX package's
+    ``nn.Conv(dtype=...)``); the parameters keep their own dtype."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that normalizes and keeps its statistics in at
+    least float32 and returns ``compute_dtype`` (the JAX package's
+    ``TorchBatchNorm`` with a ``dtype``)."""
+
+    def __init__(self, num_features: int, compute_dtype=None):
+        super().__init__(num_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        wide = torch.promote_types(x.dtype, torch.float32)
+        return super().forward(x.to(wide)).to(dt)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``compute_dtype``, as
+    :class:`Conv2d` does."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.conv_transpose2d(
+            x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation)
+
+
 class ConvNode(nn.Module):
     """1x1 conv-BN-ReLU aggregation node (reference ``Conv``)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, compute_dtype=None):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(cin, cout, 1, bias=False), nn.BatchNorm2d(cout),
-            nn.ReLU(inplace=True))
+            Conv2d(cin, cout, 1, bias=False, compute_dtype=compute_dtype),
+            BatchNorm2d(cout, compute_dtype), nn.ReLU(inplace=True))
 
     def forward(self, x):
         return self.conv(x)
@@ -36,16 +101,21 @@ class GlobalConvNode(nn.Module):
     """Separable kx1 + 1xk pair, summed, then BN-ReLU (reference
     ``GlobalConv``, dla.py:328-382)."""
 
-    def __init__(self, cin: int, cout: int, k: int = 7):
+    def __init__(self, cin: int, cout: int, k: int = 7, compute_dtype=None):
         super().__init__()
         pad = k // 2
+        dt = compute_dtype
         self.convLeft = nn.Sequential(
-            nn.Conv2d(cin, cout, (k, 1), padding=(pad, 0), bias=False),
-            nn.Conv2d(cout, cout, (1, k), padding=(0, pad), bias=False))
+            Conv2d(cin, cout, (k, 1), padding=(pad, 0), bias=False,
+                   compute_dtype=dt),
+            Conv2d(cout, cout, (1, k), padding=(0, pad), bias=False,
+                   compute_dtype=dt))
         self.convRight = nn.Sequential(
-            nn.Conv2d(cin, cout, (1, k), padding=(0, pad), bias=False),
-            nn.Conv2d(cout, cout, (k, 1), padding=(pad, 0), bias=False))
-        self.activation = nn.Sequential(nn.BatchNorm2d(cout),
+            Conv2d(cin, cout, (1, k), padding=(0, pad), bias=False,
+                   compute_dtype=dt),
+            Conv2d(cout, cout, (k, 1), padding=(pad, 0), bias=False,
+                   compute_dtype=dt))
+        self.activation = nn.Sequential(BatchNorm2d(cout, dt),
                                         nn.ReLU(inplace=True))
 
     def forward(self, x):
@@ -58,27 +128,34 @@ class DeformConvNode(nn.Module):
     A 3x3 conv predicts 27 channels: 18 offsets and 9 mask logits, sigmoided.
     The offset conv starts at zero, so a fresh node is a plain 3x3 conv. The
     deformable op is ``dcn_fn``, :func:`ops.dcn.deform_conv2d` (the CUDA
-    kernel on the card); a caller may set it to the plain version to compare.
+    kernel on the card, the bf16 one under a bf16 ``compute_dtype``); a
+    caller may set it to the plain version to compare.
     """
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
         bound = 1.0 / np.sqrt(cin * 9)
         nn.init.uniform_(self.weight, -bound, bound)
-        self.conv_offset_mask = nn.Conv2d(cin, 27, 3, padding=1, bias=True)
+        self.conv_offset_mask = Conv2d(cin, 27, 3, padding=1, bias=True,
+                                       compute_dtype=compute_dtype)
         nn.init.zeros_(self.conv_offset_mask.weight)
         nn.init.zeros_(self.conv_offset_mask.bias)
-        self.activation = nn.Sequential(nn.BatchNorm2d(cout),
+        self.activation = nn.Sequential(BatchNorm2d(cout, compute_dtype),
                                         nn.ReLU(inplace=True))
         self.dcn_fn = deform_conv2d
 
     def forward(self, x):
         om = self.conv_offset_mask(x)
+        # sampling coordinates and mask in at least float32
+        om = om.to(torch.promote_types(om.dtype, torch.float32))
         offset = om[:, :18].contiguous()
         mask = torch.sigmoid(om[:, 18:]).contiguous()
-        y = self.dcn_fn(x.contiguous(), offset, mask, self.weight, self.bias)
+        dt = self.compute_dtype
+        y = self.dcn_fn(_cast(x, dt).contiguous(), offset, mask,
+                        _cast(self.weight, dt), _cast(self.bias, dt))
         return self.activation(y)
 
 
@@ -100,11 +177,13 @@ def bilinear_kernel(factor: int) -> np.ndarray:
     return np.outer(k1d, k1d).astype(np.float32)
 
 
-def bilinear_up(channels: int, factor: int) -> nn.ConvTranspose2d:
+def bilinear_up(channels: int, factor: int,
+                compute_dtype=None) -> ConvTranspose2d:
     """Depthwise stride-f transposed conv, kernel 2f, padding f//2, with the
     bilinear kernel in every channel (reference dla.py:502-512)."""
-    up = nn.ConvTranspose2d(channels, channels, 2 * factor, stride=factor,
-                            padding=factor // 2, groups=channels, bias=False)
+    up = ConvTranspose2d(channels, channels, 2 * factor, stride=factor,
+                         padding=factor // 2, groups=channels, bias=False,
+                         compute_dtype=compute_dtype)
     with torch.no_grad():
         up.weight.copy_(torch.from_numpy(bilinear_kernel(factor)).expand_as(
             up.weight))

@@ -11,6 +11,12 @@ the kernels of ``csrc/dcn_bwd.cu`` (which replace the backward of
 products. On the card a kernel launches or the call raises: nothing falls
 back to the plain version.
 
+A bfloat16 ``x`` (the mixed-precision model) takes the bf16 forward,
+:func:`dcn_fwd_bf16`: the tensor-core kernel ``csrc/dcn_fwd_bf16.cu`` on the
+card, :func:`deform_conv2d_bf16_plain` on the CPU. It takes float32 offset
+and mask and a bf16 weight and bias, and has no backward yet: under autograd
+it raises. float16 raises everywhere.
+
 Semantics are those of ``centerfusiondetect3d_tpu/ops/dcn.py:deform_conv2d``
 and of the reference's ``torchvision.ops.deform_conv2d``: offsets in the
 torchvision layout (``offset[:, 2k] = dy_k``, ``offset[:, 2k+1] = dx_k``,
@@ -35,6 +41,8 @@ from .cuda_build import load_kernel_library
 
 KERNEL_SOURCE = "dcn_fwd.cu"
 BACKWARD_SOURCE = "dcn_bwd.cu"
+BF16_SOURCE = "dcn_fwd_bf16.cu"
+KERNEL_SOURCES = (KERNEL_SOURCE, BACKWARD_SOURCE, BF16_SOURCE)
 
 
 def _plain_taps(x, offset, mask, max_offset):
@@ -79,6 +87,9 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None,
     x (B, C, H, W); offset (B, 18, H, W); mask (B, 9, H, W); weight
     (O, C, 3, 3); bias (O,) or None. Returns (B, O, H, W).
     """
+    if x.dtype == torch.bfloat16:
+        return deform_conv2d_bf16_plain(x, offset, mask, weight, bias,
+                                        max_offset)
     b, c, h, w = x.shape
     o = weight.shape[0]
     out = None
@@ -88,6 +99,32 @@ def deform_conv2d_plain(x, offset, mask, weight, bias=None,
     if bias is not None:
         out = out + bias[:, None]
     return out.reshape(b, o, h, w)
+
+
+def deform_conv2d_bf16_plain(x, offset, mask, weight, bias=None,
+                             max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_fwd_bf16`` kernel: bf16 x, weight and
+    bias, float32 offset and mask, a bf16 result.
+
+    The float32 taps of :func:`deform_conv2d_plain` from x widened to
+    float32, each rounded to bf16 (the rounding of the Pallas kernels
+    before their bf16 dot, ``pallas_dcn.py:171``); the bf16 taps and weight
+    widened back to float32 and contracted in float32 (a product of two
+    bf16 values is exact in float32, so only the order of the sums differs
+    from the kernel's tensor cores); the bias added; one rounding to bf16.
+    """
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    wf = weight.float()
+    out = None
+    for i, j, tap in _plain_taps(x.float(), offset.float(), mask.float(),
+                                 max_offset):
+        tap = tap.to(torch.bfloat16).float()
+        term = torch.matmul(wf[:, :, i, j], tap)  # (B, O, HW)
+        out = term if out is None else out + term
+    if bias is not None:
+        out = out + bias.float()[:, None]
+    return out.reshape(b, o, h, w).to(torch.bfloat16)
 
 
 def dcn_im2col_plain(x, offset, mask, max_offset: Optional[float] = None):
@@ -147,10 +184,18 @@ def deform_conv2d(x, offset, mask, weight, bias=None,
 
     Same arguments and result as :func:`deform_conv2d_plain`. On CUDA every
     tensor must be contiguous float32 on one device; anything else raises.
-    ``deform_conv2d.launches`` counts the forward kernel's launches; each
-    backward kernel's wrapper (:func:`dcn_im2col`, :func:`dcn_col2im`,
+    A bf16 ``x`` goes to :func:`dcn_fwd_bf16` (no gradient: it raises
+    ``NotImplementedError`` under autograd); float16 raises.
+    ``deform_conv2d.launches`` counts the float32 forward kernel's
+    launches, ``dcn_fwd_bf16.launches`` the bf16 one's; each backward
+    kernel's wrapper (:func:`dcn_im2col`, :func:`dcn_col2im`,
     :func:`dcn_col2im_coord`) counts its own.
     """
+    if x.dtype == torch.bfloat16:
+        return dcn_fwd_bf16(x, offset, mask, weight, bias, max_offset)
+    if x.dtype == torch.float16:
+        raise TypeError("deform_conv2d: float16 is not supported; use "
+                        "bfloat16 (MIXED_PRECISION) or float32")
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, max_offset)
     if x.device.type != "cuda":
@@ -289,28 +334,76 @@ BACKWARD_KERNELS = {"dcn_im2col": dcn_im2col, "dcn_col2im": dcn_col2im,
                     "dcn_col2im_coord": dcn_col2im_coord}
 
 
-def _launch(x, offset, mask, weight, bias, max_offset):
-    """The ``dcn_fwd`` kernel, without autograd: under grad mode it takes
-    no tensor that requires grad (``DeformConv2dFunction`` calls it, and
-    autograd runs a Function's forward with grad mode off)."""
-    b, c, h, w = _check(x, "x", 4)
-    o = _check(weight, "weight", 4)[0]
+def dcn_fwd_bf16(x, offset, mask, weight, bias=None,
+                 max_offset: Optional[float] = None):
+    """The ``dcn_fwd_bf16`` kernel: the DCNv2 forward in bf16 on the tensor
+    cores, as :func:`deform_conv2d_bf16_plain` (which runs instead on CPU
+    tensors).
+
+    x (B, C, H, W) bf16; offset (B, 18, H, W) and mask (B, 9, H, W)
+    float32; weight (O, C, 3, 3) bf16; bias (O,) bf16 or None; all
+    contiguous on one device. Returns (B, O, H, W) bf16. There is no
+    backward: a tensor that requires grad under grad mode raises
+    ``NotImplementedError``. ``dcn_fwd_bf16.launches`` counts launches.
+    """
+    o = _check_forward(x, offset, mask, weight, bias, max_offset,
+                       torch.bfloat16)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, offset, mask, weight, bias)):
+        raise NotImplementedError(
+            "deform_conv2d: the bf16 DCN has no backward yet; train with "
+            "MIXED_PRECISION False")
+    if x.device.type == "cpu":
+        return deform_conv2d_bf16_plain(x, offset, mask, weight, bias,
+                                        max_offset)
+    _require_cuda(x)
+    b, c, h, w = x.shape
+    wt = weight.permute(1, 2, 3, 0).contiguous()  # (C, 3, 3, O)
+    out = torch.empty((b, o, h, w), device=x.device, dtype=torch.bfloat16)
+    _run(x, "cfd_dcn_fwd_bf16", x.data_ptr(), offset.data_ptr(),
+         mask.data_ptr(), wt.data_ptr(),
+         bias.data_ptr() if bias is not None else None, out.data_ptr(),
+         b, c, h, w, o, _clamp(max_offset))
+    dcn_fwd_bf16.launches += 1
+    return out
+
+
+dcn_fwd_bf16.launches = 0
+
+
+def _check_forward(x, offset, mask, weight, bias, max_offset,
+                   dtype) -> int:
+    """Checks a forward's arguments: x, weight and bias of ``dtype``,
+    float32 offset and mask, shapes, contiguity and one device; returns O."""
+    _, c, _, _ = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype)
+    o = _check(weight, "weight", 4, dtype)[0]
     if tuple(weight.shape) != (o, c, 3, 3):
         raise ValueError(f"weight must be ({o}, {c}, 3, 3), got "
                          f"{tuple(weight.shape)}")
-    _check_sampling(x, offset, mask, max_offset)
-    tensors = [offset, mask, weight]
+    tensors = [weight]
     if bias is not None:
-        if tuple(_check(bias, "bias", 1)) != (o,):
+        if tuple(_check(bias, "bias", 1, dtype)) != (o,):
             raise ValueError(f"bias must be ({o},), got {tuple(bias.shape)}")
         tensors.append(bias)
     if any(t.device != x.device for t in tensors):
         raise ValueError("deform_conv2d: all tensors must be on one device")
+    return o
+
+
+def _launch(x, offset, mask, weight, bias, max_offset):
+    """The ``dcn_fwd`` kernel, without autograd: under grad mode it takes
+    no tensor that requires grad (``DeformConv2dFunction`` calls it, and
+    autograd runs a Function's forward with grad mode off)."""
+    o = _check_forward(x, offset, mask, weight, bias, max_offset,
+                       torch.float32)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [x, *tensors]):
+            t is not None and t.requires_grad
+            for t in (x, offset, mask, weight, bias)):
         raise RuntimeError("deform_conv2d: _launch records no gradient; "
                            "call deform_conv2d")
 
+    b, c, h, w = x.shape
     # (O, C, 3, 3) -> (C, 3, 3, O): each chunk's weight rows are contiguous
     wt = weight.permute(1, 2, 3, 0).contiguous()
     out = torch.empty((b, o, h, w), device=x.device, dtype=x.dtype)
@@ -321,9 +414,10 @@ def _launch(x, offset, mask, weight, bias, max_offset):
     return out
 
 
-def _check(t, name: str, ndim: int):
-    if t.dtype != torch.float32:
-        raise TypeError(f"deform_conv2d: {name} must be float32, got {t.dtype}")
+def _check(t, name: str, ndim: int, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"deform_conv2d: {name} must be "
+                        f"{str(dtype)[6:]}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"deform_conv2d: {name} must be {ndim}-D, got "
                          f"{tuple(t.shape)}")
@@ -332,9 +426,10 @@ def _check(t, name: str, ndim: int):
     return t.shape
 
 
-def _check_sampling(x, offset, mask, max_offset):
-    """Checks x, offset, mask and max_offset; returns (B, C, H, W)."""
-    b, c, h, w = _check(x, "x", 4)
+def _check_sampling(x, offset, mask, max_offset, x_dtype=torch.float32):
+    """Checks x (of ``x_dtype``), float32 offset and mask, and max_offset;
+    returns (B, C, H, W)."""
+    b, c, h, w = _check(x, "x", 4, x_dtype)
     if tuple(_check(offset, "offset", 4)) != (b, 18, h, w):
         raise ValueError(f"offset must be ({b}, 18, {h}, {w}), got "
                          f"{tuple(offset.shape)}")
@@ -379,6 +474,7 @@ def _clamp(max_offset) -> float:
 # float clamp and the stream
 _SIGNATURES = {
     "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5),
+    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 6, 5),
     "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4),
     "cfd_dcn_col2im": (BACKWARD_SOURCE, 4, 4),
     "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4),

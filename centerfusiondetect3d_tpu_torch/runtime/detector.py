@@ -7,6 +7,12 @@ rows) -> process (normalize, device radar paint, model forward, decode and
 post-process on the card) -> merge (host result items), with per-stage
 timers that wait for the device.
 
+The model computes in the precision the config asks for: with
+``MIXED_PRECISION True`` (the default) in bfloat16 with float32 parameters,
+through the bf16 DCN kernel (``ops/dcn.py:dcn_fwd_bf16``); normalization,
+the radar paint, the frustum association, decode and post-process stay
+float32 either way.
+
 Not ported yet: image-file decoding, ``run_stream``, flip and multi-scale
 test-time augmentation. Frames are passed as decoded BGR uint8 arrays.
 """

@@ -5,17 +5,25 @@ The port of ``centerfusiondetect3d_tpu/runtime/fit.py:Trainer`` (reference
 training epochs go: per epoch the frozen-or-not decision of
 ``MODEL.FREEZE_BACKBONE`` / ``MODEL.DEFREEZE``, the epoch's learning rate in
 every parameter group, one ``train_step`` per batch, running-average
-meters, a step timer that waits for the device, ``history["train"]`` and
-the non-finite-loss guard of ``TRAIN.NONFINITE_TOLERANCE``.
+meters, a step timer that waits for the device, ``history["train"]``, the
+non-finite-loss guard of ``TRAIN.NONFINITE_TOLERANCE``, and checkpoints:
+``MODEL.LOAD_DIR`` (a reference ``.pt`` file) is loaded by ``init_state``,
+with its epoch and optimizer state under ``TRAIN.RESUME``, and
+``training/checkpoint.py:save_checkpoint`` writes ``OUTPUT_DIR/ckpts`` at
+every ``TRAIN.SAVE_INTERVALS`` epoch and at the last one.
 
-Not ported yet (ROADMAP.md, Queue 1): validation inside the Trainer,
-checkpoint save and resume, ``MetricsLogger``, ``DeviceHealthMonitor``,
-loss plots and the profiler hook.
+It raises instead of training otherwise than the config says: on
+``MIXED_PRECISION True`` (the bf16 DCN has no backward yet) and, before the
+first step, on a run whose epochs reach a ``TRAIN.VAL_INTERVALS`` epoch
+(validation is not ported). Not ported yet (ROADMAP.md, Queue 1):
+validation, ``MetricsLogger``, ``DeviceHealthMonitor``, loss plots and the
+profiler hook.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional
 
@@ -25,6 +33,7 @@ from ..data.pipeline import Loader, to_device
 from ..losses import GenericLoss
 from ..models import build_model
 from ..training import learning_rate, make_optimizer, train_step
+from ..training.checkpoint import load_torch_file, load_weights, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.observability import AverageMeter, StageTimer, ToleranceCounter
 from .synthetic import seeded_weights
@@ -36,12 +45,18 @@ class Trainer:
     (any object with ``__len__`` and ``get_item(index, rng)``).
 
     ``on_step(epoch, step, frozen, metrics)``, when given, is called after
-    every step with the step's metrics as floats.
+    every step with the step's metrics as floats. ``MIXED_PRECISION True``
+    raises ``NotImplementedError``: training runs in float32 (or float64)
+    until the bf16 DCN backward is ported.
     """
 
     def __init__(self, config, dataset_train=None, device=None,
                  logger: Optional[logging.Logger] = None,
                  on_step: Optional[Callable] = None):
+        if bool(config.MIXED_PRECISION):
+            raise NotImplementedError(
+                "MIXED_PRECISION True: bf16 training is not ported yet (the "
+                "bf16 DCN has no backward); train with MIXED_PRECISION False")
         self.config = config
         self.device = resolve_device(device)
         self.model = build_model(config).to(self.device)
@@ -49,7 +64,7 @@ class Trainer:
         self.dataset_train = dataset_train
         self.logger = logger or logging.getLogger("cfd3d.trainer")
         self.on_step = on_step
-        self.history: Dict[str, Dict[str, list]] = {"train": {}}
+        self.history: Dict[str, Dict[str, list]] = {"train": {}, "val": {}}
         self.steps: List[dict] = []  # per step: epoch, frozen, seconds, total
         self.start_epoch = 0
         self.optimizer = None
@@ -59,16 +74,42 @@ class Trainer:
 
     def init_state(self, state_dict=None, seed: Optional[int] = None):
         """Weights from ``state_dict`` (e.g. ``weights.state_dict_from_jax``,
-        loaded strictly) or else from ``runtime/synthetic.py:seeded_weights``
-        with ``seed`` (``RANDOM_SEED`` by default); then a fresh optimizer."""
+        loaded strictly), else from the ``MODEL.LOAD_DIR`` checkpoint (a
+        reference ``.pt``/``.pth`` file, loaded elastically; its loss history
+        is taken over), else from ``runtime/synthetic.py:seeded_weights``
+        with ``seed`` (``RANDOM_SEED`` by default); then a fresh optimizer.
+        Under ``TRAIN.RESUME`` the checkpoint's epoch sets the first epoch
+        and its optimizer state is restored, as the JAX package's
+        ``Trainer.init_state`` resumes."""
+        cfg = self.config
+        ckpt = None
         if state_dict is not None:
             self.model.load_state_dict(
                 {k: v.to(self.device) for k, v in state_dict.items()},
                 strict=True)
+        elif cfg.MODEL.LOAD_DIR:
+            ckpt = load_torch_file(cfg.MODEL.LOAD_DIR)
+            load_weights(self.model, ckpt["state_dict"], self.logger)
+            hist = ckpt["history"]
+            if hist["train"] or hist["val"]:
+                self.history = {"train": dict(hist["train"]),
+                                "val": dict(hist["val"])}
+            self.logger.info("loaded weights from %s", cfg.MODEL.LOAD_DIR)
         else:
-            seeded_weights(self.model, int(self.config.RANDOM_SEED
+            seeded_weights(self.model, int(cfg.RANDOM_SEED
                                            if seed is None else seed))
-        self.optimizer = make_optimizer(self.config, self.model)
+        self.optimizer = make_optimizer(cfg, self.model)
+        if ckpt is not None and cfg.TRAIN.RESUME:
+            if ckpt["epoch"] >= 0:
+                self.start_epoch = ckpt["epoch"] + 1
+            if ckpt["optimizer"] is not None:
+                try:
+                    self.optimizer.load_state_dict(ckpt["optimizer"])
+                except ValueError as e:  # another optimizer or parameter set
+                    self.logger.warning("checkpoint optimizer state does not "
+                                        "fit (%s); resuming with a fresh "
+                                        "optimizer", e)
+            self.logger.info("resuming at epoch %d", self.start_epoch)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info("parameters: %.2fM", n_params / 1e6)
 
@@ -76,6 +117,7 @@ class Trainer:
         cfg = self.config
         if self.optimizer is None:
             self.init_state()
+        self._refuse_validation()
         loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
                         shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED)
         accum = int(cfg.TRAIN.get("GRAD_ACCUM", 1))
@@ -107,7 +149,31 @@ class Trainer:
                 " ".join(f"{k} {m.avg:.4f}" for k, m in sorted(meters.items())))
             for k, m in meters.items():
                 self.history["train"].setdefault(k, []).append(m.avg)
+            interval = int(cfg.TRAIN.SAVE_INTERVALS)
+            if ((interval > 0 and (epoch + 1) % interval == 0)
+                    or epoch + 1 == cfg.TRAIN.EPOCHS):
+                path = save_checkpoint(os.path.join(cfg.OUTPUT_DIR, "ckpts"),
+                                       self.model, self.optimizer, epoch,
+                                       self.history)
+                self.logger.info("saved %s", path)
         return self.history
+
+    def _refuse_validation(self):
+        """Validation inside the Trainer is not ported: a run whose epochs
+        reach a ``TRAIN.VAL_INTERVALS`` epoch raises before its first step
+        rather than skip the validation."""
+        cfg = self.config
+        interval = int(cfg.TRAIN.VAL_INTERVALS)
+        if interval <= 0:
+            return
+        due = [e for e in range(self.start_epoch, int(cfg.TRAIN.EPOCHS))
+               if (e + 1) % interval == 0]
+        if due:
+            raise NotImplementedError(
+                f"TRAIN.VAL_INTERVALS={interval} asks for validation after "
+                f"epoch {due[0]}, and validation inside the Trainer is not "
+                "ported yet; set TRAIN.VAL_INTERVALS to 0 (or past "
+                "TRAIN.EPOCHS) to train without it")
 
     def _guard_nonfinite(self, total: float, epoch: int, step: int):
         """Raise after ``TRAIN.NONFINITE_TOLERANCE`` consecutive non-finite

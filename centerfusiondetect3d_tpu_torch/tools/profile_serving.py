@@ -2,11 +2,15 @@
 
     python -m centerfusiondetect3d_tpu_torch.tools.profile_serving
     python -m centerfusiondetect3d_tpu_torch.tools.profile_serving \\
+        --mixed-precision false        # float32 instead of the config's bf16
+    python -m centerfusiondetect3d_tpu_torch.tools.profile_serving \\
         --device cpu --tiny            # rehearsal: CPU ops, nothing measured
 
 Builds the serving detector at the main-path configuration of
 ``chip_smoke.py`` (``runtime/synthetic.py``: 448x800, 6 cameras, seeded
-weights, BatchNorm calibrated on the synthetic batch), warms it up, then
+weights, BatchNorm calibrated on the synthetic batch) in the precision the
+config says (``MIXED_PRECISION``, true as shipped: bf16) unless
+``--mixed-precision`` overrides it, warms it up, then
 profiles ``--runs`` calls of ``Detector.run``. On the card it prints, per
 run: the wall time, the device's busy time (the union of its kernels'
 intervals) and idle share, device time by kernel group (the DCN kernel,
@@ -34,7 +38,7 @@ from ..runtime.synthetic import (
 )
 
 GROUPS = (
-    ("dcn_fwd (hand-written DCNv2)", ("dcn_fwd",)),
+    ("dcn_fwd, dcn_fwd_bf16 (hand-written DCNv2)", ("dcn_fwd",)),
     ("convolution / GEMM (cuDNN, cuBLAS, their layout copies)",
      ("convolve", "conv2d", "cudnn", "gemm", "xmma", "cutlass", "winograd",
       "implicit", "fprop", "nchwtonhwc", "nhwctonchw")),
@@ -70,6 +74,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    ap.add_argument("--mixed-precision", choices=("true", "false"),
+                    help="override the config's MIXED_PRECISION")
     args = ap.parse_args(argv)
     on_card = args.device == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -80,6 +86,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     opts = list(MAIN_PATH_OPTS)
+    if args.mixed_precision:
+        opts += ["MIXED_PRECISION", args.mixed_precision.capitalize()]
     n_cams, frame_hw = 6, (450, 800)
     if args.tiny:
         opts += ["MODEL.INPUT_SIZE", "(64, 128)"]
@@ -103,8 +111,10 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(args.trace)
 
     stages = det.timer.summary()
-    print(f"{args.runs} runs of Detector.run, {n_cams} cameras, "
-          f"{frame_hw[1]}x{frame_hw[0]} frames; per run: wall "
+    precision = ("bf16" if det.model.compute_dtype == torch.bfloat16
+                 else "float32")
+    print(f"{args.runs} runs of Detector.run in {precision}, {n_cams} "
+          f"cameras, {frame_hw[1]}x{frame_hw[0]} frames; per run: wall "
           f"{wall_us / 1e3 / args.runs:.2f} ms; stages (ms) "
           + ", ".join(f"{k} {1e3 * v:.2f}" for k, v in stages.items()))
     if not on_card:

@@ -7,25 +7,40 @@
 On the card it:
 
 1. prints the torch and CUDA versions and the card's name and power limit,
-   builds the DCNv2 kernel from ``csrc/`` with nvcc and prints the build time
-   and ptxas' register and spill lines;
+   builds the DCNv2 kernels from ``csrc/`` (``dcn_fwd.cu``, ``dcn_bwd.cu``,
+   ``dcn_fwd_bf16.cu``) with one nvcc each, all in parallel, and prints the
+   build time and ptxas' register, shared memory and spill lines;
 2. builds ``Detector`` at the full width of ``configs/Centerfusion_Middle.yaml``
    (DLA-34 with DeformConv nodes, 448x800 input, 6 cameras, K=100, frustum
-   middle fusion, device radar paint) with weights from a seed, and runs one
-   warm-up ``Detector.run`` on six synthetic 800x450 uint8 frames with radar;
-3. holds the kernel against its plain PyTorch version at every distinct DCN
-   node shape that run met, at max_offset None, 8 and 1, and times both;
-4. runs ``Detector.run`` 5 more times with the launch count set to 0 and
+   middle fusion, device radar paint) in float32 (``MIXED_PRECISION False``)
+   with weights from a seed, and runs one warm-up ``Detector.run`` on six
+   synthetic 800x450 uint8 frames with radar;
+3. holds the float32 kernel against its plain PyTorch version at every
+   distinct DCN node shape that run met, at max_offset None, 8 and 1, and
+   times both;
+4. does the same for the bf16 kernel ``dcn_fwd_bf16`` against its plain
+   version (``deform_conv2d_bf16_plain``), with its bound on the bf16
+   tensor cores and the float32 kernel's time beside it;
+5. runs ``Detector.run`` 5 more times with the launch counts set to 0 and
    checks that the kernel ran once per DCN node per run and that the
    detections are finite;
-5. runs the model once more with the plain DCN and holds every head against
+6. runs the model once more with the plain DCN and holds every head against
    the kernel run;
-6. holds the DCN backward kernels (``csrc/dcn_bwd.cu``: ``dcn_im2col``,
+7. serves in bf16 as the shipped configs do (``MIXED_PRECISION True``): a
+   second ``Detector`` on the same weights and calibrated BatchNorm, one
+   warm-up run, then 5 counted runs that must launch ``dcn_fwd_bf16`` once
+   per DCN node per run and ``dcn_fwd`` never; frames/s and stages beside
+   the float32 ones;
+8. holds every head of the bf16 kernel forward against the bf16 plain-DCN
+   forward, within twice the plain bf16 forward's own deviation from the
+   float32 forward plus HEADS_RTOL, and prints that bf16-vs-float32
+   deviation (not bounded: the weights are seeded, not trained);
+9. holds the DCN backward kernels (``csrc/dcn_bwd.cu``: ``dcn_im2col``,
    ``dcn_col2im``, ``dcn_col2im_coord``, around two plain GEMMs) against the
    plain backward (autograd of the plain DCN) at every distinct node shape
    with B=2, at max_offset None, 8 and 1, each kernel also against its own
    plain version, and times the backward, its parts and the plain backward;
-7. trains with ``runtime/fit.py:Trainer`` at the same full width:
+10. trains with ``runtime/fit.py:Trainer`` at the same full width in float32:
    ``TRAIN.BATCH_SIZE 26`` in 2 microbatches of 13 (``GRAD_ACCUM 2``) on 52
    synthetic items, ``FREEZE_BACKBONE`` with ``DEFREEZE 0`` and 2 epochs:
    2 frozen steps, then 2 unfrozen ones (after one untimed warm-up step
@@ -33,21 +48,24 @@ On the card it:
    backbone stays bitwise unchanged through the frozen steps and changes in
    the unfrozen ones, that the heads change in both, and that the kernels
    launched once per DCN node per microbatch (the backward ones only in
-   unfrozen steps); reports ms per step, images/s and peak memory;
-8. runs one unfrozen train step of B=2 at full width three times on the
+   unfrozen steps); reports ms per step, images/s and peak memory; the
+   Trainer writes its last epoch's reference ``.pt`` checkpoint into a
+   temporary ``OUTPUT_DIR``, which must read back equal to the model;
+11. runs one unfrozen train step of B=2 at full width three times on the
    same seeded weights and batch: with the kernel DCN, the plain DCN, and
    the plain DCN in float64; holds each DCN node's in-step backward against
    the plain backward on its own tensors, and every loss part and parameter
    gradient of the kernel step against the float64 step, at the float32
    noise floor the plain step measures;
-9. prints a ``{"kernels": [...]}`` line and, last, the
+12. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
 rehearsal runs the same path at 64x128 with 2 cameras (and a training batch
-of 4 in 2 microbatches) on the CPU, where the DCN op is the plain version;
-its last line is ``{"ok": true, "rehearsal": "cpu"}``.
+of 4 in 2 microbatches) on the CPU, where the DCN ops are the plain versions
+(the bf16 phases included); its last line is
+``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
@@ -55,9 +73,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,6 +96,7 @@ from centerfusiondetect3d_tpu_torch.ops.rasterize import (
 from centerfusiondetect3d_tpu_torch.runtime.detector import Detector
 from centerfusiondetect3d_tpu_torch.runtime.fit import Trainer
 from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
+    FP32_OPTS,
     MAIN_PATH_OPTS,
     SyntheticTrainingSet,
     calibrate_batchnorm,
@@ -83,6 +104,7 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     synthetic_frames,
 )
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
+from centerfusiondetect3d_tpu_torch.training.checkpoint import load_torch_file
 
 SEED = 0
 TIMED_RUNS = 5
@@ -94,6 +116,13 @@ PEAK_BYTES = 3.35e12
 # kernel vs plain: max |kernel - plain| / max |plain|; both sum 9*C fp32
 # products in another order
 KERNEL_RTOL = 1e-4
+# the bf16 kernel vs its plain version, the same measure: two bf16 ulps at
+# the largest magnitude (the f32 sums differ in order, and a tap or the
+# output can round to the neighbouring bf16 value)
+BF16_RTOL = 8e-3
+# bf16 heads, kernel vs plain DCN: within BF16_HEAD_MULT times the plain
+# bf16 forward's own deviation from the float32 forward, plus HEADS_RTOL
+BF16_HEAD_MULT = 2
 # heads, kernel DCN vs plain DCN: max |a - b| / max |b| per head; the
 # per-node difference above passes through the rest of DLA-34
 HEADS_RTOL = 1e-3
@@ -111,8 +140,8 @@ NOISE_MULT = 4  # the JAX package's golden train-step test's multiple
 BWD_BATCH = 2  # the backward check's batch: the plain autograd must fit
 # the training main path: the flagship's batch of 26 (MAIN_PATH_OPTS) in
 # microbatches of 13; 2 epochs of 2 steps, the first frozen
-TRAIN_OPTS = ["TRAIN.GRAD_ACCUM", "2", "MODEL.DEFREEZE", "0",
-              "TRAIN.EPOCHS", "2"]
+TRAIN_OPTS = FP32_OPTS + ["TRAIN.GRAD_ACCUM", "2", "MODEL.DEFREEZE", "0",
+                          "TRAIN.EPOCHS", "2"]
 TRAIN_ITEMS = 52
 BWD_KERNELS = ("dcn_im2col", "dcn_col2im", "dcn_col2im_coord")
 GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
@@ -148,16 +177,30 @@ def dcn_inputs(shape, device, seed: int):
 
 
 def dcn_bound(shape):
-    """Least time on an H100 SXM for one node: the larger of the fp32 (or
-    bf16) contraction at peak and each input read / output written once."""
+    """Least time on an H100 SXM for one node: the larger of the fp32
+    contraction at peak and each input read / output written once; and the
+    bf16 kernel's bound (``dcn_bound_bf16``)."""
     b, c, h, w, o = shape
     flops = 2.0 * b * h * w * 9 * c * o
     elems = b * c * h * w + b * 27 * h * w + o * c * 9 + o + b * o * h * w
     t_fp32 = max(flops / PEAK_FP32, 4 * elems / PEAK_BYTES)
-    t_bf16 = max(flops / PEAK_BF16, 2 * elems / PEAK_BYTES)
     by = "operations" if flops / PEAK_FP32 >= 4 * elems / PEAK_BYTES \
         else "bytes"
-    return flops, 4 * elems, 1e3 * t_fp32, by, 1e3 * t_bf16
+    return flops, 4 * elems, 1e3 * t_fp32, by, dcn_bound_bf16(shape)[2]
+
+
+def dcn_bound_bf16(shape):
+    """The bf16 kernel's least time on an H100 SXM: the larger of the
+    contraction at the dense bf16 tensor-core rate (989 TFLOP/s) and the
+    bytes at 3.35 TB/s, each read or written once: x, weight, bias and the
+    output in bf16, offset and mask in float32. (flops, bytes, ms, by)."""
+    b, c, h, w, o = shape
+    flops = 2.0 * b * h * w * 9 * c * o
+    nbytes = (2 * (b * c * h * w + o * c * 9 + o + b * o * h * w)
+              + 4 * b * 27 * h * w)
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return (flops, nbytes, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_pair(fn_a, fn_b, reps: int):
@@ -235,6 +278,51 @@ def check_kernel(shapes, device, timed: bool):
     return rows
 
 
+def check_kernel_bf16(shapes, device, timed: bool, fp32_rows):
+    """The bf16 kernel (``dcn_fwd_bf16``) vs its plain version at each
+    distinct shape and max_offset in (None, 8, 1), on the phase-3 inputs
+    rounded to bf16 (offset and mask stay float32); on the card also both
+    times, beside the float32 kernel's time from ``fp32_rows``."""
+    rows = []
+    for i, shape in enumerate(sorted(set(shapes), key=shapes.index)):
+        x, offset, mask, weight, bias = dcn_inputs(shape, device, SEED + i)
+        args = (x.bfloat16(), offset, mask, weight.bfloat16(),
+                bias.bfloat16())
+        worst = worst_rel = 0.0
+        for max_offset in (None, 8.0, 1.0):
+            got = dcn.dcn_fwd_bf16(*args, max_offset=max_offset)
+            want = dcn.deform_conv2d_bf16_plain(*args, max_offset=max_offset)
+            if got.dtype != torch.bfloat16:
+                raise AssertionError(f"dcn_fwd_bf16 returned {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / max(float(want.float().abs().max()), 1e-30)
+            if not (math.isfinite(err) and rel <= BF16_RTOL):
+                raise AssertionError(
+                    f"bf16 DCN kernel disagrees with its plain version at "
+                    f"{shape}, max_offset={max_offset}: max abs err "
+                    f"{err:.3e}, relative {rel:.3e} > {BF16_RTOL}")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        flops, nbytes, bound_ms, bound_by = dcn_bound_bf16(shape)
+        row = {"shape": list(shape), "nodes": shapes.count(shape),
+               "max_abs_err": worst, "max_rel_err": worst_rel,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if timed:
+            row["ms"], row["plain_ms"] = time_pair(
+                lambda: dcn.dcn_fwd_bf16(*args),
+                lambda: dcn.deform_conv2d_bf16_plain(*args), TIMING_REPS)
+            row["fp32_ms"] = next(r["ms"] for r in fp32_rows
+                                  if r["shape"] == list(shape))
+        rows.append(row)
+        log(f"  dcn bf16 {shape} x{row['nodes']}: max abs err {worst:.3e} "
+            f"(rel {worst_rel:.2e}, limit {BF16_RTOL})"
+            + (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+               f"ms, fp32 kernel {row['fp32_ms']:.4f} ms, bound "
+               f"{bound_ms:.4f} ms ({bound_by}, bf16 tensor cores)"
+               if timed else ""))
+    return rows
+
+
 def check_results(ret, n_images: int) -> int:
     results = ret["results"]
     if sorted(results) != list(range(n_images)):
@@ -260,6 +348,31 @@ def check_heads(det: Detector, frames):
     a near-tie in the first-stage heatmap reorders the top-K boxes, a
     discrete step outside the DCN, which the report states."""
     model = det.model
+    x, pc_dep, calib = model_inputs(det, frames)
+    feats_k, y_k, pc_k = first_stage(model, dcn.deform_conv2d, x, pc_dep,
+                                     calib)
+    feats_p, y_p, pc_p = first_stage(model, dcn.deform_conv2d_plain, x,
+                                     pc_dep, calib)
+    same_frustum = bool(torch.equal(pc_k, pc_p))
+    with torch.inference_mode():
+        y_k.update(model.detectHead_0.second_stage(feats_k, pc_k))
+        y_p.update(model.detectHead_0.second_stage(feats_p, pc_k))
+    worst = {}
+    for name in sorted(y_k):
+        a, b = y_k[name].float(), y_p[name].float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"head {name}: non-finite kernel output")
+        rel = rel_err(a, b)
+        worst[name] = rel
+        if rel > HEADS_RTOL:
+            raise AssertionError(f"head {name}: kernel vs plain DCN differ "
+                                 f"by {rel:.3e} relative > {HEADS_RTOL}")
+    return worst, same_frustum
+
+
+def model_inputs(det: Detector, frames):
+    """The normalized image, painted radar map and calib of one batch on
+    the card, as ``Detector._forward`` makes them (float32)."""
     batch, _ = det.pre_process(*frames)
     dev = det.device
 
@@ -271,39 +384,75 @@ def check_heads(det: Detector, frames):
     pc_dep = paint_rects_device_batch(t(batch["pc_boxes"]),
                                       t(batch["pc_values"]),
                                       det.config.MODEL.OUTPUT_SIZE)
-    calib = t(batch["calib"])
+    return x, pc_dep, t(batch["calib"])
+
+
+def first_stage(model, fn, x, pc_dep, calib):
+    """Features, first-stage heads and frustum heatmap of ``model`` with
+    ``fn`` as every DCN node's op."""
     nodes = [m for m in model.modules() if isinstance(m, DeformConvNode)]
-
-    def forward(fn):
+    for m in nodes:
+        m.dcn_fn = fn
+    try:
+        with torch.inference_mode():
+            feats = model.img2feats(x)
+            y = model.detectHead_0.first_stage(feats)
+            return feats, y, model.frustum_heatmap(y, pc_dep, calib)
+    finally:
         for m in nodes:
-            m.dcn_fn = fn
-        try:
-            with torch.inference_mode():
-                feats = model.img2feats(x)
-                y = model.detectHead_0.first_stage(feats)
-                pc_hm = model.frustum_heatmap(y, pc_dep, calib)
-                return feats, y, pc_hm
-        finally:
-            for m in nodes:
-                m.dcn_fn = dcn.deform_conv2d
+            m.dcn_fn = dcn.deform_conv2d
 
-    feats_k, y_k, pc_k = forward(dcn.deform_conv2d)
-    feats_p, y_p, pc_p = forward(dcn.deform_conv2d_plain)
-    same_frustum = bool(torch.equal(pc_k, pc_p))
+
+def check_heads_bf16(det32: Detector, det16: Detector, frames):
+    """Every head of the bf16 model with the bf16 kernel DCN against the
+    same model with the bf16 plain DCN, within BF16_HEAD_MULT times the
+    plain bf16 forward's own deviation from the float32 forward (the float32
+    model with its kernel) plus HEADS_RTOL. All three secondary stages take
+    the bf16 kernel run's frustum heatmap. Inside the kernel forward each
+    DCN node's output is also held against the plain version on the very
+    tensors that node saw (BF16_RTOL): the seeded network amplifies a
+    one-ulp difference at a node into a far larger one at the heads.
+    Returns per head (kernel vs plain, plain vs float32, kernel vs float32),
+    the per-node errors, and whether the three frustum top-K selections
+    were identical."""
+    x, pc_dep, calib = model_inputs(det32, frames)
+    m16, m32 = det16.model, det32.model
+    node_rel = []
+
+    def checked(x, offset, mask, weight, bias, max_offset=None):
+        out = dcn.deform_conv2d(x, offset, mask, weight, bias, max_offset)
+        want = dcn.deform_conv2d_plain(x, offset, mask, weight, bias,
+                                       max_offset)
+        node_rel.append(rel_err(out.float(), want.float()))
+        if not node_rel[-1] <= BF16_RTOL:
+            raise AssertionError(
+                f"bf16 DCN node {len(node_rel)} at {tuple(x.shape)}: kernel "
+                f"vs plain on its own inputs {node_rel[-1]:.3e} > {BF16_RTOL}")
+        return out
+
+    feats_k, y_k, pc_k = first_stage(m16, checked, x, pc_dep, calib)
+    feats_p, y_p, pc_p = first_stage(m16, dcn.deform_conv2d_plain, x, pc_dep,
+                                     calib)
+    feats_f, y_f, pc_f = first_stage(m32, dcn.deform_conv2d, x, pc_dep,
+                                     calib)
+    same_frustum = bool(torch.equal(pc_k, pc_p) and torch.equal(pc_k, pc_f))
     with torch.inference_mode():
-        y_k.update(model.detectHead_0.second_stage(feats_k, pc_k))
-        y_p.update(model.detectHead_0.second_stage(feats_p, pc_k))
+        for model, feats, y in ((m16, feats_k, y_k), (m16, feats_p, y_p),
+                                (m32, feats_f, y_f)):
+            y.update(model.detectHead_0.second_stage(feats, pc_k))
     worst = {}
     for name in sorted(y_k):
-        a, b = y_k[name].float(), y_p[name].float()
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"head {name}: non-finite kernel output")
-        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-        worst[name] = rel
-        if rel > HEADS_RTOL:
-            raise AssertionError(f"head {name}: kernel vs plain DCN differ "
-                                 f"by {rel:.3e} relative > {HEADS_RTOL}")
-    return worst, same_frustum
+        k, p, f = (y[name].float() for y in (y_k, y_p, y_f))
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"bf16 head {name}: non-finite output")
+        kp, pf, kf = rel_err(k, p), rel_err(p, f), rel_err(k, f)
+        worst[name] = (kp, pf, kf)
+        if kp > BF16_HEAD_MULT * pf + HEADS_RTOL:
+            raise AssertionError(
+                f"bf16 head {name}: kernel vs plain DCN differ by {kp:.3e} "
+                f"relative > {BF16_HEAD_MULT} x {pf:.3e} (plain bf16 vs "
+                f"float32) + {HEADS_RTOL}")
+    return worst, node_rel, same_frustum
 
 
 def time_one(fn, reps: int) -> float:
@@ -462,24 +611,46 @@ def check_backward(shapes, device, timed: bool, micro: int):
 
 def launch_counts():
     return {"dcn_fwd": dcn.deform_conv2d.launches,
+            "dcn_fwd_bf16": dcn.dcn_fwd_bf16.launches,
             **{k: f.launches for k, f in dcn.BACKWARD_KERNELS.items()}}
 
 
 def reset_launch_counts():
     dcn.deform_conv2d.launches = 0
+    dcn.dcn_fwd_bf16.launches = 0
     for f in dcn.BACKWARD_KERNELS.values():
         f.launches = 0
 
 
+def serve_counted(det: Detector, frames, n_cams: int):
+    """TIMED_RUNS counted runs of ``det.run``; returns (launch counts,
+    detections, the last run's stage times, host stage ms)."""
+    det.timer.reset()
+    det.stage_stats(reset=True)
+    detections = 0
+    reset_launch_counts()
+    for _ in range(TIMED_RUNS):
+        ret = det.run(*frames)
+        detections += check_results(ret, n_cams)
+    return launch_counts(), detections, ret["times"], det.stage_stats()
+
+
 def train_main_path(device, rehearsal: bool):
-    """Phase 7: the Trainer at full width, counted; returns its report."""
+    """Phase 10: the Trainer at full width in float32, counted, writing its
+    checkpoints into a temporary OUTPUT_DIR; returns its report."""
     opts = MAIN_PATH_OPTS + TRAIN_OPTS
     n_items = TRAIN_ITEMS
     if rehearsal:
         opts = opts + ["MODEL.INPUT_SIZE", "(64, 128)", "TRAIN.BATCH_SIZE",
                        "4"]
         n_items = 8
-    cfg = load_config(opts=opts, num_classes=10)
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_") as out_dir:
+        cfg = load_config(opts=opts + ["OUTPUT_DIR", repr(out_dir)],
+                          num_classes=10)
+        return _train_main_path(cfg, n_items, device, rehearsal)
+
+
+def _train_main_path(cfg, n_items, device, rehearsal: bool):
     accum = int(cfg.TRAIN.GRAD_ACCUM)
     batch_size = int(cfg.TRAIN.BATCH_SIZE)
     t0 = time.perf_counter()
@@ -537,19 +708,36 @@ def train_main_path(device, rehearsal: bool):
             if (not backbone or not frozen) and same:
                 raise AssertionError(f"{phase} step {k} left {name} "
                                      "unchanged")
-    # launches per step: forward once per node per microbatch; backward
-    # kernels the same, in unfrozen steps only; none on the CPU
+    # launches per step: the float32 forward once per node per microbatch;
+    # backward kernels the same, in unfrozen steps only; the bf16 forward
+    # never; none on the CPU
     per_node = 0 if rehearsal else n_nodes * accum
     prev = {k: 0 for k in counts[0]}
     for k, (frozen, cur) in enumerate(zip(phases, counts)):
         delta = {n: cur[n] - prev[n] for n in cur}
-        want = {n: (per_node if n == "dcn_fwd" or not frozen else 0)
+        want = {n: (per_node if n == "dcn_fwd"
+                    or (n in BWD_KERNELS and not frozen) else 0)
                 for n in cur}
         if delta != want:
             phase = "frozen" if frozen else "unfrozen"
             raise AssertionError(f"{phase} step {k}: launches {delta}, want "
                                  f"{want}")
         prev = cur
+    # the last epoch's checkpoint, read back (reference .pt dict)
+    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "ckpts")
+    last_epoch = int(cfg.TRAIN.EPOCHS) - 1
+    files = sorted(os.listdir(ckpt_dir))
+    if files != sorted([f"model_{last_epoch}.pt", "model_last.pt"]):
+        raise AssertionError(f"checkpoints written: {files}")
+    ckpt = load_torch_file(os.path.join(ckpt_dir, "model_last.pt"))
+    if ckpt["epoch"] != last_epoch or ckpt["optimizer"] is None:
+        raise AssertionError(f"checkpoint epoch {ckpt['epoch']}, optimizer "
+                             f"{'absent' if ckpt['optimizer'] is None else 'present'}")
+    for name, value in model.state_dict().items():
+        if not torch.equal(ckpt["state_dict"][name], value.cpu()):
+            raise AssertionError(f"checkpoint {name} differs from the model")
+    ckpt_mb = os.path.getsize(os.path.join(ckpt_dir, "model_last.pt")) / 1e6
+    del ckpt
     ms = {ph: [1e3 * s["seconds"] for s in steps if s["frozen"] == fz]
           for ph, fz in (("frozen", True), ("unfrozen", False))}
     report = {
@@ -562,6 +750,7 @@ def train_main_path(device, rehearsal: bool):
                          for k, v in ms.items()},
         "setup_s": setup_s,
         "total": [s["total"] for s in steps],
+        "checkpoints": files, "checkpoint_mb": ckpt_mb,
     }
     if not rehearsal:
         report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -597,7 +786,7 @@ def record_dcn_nodes(model):
 
 
 def step_kernel_vs_plain(device, rehearsal: bool):
-    """Phase 8: one unfrozen B=2 step on the same seeded weights and batch,
+    """Phase 11: one unfrozen B=2 step on the same seeded weights and batch,
     with the kernel DCN (float32), the plain DCN (float32) and the plain
     DCN in float64. Inside the kernel step, each DCN node's backward is held
     against the plain backward on the very tensors it saw (GRAD_RTOL). The
@@ -607,8 +796,8 @@ def step_kernel_vs_plain(device, rehearsal: bool):
     DLA-34 is chaotic (train-mode BatchNorm over nearly constant channels
     amplifies rounding), so two correct float32 steps differ far more than
     STEP_RTOL (measured up to 1.4x a gradient's largest magnitude)."""
-    opts = MAIN_PATH_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"]
-                             if rehearsal else [])
+    opts = MAIN_PATH_OPTS + FP32_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"]
+                                         if rehearsal else [])
     cfg = load_config(opts=opts, num_classes=10)
     ds = SyntheticTrainingSet(cfg, BWD_BATCH, seed=SEED + 1)
     host = stack_items([ds.get_item(i) for i in range(BWD_BATCH)])
@@ -712,8 +901,7 @@ def main(argv=None) -> int:
         card = nvidia_smi()
         log(f"card: {card}")
         t_build = time.perf_counter()
-        built = load_kernel_libraries([dcn.KERNEL_SOURCE,
-                                       dcn.BACKWARD_SOURCE])
+        built = load_kernel_libraries(dcn.KERNEL_SOURCES)
         log(f"built {len(built)} sources with nvcc in parallel in "
             f"{time.perf_counter() - t_build:.1f} s")
         for source, lib in built.items():
@@ -722,14 +910,14 @@ def main(argv=None) -> int:
                 log(f"  ptxas: {line}")
     log(f"phase environment: {time.perf_counter() - t0:.1f} s")
 
-    # 2. the detector at full width, seeded weights, warm-up run
+    # 2. the float32 detector at full width, seeded weights, warm-up run
     t0 = time.perf_counter()
     if rehearsal:
         opts = MAIN_PATH_OPTS + ["MODEL.INPUT_SIZE", "(64, 128)"]
         n_cams, frame_hw = 2, (72, 128)
     else:
         opts, n_cams, frame_hw = MAIN_PATH_OPTS, 6, (450, 800)
-    cfg = load_config(opts=opts, num_classes=10)
+    cfg = load_config(opts=opts + FP32_OPTS, num_classes=10)
     det = Detector(cfg, device=args.device)
     seeded_weights(det.model, SEED)
     frames = synthetic_frames(n_cams, *frame_hw, seed=SEED)
@@ -746,40 +934,38 @@ def main(argv=None) -> int:
         + ", ".join(str(s) for s in shapes))
     log(f"phase build+warm-up: {time.perf_counter() - t0:.1f} s")
 
-    # 3. kernel vs plain at every distinct node shape
+    # 3. float32 kernel vs plain at every distinct node shape
     t0 = time.perf_counter()
     rows = check_kernel(shapes, det.device, timed=not rehearsal)
     log(f"phase kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
-    # 4. the main path through the entry point, counted
+    # 4. bf16 kernel vs plain at every distinct node shape
     t0 = time.perf_counter()
-    det.timer.reset()
-    det.stage_stats(reset=True)
-    detections = 0
-    dcn.deform_conv2d.launches = 0
-    for _ in range(TIMED_RUNS):
-        ret = det.run(*frames)
-        detections += check_results(ret, n_cams)
-    launches = dcn.deform_conv2d.launches
+    rows16 = check_kernel_bf16(shapes, det.device, not rehearsal, rows)
+    log(f"phase bf16-kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+    # 5. the float32 main path through the entry point, counted
+    t0 = time.perf_counter()
     expected = 0 if rehearsal else n_nodes * TIMED_RUNS
-    if launches != expected:
-        raise AssertionError(f"dcn_fwd launched {launches} times on the main "
-                             f"path, expected {expected}")
-    times = ret["times"]
-    log(f"main path: {TIMED_RUNS} runs, dcn_fwd launches {launches} "
-        f"(expected {expected}: {n_nodes} nodes x {TIMED_RUNS} runs on the "
-        f"card), {detections} detections, all finite")
+    counts, detections, times, host = serve_counted(det, frames, n_cams)
+    launches = counts["dcn_fwd"]
+    if counts != {**{k: 0 for k in counts}, "dcn_fwd": expected}:
+        raise AssertionError(f"float32 main path launches {counts}, expected "
+                             f"dcn_fwd {expected} and no other")
+    log(f"main path (float32): {TIMED_RUNS} runs, dcn_fwd launches "
+        f"{launches} (expected {expected}: {n_nodes} nodes x {TIMED_RUNS} "
+        f"runs on the card), {detections} detections, all finite")
     log("  stage ms: " + ", ".join(f"{k} {1e3 * v:.2f}"
                                    for k, v in times.items()))
     log("  host stage ms: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in det.stage_stats().items()))
+        f"{k} {v:.3f}" for k, v in host.items()))
     if not rehearsal:
         log(f"  {n_cams / times['total']:.2f} frames/s "
             f"({1e3 * times['total']:.2f} ms per {n_cams}-camera batch, "
             f"load excluded) on {card}")
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
 
-    # 5. every head, kernel DCN vs plain DCN
+    # 6. every head, kernel DCN vs plain DCN
     t0 = time.perf_counter()
     worst, same_frustum = check_heads(det, frames)
     log(f"heads kernel vs plain DCN: worst relative "
@@ -787,12 +973,65 @@ def main(argv=None) -> int:
         f"selection identical: {same_frustum}")
     log("  " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     log(f"phase heads: {time.perf_counter() - t0:.1f} s")
+
+    # 7. bf16 serving as the configs ship it, same weights, counted
+    t0 = time.perf_counter()
+    cfg16 = load_config(opts=opts + ["MIXED_PRECISION", "True"],
+                        num_classes=10)
+    det16 = Detector(cfg16, state_dict=det.model.state_dict(),
+                     device=args.device)
+    if det16.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("MIXED_PRECISION True built a "
+                             f"{det16.model.compute_dtype} model")
+    det16.run(*frames)  # warm-up
+    counts16, detections16, times16, host16 = serve_counted(det16, frames,
+                                                            n_cams)
+    launches16 = counts16["dcn_fwd_bf16"]
+    if counts16 != {**{k: 0 for k in counts16}, "dcn_fwd_bf16": expected}:
+        raise AssertionError(f"bf16 main path launches {counts16}, expected "
+                             f"dcn_fwd_bf16 {expected} and no other")
+    log(f"main path (bf16): {TIMED_RUNS} runs, dcn_fwd_bf16 launches "
+        f"{launches16} (expected {expected}), dcn_fwd launches "
+        f"{counts16['dcn_fwd']}, {detections16} detections, all finite")
+    log("  stage ms (bf16 / float32): " + ", ".join(
+        f"{k} {1e3 * v:.2f} / {1e3 * times[k]:.2f}"
+        for k, v in times16.items()))
+    log("  host stage ms (bf16): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host16.items()))
+    if not rehearsal:
+        log(f"  bf16 {n_cams / times16['total']:.2f} frames/s "
+            f"({1e3 * times16['total']:.2f} ms per batch) against float32 "
+            f"{n_cams / times['total']:.2f} frames/s "
+            f"({1e3 * times['total']:.2f} ms) on {card}")
+    log(f"phase bf16 main path: {time.perf_counter() - t0:.1f} s")
+
+    # 8. bf16 heads: kernel vs plain, against the plain's own deviation
+    t0 = time.perf_counter()
+    worst16, node_rel16, same16 = check_heads_bf16(det, det16, frames)
+    if len(node_rel16) != n_nodes:
+        raise AssertionError(f"{len(node_rel16)} bf16 DCN calls, {n_nodes} "
+                             "nodes")
+    log(f"bf16 forward: each of the {n_nodes} DCN nodes within "
+        f"{max(node_rel16):.3e} of the plain version on its own inputs "
+        f"(limit {BF16_RTOL})")
+    log(f"bf16 heads, kernel vs plain DCN: worst relative "
+        f"{max(v[0] for v in worst16.values()):.3e} (limit per head "
+        f"{BF16_HEAD_MULT} x plain bf16 vs float32 + {HEADS_RTOL}); plain "
+        f"bf16 vs float32 forward up to "
+        f"{max(v[1] for v in worst16.values()):.3e}, kernel bf16 vs float32 "
+        f"up to {max(v[2] for v in worst16.values()):.3e} (seeded weights: "
+        f"not bounded); frustum top-K selection identical in all three: "
+        f"{same16}")
+    log("  per head (kernel vs plain, plain vs fp32, kernel vs fp32): "
+        + ", ".join(f"{k} {a:.2e}/{b:.2e}/{c:.2e}"
+                    for k, (a, b, c) in worst16.items()))
+    log(f"phase bf16 heads: {time.perf_counter() - t0:.1f} s")
     serving_launches = launches
-    del det
+    del det, det16
     if not rehearsal:
         torch.cuda.empty_cache()
 
-    # 6. backward kernels vs plain backward at every distinct node shape
+    # 9. backward kernels vs plain backward at every distinct node shape
     t0 = time.perf_counter()
     micro = (int(MAIN_PATH_OPTS[MAIN_PATH_OPTS.index("TRAIN.BATCH_SIZE") + 1])
              // int(TRAIN_OPTS[TRAIN_OPTS.index("TRAIN.GRAD_ACCUM") + 1]))
@@ -800,7 +1039,7 @@ def main(argv=None) -> int:
                               micro=micro)
     log(f"phase backward-vs-plain: {time.perf_counter() - t0:.1f} s")
 
-    # 7. the Trainer at full width, counted
+    # 10. the Trainer at full width in float32, counted
     t0 = time.perf_counter()
     train = train_main_path(args.device, rehearsal)
     log(f"training: batch {train['batch']} in {train['grad_accum']} "
@@ -808,7 +1047,9 @@ def main(argv=None) -> int:
         f"{train['steps'] // 2} unfrozen) after 1 untimed warm-up step; "
         f"launches {train['launches']} (backward kernels expected "
         f"{train['expected_backward_launches']} each); losses "
-        + ", ".join(f"{v:.4f}" for v in train["total"]) + ", all finite")
+        + ", ".join(f"{v:.4f}" for v in train["total"]) + ", all finite; "
+        f"checkpoints {train['checkpoints']} "
+        f"({train['checkpoint_mb']:.1f} MB each) read back equal")
     for phase in ("frozen", "unfrozen"):
         log(f"  {phase}: {train['ms_per_step'][phase]:.1f} ms per step ("
             + ", ".join(f"{v:.1f}" for v in train["ms_steps"][phase])
@@ -833,7 +1074,7 @@ def main(argv=None) -> int:
             f"unfrozen step")
     log(f"phase training: {time.perf_counter() - t0:.1f} s")
 
-    # 8. one unfrozen step, kernel DCN vs plain DCN
+    # 11. one unfrozen step, kernel DCN vs plain DCN
     t0 = time.perf_counter()
     step = step_kernel_vs_plain(args.device, rehearsal)
     log(f"train step B={BWD_BATCH}: in-step backward of {step['nodes_checked']}"
@@ -867,7 +1108,27 @@ def main(argv=None) -> int:
         "library_ms": None,
         "per_node_shape": rows,
     }
-    kernels = [kernel]
+    ptxas16 = built[dcn.BF16_SOURCE].ptxas
+    kernels = [kernel, {
+        "name": "dcn_fwd_bf16", "route": "cuda",
+        "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_fwd_bf16.cu",
+        "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:117",
+        "also_replaces": ["centerfusiondetect3d_tpu/ops/pallas_dcn.py:240",
+                          "scripts/probe_dcn_select.py:48",
+                          "scripts/probe_dcn_select.py:83"],
+        "launches": launches16,
+        "max_abs_err": max(r["max_abs_err"] for r in rows16),
+        # per bf16 forward of the main path: the sum over its DCN nodes
+        "ms": sum(r["ms"] * r["nodes"] for r in rows16),
+        "plain_ms": sum(r["plain_ms"] * r["nodes"] for r in rows16),
+        "bound_ms": sum(r["bound_ms"] * r["nodes"] for r in rows16),
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in rows16) else "bytes",
+        "library_ms": None,
+        "fp32_ms": sum(r["fp32_ms"] * r["nodes"] for r in rows16),
+        "ptxas": ptxas16,
+        "per_node_shape": rows16,
+    }]
     for name in BWD_KERNELS:
         kernels.append({
             "name": name, "route": "cuda",

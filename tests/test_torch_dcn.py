@@ -191,7 +191,8 @@ def test_detector_launches_kernel_once_per_node_on_card():
     from centerfusiondetect3d_tpu_torch.models.layers import DeformConvNode
     from centerfusiondetect3d_tpu_torch.runtime.detector import Detector
 
-    det = Detector(load_config(opts=["MODEL.INPUT_SIZE", "(64, 128)"]))
+    det = Detector(load_config(opts=["MODEL.INPUT_SIZE", "(64, 128)",
+                                     "MIXED_PRECISION", "False"]))
     assert det.device.type == "cuda"
     nodes = [m for m in det.model.modules() if isinstance(m, DeformConvNode)]
     gen = torch.Generator().manual_seed(0)

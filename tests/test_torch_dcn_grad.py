@@ -377,7 +377,8 @@ def test_train_step_kernel_matches_plain_on_card():
         train_step,
     )
 
-    cfg = load_config(opts=MAIN_PATH_OPTS + ["MODEL.INPUT_SIZE", "(64, 128)"],
+    cfg = load_config(opts=MAIN_PATH_OPTS + ["MODEL.INPUT_SIZE", "(64, 128)",
+                                             "MIXED_PRECISION", "False"],
                       num_classes=10)
     ds = SyntheticTrainingSet(cfg, 2)
     host = stack_items([ds.get_item(i) for i in range(2)])

@@ -94,18 +94,20 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     assert report["rc"] == 0
     assert report["modules"] >= 20
     assert report["loaded"] == [], report["loaded"]
-    # serving, then the DCN backward check, the Trainer and the
-    # kernel-vs-plain train step
+    # serving in float32 and in bf16, then the DCN backward check, the
+    # Trainer and the kernel-vs-plain train step
     assert report["phases"] == [
         "phase environment", "phase build+warm-up", "phase kernel-vs-plain",
-        "phase main path", "phase heads", "phase backward-vs-plain",
+        "phase bf16-kernel-vs-plain", "phase main path", "phase heads",
+        "phase bf16 main path", "phase bf16 heads", "phase backward-vs-plain",
         "phase training", "phase step-vs-plain"], report["phases"]
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
 
 
 def test_kernel_sources_ship_as_package_data():
-    """Every CUDA source under csrc/ (the forward and the backward DCN
-    kernels) is package data, so an installed port can build them."""
+    """Every CUDA source under csrc/ (the float32 and bf16 forward and the
+    backward DCN kernels) is package data, so an installed port can build
+    them."""
     import fnmatch
     import tomllib
 
@@ -113,7 +115,8 @@ def test_kernel_sources_ship_as_package_data():
     globs = data["tool"]["setuptools"]["package-data"][PACKAGE.name]
     sources = sorted(p.relative_to(PACKAGE).as_posix()
                      for p in (PACKAGE / "csrc").iterdir())
-    assert {"csrc/dcn_fwd.cu", "csrc/dcn_bwd.cu"} <= set(sources)
+    assert {"csrc/dcn_fwd.cu", "csrc/dcn_bwd.cu",
+            "csrc/dcn_fwd_bf16.cu"} <= set(sources)
     for src in sources:
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
 

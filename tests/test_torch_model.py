@@ -41,9 +41,10 @@ RTOL = ATOL = 2e-3
 
 
 def _opts(node, fusion, frustum):
+    # float32: the goldens are float32 runs of the reference
     return ["MODEL.INPUT_SIZE", "(64, 128)", "MODEL.DLA.NODE", node,
             "DATASET.RADAR_PC", "True", "MODEL.FRUSTUM", str(frustum),
-            "MODEL.FUSION_STRATEGY", repr(fusion)]
+            "MODEL.FUSION_STRATEGY", repr(fusion), "MIXED_PRECISION", "False"]
 
 
 @pytest.mark.parametrize("fixture,node,fusion,frustum,sd_fixture", [

@@ -289,7 +289,8 @@ def _golden_step(fixture, sd_fixture, node):
         "DATASET.RADAR_PC", "True", "MODEL.FRUSTUM", "False",
         "MODEL.FUSION_STRATEGY", "'middle'",
         "LOSS_WEIGHTS.LIDAR_DEPTH", "0.7", "LOSS_WEIGHTS.RADAR_DEPTH", "0.6",
-        "TRAIN.OPTIMIZER", "'adam'", "TRAIN.LR", str(lr)], num_classes=10)
+        "TRAIN.OPTIMIZER", "'adam'", "TRAIN.LR", str(lr),
+        "MIXED_PRECISION", "False"], num_classes=10)
     sd = {k[3:]: sd_src[k] for k in sd_src.files if k.startswith("sd_")}
     sd.update({k[5:]: g[k] for k in g.files if k.startswith("pert_")})
     checksum = float(sum(np.sum(v, dtype=np.float64) for v in sd.values()))
@@ -531,11 +532,15 @@ def test_train_step_rejects_batch_grad_accum_does_not_divide(conv_ref):
                    accum_steps=3)
 
 
-def test_trainer_steps_across_defreeze_match_jax_f64(conv_ref):
+def test_trainer_steps_across_defreeze_match_jax_f64(conv_ref, tmp_path):
     """FREEZE_BACKBONE, DEFREEZE 0, 2 epochs of 2 steps: two frozen steps,
     then unfrozen ones; the per-step losses of the port's Trainer against
-    a JAX make_train_step loop fed the JAX Loader's batches (same order)."""
-    cfg = conv_ref.port_cfg
+    a JAX make_train_step loop fed the JAX Loader's batches (same order).
+    The last epoch's checkpoint goes to a temporary OUTPUT_DIR."""
+    cfg = conv_ref.port_cfg.clone()
+    cfg.defrost()
+    cfg.OUTPUT_DIR = str(tmp_path)
+    cfg.freeze()
     trainer = Trainer(cfg, conv_ref.items, device="cpu")
     trainer.model.double()
     trainer.init_state(state_dict=conv_ref.state_dict)
@@ -558,6 +563,8 @@ def test_trainer_steps_across_defreeze_match_jax_f64(conv_ref):
     np.testing.assert_allclose(got, want, rtol=1e-8)
     assert sorted(trainer.history["train"]["total"]) and len(
         trainer.history["train"]["total"]) == 2
+    assert sorted(os.listdir(tmp_path / "ckpts")) == ["model_1.pt",
+                                                      "model_last.pt"]
 
 
 @pytest.mark.slow
