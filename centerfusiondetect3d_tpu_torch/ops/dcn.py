@@ -1,8 +1,8 @@
 """Modulated 3x3 stride-1 deformable convolution (DCNv2), NCHW, with autograd.
 
 The op of every ``DeformConvNode``. ``deform_conv2d`` is the entry point: on
-a CPU tensor it runs the plain PyTorch version, ``deform_conv2d_plain``, and
-autograd differentiates that; on a CUDA tensor it runs ``DeformConv2dFunction``,
+a float32 or float64 CPU tensor it runs the plain PyTorch version,
+``deform_conv2d_plain``, and autograd differentiates that; on a CUDA tensor it runs ``DeformConv2dFunction``,
 whose forward launches the hand-written kernel ``csrc/dcn_fwd.cu`` (which
 replaces the Pallas forward kernels of
 ``centerfusiondetect3d_tpu/ops/pallas_dcn.py``) and whose backward launches
@@ -11,11 +11,15 @@ the kernels of ``csrc/dcn_bwd.cu`` (which replace the backward of
 products. On the card a kernel launches or the call raises: nothing falls
 back to the plain version.
 
-A bfloat16 ``x`` (the mixed-precision model) takes the bf16 forward,
-:func:`dcn_fwd_bf16`: the tensor-core kernel ``csrc/dcn_fwd_bf16.cu`` on the
-card, :func:`deform_conv2d_bf16_plain` on the CPU. It takes float32 offset
-and mask and a bf16 weight and bias, and has no backward yet: under autograd
-it raises. float16 raises everywhere.
+A bfloat16 ``x`` (the mixed-precision model) takes the bf16 kernels: the
+forward :func:`dcn_fwd_bf16` (the tensor-core kernel ``csrc/dcn_fwd_bf16.cu``)
+and, under autograd, the bf16 instantiations of the ``dcn_bwd.cu`` kernels
+(:func:`dcn_im2col_bf16`, :func:`dcn_col2im_bf16`,
+:func:`dcn_col2im_coord_bf16`) around two bf16 matrix products. It takes
+float32 offset and mask and a bf16 weight and bias, and returns bf16; its
+gradients come back in the inputs' dtypes. On the CPU the same Function runs
+with the kernels' plain versions, so a bf16 backward there has the card's
+decomposition and rounding points. float16 raises everywhere.
 
 Semantics are those of ``centerfusiondetect3d_tpu/ops/dcn.py:deform_conv2d``
 and of the reference's ``torchvision.ops.deform_conv2d``: offsets in the
@@ -177,32 +181,84 @@ def deform_conv2d_backward_plain(x, offset, mask, weight, bias, grad_out,
     return tuple(grads) + ((None,) if bias is None else ())
 
 
+def dcn_im2col_bf16_plain(x, offset, mask,
+                          max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_im2col_bf16`` kernel: the float32 columns
+    of x widened to float32, each rounded once to bf16 (the taps that
+    ``dcn_fwd_bf16`` contracts)."""
+    return dcn_im2col_plain(x.float(), offset, mask,
+                            max_offset).to(torch.bfloat16)
+
+
+def dcn_col2im_bf16_plain(dcols, x, offset, mask,
+                          max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_col2im_bf16`` kernel: the float32 dx of
+    the widened bf16 column gradients, rounded once to bf16."""
+    return dcn_col2im_plain(dcols.float(), x.float(), offset, mask,
+                            max_offset).to(torch.bfloat16)
+
+
+def dcn_col2im_coord_bf16_plain(dcols, x, offset, mask,
+                                max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_col2im_coord_bf16`` kernel: (doffset,
+    dmask) in float32 from the widened bf16 column gradients and x."""
+    return dcn_col2im_coord_plain(dcols.float(), x.float(), offset, mask,
+                                  max_offset)
+
+
+def deform_conv2d_bf16_backward_plain(x, offset, mask, weight, bias,
+                                      grad_out,
+                                      max_offset: Optional[float] = None):
+    """Plain version of the bf16 backward (:func:`deform_conv2d_backward`
+    on a bf16 ``x``): (dx, doffset, dmask, dweight, dbias), dbias None when
+    bias is None. The plain bf16 kernels around the two matrix products,
+    which run in float32 on the widened bf16 values (a product of two bf16
+    values is exact in float32) and are rounded where the card's bf16
+    products round: dweight and the column gradients once each."""
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    g = grad_out.float().reshape(b, o, h * w)
+    cols = dcn_im2col_bf16_plain(x, offset, mask, max_offset).float()
+    dweight = torch.matmul(g, cols.transpose(1, 2)).sum(0)
+    dweight = dweight.view(o, c, 3, 3).to(torch.bfloat16)
+    dcols = torch.matmul(weight.float().reshape(o, 9 * c).t(),
+                         g).to(torch.bfloat16)
+    dx = dcn_col2im_bf16_plain(dcols, x, offset, mask, max_offset)
+    doffset, dmask = dcn_col2im_coord_bf16_plain(dcols, x, offset, mask,
+                                                 max_offset)
+    dbias = (None if bias is None
+             else grad_out.float().sum((0, 2, 3)).to(torch.bfloat16))
+    return dx, doffset, dmask, dweight, dbias
+
+
 def deform_conv2d(x, offset, mask, weight, bias=None,
                   max_offset: Optional[float] = None):
     """DCNv2 with autograd: the CUDA kernels on the card, the plain version
     on the CPU.
 
     Same arguments and result as :func:`deform_conv2d_plain`. On CUDA every
-    tensor must be contiguous float32 on one device; anything else raises.
-    A bf16 ``x`` goes to :func:`dcn_fwd_bf16` (no gradient: it raises
-    ``NotImplementedError`` under autograd); float16 raises.
+    tensor must be contiguous float32 on one device, or bf16 x, weight and
+    bias with float32 offset and mask; anything else raises. A float32
+    ``x`` on the CPU runs :func:`deform_conv2d_plain` under autograd; a bf16
+    ``x`` runs ``DeformConv2dFunction`` on either device (on the CPU with
+    the kernels' plain versions); float16 raises.
     ``deform_conv2d.launches`` counts the float32 forward kernel's
     launches, ``dcn_fwd_bf16.launches`` the bf16 one's; each backward
-    kernel's wrapper (:func:`dcn_im2col`, :func:`dcn_col2im`,
-    :func:`dcn_col2im_coord`) counts its own.
+    kernel's wrapper (``BACKWARD_KERNELS``, ``BACKWARD_KERNELS_BF16``)
+    counts its own.
     """
-    if x.dtype == torch.bfloat16:
-        return dcn_fwd_bf16(x, offset, mask, weight, bias, max_offset)
     if x.dtype == torch.float16:
         raise TypeError("deform_conv2d: float16 is not supported; use "
                         "bfloat16 (MIXED_PRECISION) or float32")
-    if x.device.type == "cpu":
+    bf16 = x.dtype == torch.bfloat16
+    if x.device.type == "cpu" and not bf16:
         return deform_conv2d_plain(x, offset, mask, weight, bias, max_offset)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"deform_conv2d: no kernel for device {x.device}")
     tensors = (x, offset, mask, weight) + ((bias,) if bias is not None else ())
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
-        return _launch(x, offset, mask, weight, bias, max_offset)
+        forward = dcn_fwd_bf16 if bf16 else _launch
+        return forward(x, offset, mask, weight, bias, max_offset)
     return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
                                       max_offset)
 
@@ -211,12 +267,14 @@ deform_conv2d.launches = 0
 
 
 class DeformConv2dFunction(torch.autograd.Function):
-    """``dcn_fwd`` forward; backward = the ``dcn_bwd.cu`` kernels around
-    two plain GEMMs, recomputing the columns from the saved inputs."""
+    """The forward kernel of x's dtype (``dcn_fwd`` or ``dcn_fwd_bf16``);
+    backward = the ``dcn_bwd.cu`` kernels of that dtype around two plain
+    GEMMs, recomputing the columns from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_offset):
-        out = _launch(x, offset, mask, weight, bias, max_offset)
+        forward = dcn_fwd_bf16 if x.dtype == torch.bfloat16 else _launch
+        out = forward(x, offset, mask, weight, bias, max_offset)
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.has_bias = bias is not None
         ctx.max_offset = max_offset
@@ -243,45 +301,72 @@ def deform_conv2d_backward(x, offset, mask, weight, grad_out,
     costs nothing (dweight alone needs no ``dcn_col2im``/``dcn_col2im_coord``,
     dx alone no ``dcn_im2col``).
 
-    dweight = sum_b g_b . cols_b^T and dcols = W^T . g are plain fp32
-    matrix products (``torch.matmul``), as the JAX package leaves them to
-    XLA; the rest are the hand-written kernels.
+    dweight = sum_b g_b . cols_b^T and dcols = W^T . g are plain matrix
+    products (``torch.matmul``), as the JAX package leaves them to XLA; the
+    rest are the hand-written kernels, those of x's dtype. The columns lie
+    (9C, B, HW), so that each product is one GEMM over the B*HW axis,
+    accumulated in float32; in bf16 each is rounded once: dweight and dbias
+    come back bf16 (the dtypes of the bf16 weight and bias), dx bf16,
+    doffset and dmask float32.
     """
-    b, c, h, w = x.shape
-    o = weight.shape[0]
-    g = grad_out.contiguous().view(b, o, h * w)
+    o, c = weight.shape[:2]
+    if x.dtype == torch.bfloat16:
+        im2col, col2im, coord = (dcn_im2col_bf16, dcn_col2im_bf16,
+                                 dcn_col2im_coord_bf16)
+    else:
+        im2col, col2im, coord = dcn_im2col, dcn_col2im, dcn_col2im_coord
     dx = doffset = dmask = dweight = dbias = None
     if need_weight:
-        cols = dcn_im2col(x, offset, mask, max_offset)
-        dweight = torch.matmul(g, cols.transpose(1, 2)).sum(0).view(
-            o, c, 3, 3)
+        cols = im2col(x, offset, mask, max_offset)
+        dweight = weight_gradient(grad_out, cols).view(o, c, 3, 3)
         del cols
     if need_x or need_offset or need_mask:
-        dcols = torch.matmul(weight.reshape(o, 9 * c).t(),
-                             g).contiguous()  # (B, 9C, HW)
+        dcols = column_gradients(weight, grad_out)
         if need_x:
-            dx = dcn_col2im(dcols, offset, mask, max_offset)
+            dx = col2im(dcols, offset, mask, max_offset)
         if need_offset or need_mask:
-            doffset, dmask = dcn_col2im_coord(dcols, x, offset, mask,
-                                              max_offset)
+            doffset, dmask = coord(dcols, x, offset, mask, max_offset)
             doffset = doffset if need_offset else None
             dmask = dmask if need_mask else None
     if need_bias:
-        dbias = grad_out.sum((0, 2, 3))
+        dbias = grad_out.sum((0, 2, 3), dtype=torch.float32).to(
+            grad_out.dtype)
     return dx, doffset, dmask, dweight, dbias
 
 
+def weight_gradient(grad_out, cols):
+    """dweight = sum_b g_b . cols_b^T, (O, 9C), from the output gradient
+    (B, O, H, W) and the columns (B, 9C, H*W): one GEMM over the B*HW axis
+    (a view of the kernels' columns, which lie (9C, B, H*W) in memory)."""
+    b, o, h, w = grad_out.shape
+    return torch.matmul(_batch_inner_grad(grad_out),
+                        cols.transpose(0, 1).reshape(-1, b * h * w).t())
+
+
+def column_gradients(weight, grad_out):
+    """dcols = W^T . g, the column gradients (B, 9C, H*W) of a node with
+    weight (O, C, 3, 3) and output gradient (B, O, H, W): one GEMM over the
+    B*HW axis, lying (9C, B, H*W) in memory."""
+    b, o, h, w = grad_out.shape
+    dcols = torch.matmul(weight.reshape(o, -1).t(),
+                         _batch_inner_grad(grad_out))
+    return dcols.view(-1, b, h * w).transpose(0, 1)
+
+
+def _batch_inner_grad(grad_out):
+    """(B, O, H, W) -> (O, B*H*W): the GEMM operand over the B*HW axis."""
+    b, o, h, w = grad_out.shape
+    return grad_out.transpose(0, 1).reshape(o, b * h * w)
+
+
 def dcn_im2col(x, offset, mask, max_offset: Optional[float] = None):
-    """The ``dcn_im2col`` kernel: (B, 9C, H*W) columns, as
-    :func:`dcn_im2col_plain` (which runs instead on CPU tensors).
-    ``dcn_im2col.launches`` counts launches."""
+    """The ``dcn_im2col`` kernel: (B, 9C, H*W) columns lying (9C, B, H*W)
+    in memory, as :func:`dcn_im2col_plain` (which runs instead on CPU
+    tensors). ``dcn_im2col.launches`` counts launches."""
     if x.device.type == "cpu":
         return dcn_im2col_plain(x, offset, mask, max_offset)
-    _require_cuda(x)
-    b, c, h, w = _check_sampling(x, offset, mask, max_offset)
-    cols = torch.empty((b, 9 * c, h * w), device=x.device, dtype=x.dtype)
-    _run(x, "cfd_dcn_im2col", x.data_ptr(), offset.data_ptr(),
-         mask.data_ptr(), cols.data_ptr(), b, c, h, w, _clamp(max_offset))
+    cols = _im2col("cfd_dcn_im2col", torch.float32, x, offset, mask,
+                   max_offset)
     dcn_im2col.launches += 1
     return cols
 
@@ -291,14 +376,14 @@ def dcn_col2im(dcols, offset, mask, max_offset: Optional[float] = None):
     (B, 9C, H*W), as :func:`dcn_col2im_plain` (which runs instead on CPU
     tensors). ``dcn_col2im.launches`` counts launches."""
     if dcols.device.type == "cpu":
-        b, rows, _ = dcols.shape
-        x = dcols.new_empty((b, rows // 9) + tuple(offset.shape[2:]))
-        return dcn_col2im_plain(dcols, x, offset, mask, max_offset)
+        return dcn_col2im_plain(dcols, _like_x(dcols, offset), offset, mask,
+                                max_offset)
     _require_cuda(dcols)
     b, c, h, w = _check_columns(dcols, offset, mask, max_offset)
     dx = torch.zeros((b, c, h, w), device=dcols.device, dtype=dcols.dtype)
     _run(dcols, "cfd_dcn_col2im", dcols.data_ptr(), offset.data_ptr(),
-         mask.data_ptr(), dx.data_ptr(), b, c, h, w, _clamp(max_offset))
+         mask.data_ptr(), dx.data_ptr(), b, c, h, w, *dcols.stride()[:2],
+         _clamp(max_offset))
     dcn_col2im.launches += 1
     return dx
 
@@ -311,20 +396,10 @@ def dcn_col2im_coord(dcols, x, offset, mask,
     ``dcn_col2im_coord.launches`` counts launches."""
     if x.device.type == "cpu":
         return dcn_col2im_coord_plain(dcols, x, offset, mask, max_offset)
-    _require_cuda(x)
-    b, c, h, w = _check_sampling(x, offset, mask, max_offset)
-    if tuple(_check(dcols, "dcols", 3)) != (b, 9 * c, h * w):
-        raise ValueError(f"dcols must be ({b}, {9 * c}, {h * w}), got "
-                         f"{tuple(dcols.shape)}")
-    if dcols.device != x.device:
-        raise ValueError("deform_conv2d: all tensors must be on one device")
-    doffset = torch.empty_like(offset)
-    dmask = torch.empty_like(mask)
-    _run(x, "cfd_dcn_col2im_coord", dcols.data_ptr(), x.data_ptr(),
-         offset.data_ptr(), mask.data_ptr(), doffset.data_ptr(),
-         dmask.data_ptr(), b, c, h, w, _clamp(max_offset))
+    out = _coord("cfd_dcn_col2im_coord", torch.float32, dcols, x, offset,
+                 mask, max_offset)
     dcn_col2im_coord.launches += 1
-    return doffset, dmask
+    return out
 
 
 dcn_im2col.launches = 0
@@ -332,6 +407,98 @@ dcn_col2im.launches = 0
 dcn_col2im_coord.launches = 0
 BACKWARD_KERNELS = {"dcn_im2col": dcn_im2col, "dcn_col2im": dcn_col2im,
                     "dcn_col2im_coord": dcn_col2im_coord}
+
+
+def dcn_im2col_bf16(x, offset, mask, max_offset: Optional[float] = None):
+    """The ``dcn_im2col_bf16`` kernel: bf16 columns of a bf16 x, as
+    :func:`dcn_im2col` in float32 and :func:`dcn_im2col_bf16_plain` (which
+    runs instead on CPU tensors). ``dcn_im2col_bf16.launches`` counts
+    launches."""
+    if x.device.type == "cpu":
+        return dcn_im2col_bf16_plain(x, offset, mask, max_offset)
+    cols = _im2col("cfd_dcn_im2col_bf16", torch.bfloat16, x, offset, mask,
+                   max_offset)
+    dcn_im2col_bf16.launches += 1
+    return cols
+
+
+def dcn_col2im_bf16(dcols, offset, mask, max_offset: Optional[float] = None):
+    """The ``dcn_col2im_bf16`` kernel: bf16 dx (B, C, H, W) from bf16
+    column gradients (B, 9C, H*W), summed in a float32 scratch and rounded
+    once; as :func:`dcn_col2im_bf16_plain` (which runs instead on CPU
+    tensors). ``dcn_col2im_bf16.launches`` counts launches."""
+    if dcols.device.type == "cpu":
+        return dcn_col2im_bf16_plain(dcols, _like_x(dcols, offset), offset,
+                                     mask, max_offset)
+    _require_cuda(dcols)
+    b, c, h, w = _check_columns(dcols, offset, mask, max_offset,
+                                torch.bfloat16)
+    scratch = torch.zeros((b, c, h, w), device=dcols.device,
+                          dtype=torch.float32)
+    dx = torch.empty((b, c, h, w), device=dcols.device, dtype=torch.bfloat16)
+    _run(dcols, "cfd_dcn_col2im_bf16", dcols.data_ptr(), offset.data_ptr(),
+         mask.data_ptr(), scratch.data_ptr(), dx.data_ptr(), b, c, h, w,
+         *dcols.stride()[:2], _clamp(max_offset))
+    dcn_col2im_bf16.launches += 1
+    return dx
+
+
+def dcn_col2im_coord_bf16(dcols, x, offset, mask,
+                          max_offset: Optional[float] = None):
+    """The ``dcn_col2im_coord_bf16`` kernel: float32 (doffset, dmask) from
+    bf16 column gradients and a bf16 x, as :func:`dcn_col2im_coord_bf16_plain`
+    (which runs instead on CPU tensors). ``dcn_col2im_coord_bf16.launches``
+    counts launches."""
+    if x.device.type == "cpu":
+        return dcn_col2im_coord_bf16_plain(dcols, x, offset, mask,
+                                           max_offset)
+    out = _coord("cfd_dcn_col2im_coord_bf16", torch.bfloat16, dcols, x,
+                 offset, mask, max_offset)
+    dcn_col2im_coord_bf16.launches += 1
+    return out
+
+
+dcn_im2col_bf16.launches = 0
+dcn_col2im_bf16.launches = 0
+dcn_col2im_coord_bf16.launches = 0
+BACKWARD_KERNELS_BF16 = {"dcn_im2col_bf16": dcn_im2col_bf16,
+                         "dcn_col2im_bf16": dcn_col2im_bf16,
+                         "dcn_col2im_coord_bf16": dcn_col2im_coord_bf16}
+
+
+def _im2col(name, dtype, x, offset, mask, max_offset):
+    """Launches im2col kernel ``name`` on an x of ``dtype``: columns
+    (B, 9C, H*W) of ``dtype``, lying (9C, B, H*W) in memory."""
+    _require_cuda(x)
+    b, c, h, w = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype)
+    cols = torch.empty((9 * c, b, h * w), device=x.device,
+                       dtype=dtype).transpose(0, 1)
+    _run(x, name, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+         cols.data_ptr(), b, c, h, w, *cols.stride()[:2], _clamp(max_offset))
+    return cols
+
+
+def _coord(name, dtype, dcols, x, offset, mask, max_offset):
+    """Launches col2im_coord kernel ``name`` on column gradients and x of
+    ``dtype``: float32 (doffset, dmask)."""
+    _require_cuda(x)
+    b, c, h, w = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype)
+    if _check_columns(dcols, offset, mask, max_offset, dtype) != (b, c, h, w):
+        raise ValueError(f"dcols must be ({b}, {9 * c}, {h * w}), got "
+                         f"{tuple(dcols.shape)}")
+    doffset = torch.empty_like(offset)
+    dmask = torch.empty_like(mask)
+    _run(x, name, dcols.data_ptr(), x.data_ptr(), offset.data_ptr(),
+         mask.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), b, c, h, w,
+         *dcols.stride()[:2], _clamp(max_offset))
+    return doffset, dmask
+
+
+def _like_x(dcols, offset):
+    """An empty x (B, C, H, W) for the plain col2im, which takes only its
+    shape."""
+    b, rows, _ = dcols.shape
+    return dcols.new_empty((b, rows // 9) + tuple(offset.shape[2:]))
 
 
 def dcn_fwd_bf16(x, offset, mask, weight, bias=None,
@@ -342,18 +509,18 @@ def dcn_fwd_bf16(x, offset, mask, weight, bias=None,
 
     x (B, C, H, W) bf16; offset (B, 18, H, W) and mask (B, 9, H, W)
     float32; weight (O, C, 3, 3) bf16; bias (O,) bf16 or None; all
-    contiguous on one device. Returns (B, O, H, W) bf16. There is no
-    backward: a tensor that requires grad under grad mode raises
-    ``NotImplementedError``. ``dcn_fwd_bf16.launches`` counts launches.
+    contiguous on one device. Returns (B, O, H, W) bf16. It records no
+    gradient: under grad mode it takes no tensor that requires grad
+    (:func:`deform_conv2d` routes those through ``DeformConv2dFunction``).
+    ``dcn_fwd_bf16.launches`` counts launches.
     """
     o = _check_forward(x, offset, mask, weight, bias, max_offset,
                        torch.bfloat16)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, offset, mask, weight, bias)):
-        raise NotImplementedError(
-            "deform_conv2d: the bf16 DCN has no backward yet; train with "
-            "MIXED_PRECISION False")
+        raise RuntimeError("deform_conv2d: dcn_fwd_bf16 records no "
+                           "gradient; call deform_conv2d")
     if x.device.type == "cpu":
         return deform_conv2d_bf16_plain(x, offset, mask, weight, bias,
                                         max_offset)
@@ -443,10 +610,20 @@ def _check_sampling(x, offset, mask, max_offset, x_dtype=torch.float32):
     return b, c, h, w
 
 
-def _check_columns(dcols, offset, mask, max_offset):
-    """Checks (B, 9C, H*W) column gradients against offset and mask;
-    returns (B, C, H, W)."""
-    b, rows, hw = _check(dcols, "dcols", 3)
+def _check_columns(dcols, offset, mask, max_offset, dtype=torch.float32):
+    """Checks (B, 9C, H*W) column gradients of ``dtype`` against offset and
+    mask: any strides over B and the rows (the kernels take them), the
+    pixels contiguous; returns (B, C, H, W)."""
+    if dcols.dtype != dtype:
+        raise TypeError(f"deform_conv2d: dcols must be {str(dtype)[6:]}, "
+                        f"got {dcols.dtype}")
+    if dcols.dim() != 3:
+        raise ValueError(f"deform_conv2d: dcols must be 3-D, got "
+                         f"{tuple(dcols.shape)}")
+    b, rows, hw = dcols.shape
+    if hw > 1 and dcols.stride(2) != 1:
+        raise ValueError("deform_conv2d: the pixels of dcols must be "
+                         "contiguous")
     _, _, h, w = _check(offset, "offset", 4)
     if rows % 9 or hw != h * w or tuple(offset.shape) != (b, 18, h, w):
         raise ValueError(f"dcols {tuple(dcols.shape)} does not match offset "
@@ -471,24 +648,29 @@ def _clamp(max_offset) -> float:
 
 
 # C signatures: pointer arguments, then the int shape arguments, then the
-# float clamp and the stream
+# int64 column strides (stride_b, stride_row), then the float clamp and the
+# stream
 _SIGNATURES = {
-    "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5),
-    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 6, 5),
-    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4),
-    "cfd_dcn_col2im": (BACKWARD_SOURCE, 4, 4),
-    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4),
+    "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5, 0),
+    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 6, 5, 0),
+    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4, 2),
+    "cfd_dcn_col2im": (BACKWARD_SOURCE, 4, 4, 2),
+    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4, 2),
+    "cfd_dcn_im2col_bf16": (BACKWARD_SOURCE, 4, 4, 2),
+    "cfd_dcn_col2im_bf16": (BACKWARD_SOURCE, 5, 4, 2),
+    "cfd_dcn_col2im_coord_bf16": (BACKWARD_SOURCE, 6, 4, 2),
 }
 
 
 def _run(like, name: str, *args) -> None:
     """Builds (once) and calls the C entry point ``name`` on the current
     stream of ``like``'s device; raises on a launch error."""
-    source, n_ptr, n_int = _SIGNATURES[name]
+    source, n_ptr, n_int, n_stride = _SIGNATURES[name]
     fn = getattr(load_kernel_library(source).lib, name)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_int64] * n_stride
                        + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream

@@ -12,12 +12,15 @@ with its epoch and optimizer state under ``TRAIN.RESUME``, and
 ``training/checkpoint.py:save_checkpoint`` writes ``OUTPUT_DIR/ckpts`` at
 every ``TRAIN.SAVE_INTERVALS`` epoch and at the last one.
 
-It raises instead of training otherwise than the config says: on
-``MIXED_PRECISION True`` (the bf16 DCN has no backward yet) and, before the
-first step, on a run whose epochs reach a ``TRAIN.VAL_INTERVALS`` epoch
-(validation is not ported). Not ported yet (ROADMAP.md, Queue 1):
-validation, ``MetricsLogger``, ``DeviceHealthMonitor``, loss plots and the
-profiler hook.
+The model computes in the precision the config asks for
+(``MIXED_PRECISION``, true in every shipped config: a bf16 model with float32
+parameters, optimizer state and BatchNorm statistics, as the JAX package
+trains), and checkpoints hold float32 tensors either way. The Trainer raises
+instead of training otherwise than the config says: before the first step,
+on a run whose epochs reach a ``TRAIN.VAL_INTERVALS`` epoch (validation is
+not ported). Not ported yet (ROADMAP.md, Queue 1): validation,
+``MetricsLogger``, ``DeviceHealthMonitor`` and loss plots; the training
+profile is ``tools/profile_training.py``.
 """
 
 from __future__ import annotations
@@ -45,18 +48,14 @@ class Trainer:
     (any object with ``__len__`` and ``get_item(index, rng)``).
 
     ``on_step(epoch, step, frozen, metrics)``, when given, is called after
-    every step with the step's metrics as floats. ``MIXED_PRECISION True``
-    raises ``NotImplementedError``: training runs in float32 (or float64)
-    until the bf16 DCN backward is ported.
+    every step with the step's metrics as floats. The model follows
+    ``MIXED_PRECISION`` through ``build_model(config)``: bf16 compute over
+    float32 parameters when it is true.
     """
 
     def __init__(self, config, dataset_train=None, device=None,
                  logger: Optional[logging.Logger] = None,
                  on_step: Optional[Callable] = None):
-        if bool(config.MIXED_PRECISION):
-            raise NotImplementedError(
-                "MIXED_PRECISION True: bf16 training is not ported yet (the "
-                "bf16 DCN has no backward); train with MIXED_PRECISION False")
         self.config = config
         self.device = resolve_device(device)
         self.model = build_model(config).to(self.device)

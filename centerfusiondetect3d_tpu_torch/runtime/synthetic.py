@@ -1,10 +1,11 @@
 """Synthetic inputs and seeded weights for runs without a dataset.
 
-Used by ``chip_smoke.py`` and ``tools/profile_serving.py`` to drive the
-serving and training paths at the full width of
-``configs/Centerfusion_Middle.yaml`` with nothing but a seed: random weights
-with BatchNorm statistics calibrated on one synthetic batch, camera frames
-with radar clouds, and an in-memory training set (``SyntheticTrainingSet``).
+Used by ``chip_smoke.py``, ``tools/profile_serving.py`` and
+``tools/profile_training.py`` to drive the serving and training paths at the
+full width of ``configs/Centerfusion_Middle.yaml`` with nothing but a seed:
+random weights with BatchNorm statistics calibrated on one synthetic batch,
+camera frames with radar clouds, and an in-memory training set
+(``SyntheticTrainingSet``).
 """
 
 from __future__ import annotations
@@ -36,10 +37,14 @@ MAIN_PATH_OPTS = [
     "TEST.DEVICE_RASTERIZE", "True",
 ]
 # The YAML leaves MIXED_PRECISION at its default, True: MAIN_PATH_OPTS serve
-# in bf16. The Trainer trains only in float32 until the bf16 DCN backward is
-# ported, and the float32 serving path is the one measured since the port
-# began, so runs that mean float32 add these overrides.
+# and train in bf16. Runs that mean float32 add these overrides.
 FP32_OPTS = ["MIXED_PRECISION", "False"]
+# the training main path: the flagship's batch of 26 (MAIN_PATH_OPTS) in
+# microbatches of 13; 2 epochs, the first frozen (DEFREEZE 0), before the
+# first validation epoch; TRAIN_ITEMS items give 2 steps per epoch
+TRAIN_OPTS = ["TRAIN.GRAD_ACCUM", "2", "MODEL.DEFREEZE", "0",
+              "TRAIN.EPOCHS", "2"]
+TRAIN_ITEMS = 52
 
 
 def seeded_weights(model: torch.nn.Module, seed: int) -> None:

@@ -15,7 +15,7 @@ profiles ``--runs`` calls of ``Detector.run``. On the card it prints, per
 run: the wall time, the device's busy time (the union of its kernels'
 intervals) and idle share, device time by kernel group (the DCN kernel,
 convolutions and GEMMs, sort/top-k, the rest) and the top kernels by device
-time; ``--trace`` also writes a Chrome trace.
+time; ``--trace DIR`` also writes a Chrome trace under ``DIR/profile``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from ..config import load_config
 from ..runtime.detector import Detector
@@ -36,34 +35,18 @@ from ..runtime.synthetic import (
     seeded_weights,
     synthetic_frames,
 )
+from ..utils.observability import device_time_report, trace_profile
 
+# substrings of the names of cuDNN's and cuBLAS's kernels and their layout
+# copies (kernel names are matched lower-cased)
+CONV_KEYS = ("convolve", "conv2d", "cudnn", "gemm", "xmma", "cutlass",
+             "winograd", "implicit", "fprop", "nchwtonhwc", "nhwctonchw")
 GROUPS = (
     ("dcn_fwd, dcn_fwd_bf16 (hand-written DCNv2)", ("dcn_fwd",)),
-    ("convolution / GEMM (cuDNN, cuBLAS, their layout copies)",
-     ("convolve", "conv2d", "cudnn", "gemm", "xmma", "cutlass", "winograd",
-      "implicit", "fprop", "nchwtonhwc", "nhwctonchw")),
+    ("convolution / GEMM (cuDNN, cuBLAS, their layout copies)", CONV_KEYS),
     ("sort / top-k", ("sort", "radix", "topk")),
 )
-
-
-def group_of(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other (elementwise, reductions, copies, gathers)"
-
-
-def union_us(intervals) -> float:
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    return busy
+REST = "other (elementwise, reductions, copies, gathers)"
 
 
 def main(argv=None) -> int:
@@ -73,7 +56,8 @@ def main(argv=None) -> int:
                     help="64x128, 2 cameras (the CPU rehearsal)")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace to TRACE/profile/trace.json")
     ap.add_argument("--mixed-precision", choices=("true", "false"),
                     help="override the config's MIXED_PRECISION")
     args = ap.parse_args(argv)
@@ -99,16 +83,12 @@ def main(argv=None) -> int:
     for _ in range(2):
         det.run(*frames)
 
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if on_card else [])
     det.timer.reset()
-    with profile(activities=activities) as prof:
+    with trace_profile(args.trace, args.device) as prof:
         t0 = time.perf_counter()
         for _ in range(args.runs):
             det.run(*frames)
         wall_us = 1e6 * (time.perf_counter() - t0)
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
 
     stages = det.timer.summary()
     precision = ("bf16" if det.model.compute_dtype == torch.bfloat16
@@ -127,33 +107,12 @@ def main(argv=None) -> int:
                   for k, v in ops.most_common(args.top)))
         return 0
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    lines = device_time_report(prof, args.runs, wall_us, GROUPS, REST,
+                               args.top)
+    if lines is None:
         print("device time: not measured (the profiler saw no CUDA kernel)")
         return 1
-    busy_us = union_us((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-    print(f"device busy {busy_us / 1e3 / args.runs:.2f} ms per run, idle "
-          f"share {1 - busy_us / wall_us:.3f} of the profiled wall time, "
-          f"{len(kernels) / args.runs:.0f} kernels per run")
-    by_group = collections.Counter()
-    by_name = collections.Counter()
-    count = collections.Counter()
-    for e in kernels:
-        dur = e.time_range.end - e.time_range.start
-        by_group[group_of(e.name)] += dur
-        by_name[e.name] += dur
-        count[e.name] += 1
-    total = sum(by_group.values())
-    for group, us in by_group.most_common():
-        print(f"  {group}: {us / 1e3 / args.runs:.2f} ms per run "
-              f"({us / total:.1%} of kernel time)")
-    print(f"top {args.top} kernels by device time (ms per run, launches "
-          "per run):")
-    for name, us in by_name.most_common(args.top):
-        print(f"  {us / 1e3 / args.runs:8.3f}  {count[name] / args.runs:5.0f}"
-              f"  {name[:110]}")
+    print("\n".join(lines))
     return 0
 
 

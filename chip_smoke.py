@@ -45,19 +45,36 @@ On the card it:
    synthetic items, ``FREEZE_BACKBONE`` with ``DEFREEZE 0`` and 2 epochs:
    2 frozen steps, then 2 unfrozen ones (after one untimed warm-up step
    that is undone); checks that every loss part is finite, that the
-   backbone stays bitwise unchanged through the frozen steps and changes in
-   the unfrozen ones, that the heads change in both, and that the kernels
+   backbone stays bitwise unchanged through the frozen steps, that every
+   live parameter gets a gradient, that the gradients are not all zero and
+   the step moves the live parameters, that the kernels
    launched once per DCN node per microbatch (the backward ones only in
-   unfrozen steps); reports ms per step, images/s and peak memory; the
+   unfrozen steps), and that parameters, optimizer state and checkpoint
+   tensors are float32; reports ms per step, images/s and peak memory; the
    Trainer writes its last epoch's reference ``.pt`` checkpoint into a
    temporary ``OUTPUT_DIR``, which must read back equal to the model;
-11. runs one unfrozen train step of B=2 at full width three times on the
-   same seeded weights and batch: with the kernel DCN, the plain DCN, and
-   the plain DCN in float64; holds each DCN node's in-step backward against
-   the plain backward on its own tensors, and every loss part and parameter
-   gradient of the kernel step against the float64 step, at the float32
-   noise floor the plain step measures;
-12. prints a ``{"kernels": [...]}`` line and, last, the
+11. runs one unfrozen train step of B=2 at full width with
+   ``MODEL.NORM_EVAL True`` on the same seeded weights (BatchNorm at its
+   initial statistics) and batch: with the kernel DCN, the plain DCN, and the
+   plain DCN in float64 (also on rounded and jittered inputs); holds each
+   DCN node's in-step backward against the plain backward on its own
+   tensors, and every loss part and parameter gradient of the kernel step
+   against the float64 step, within twice its noise in those draws plus a
+   floor;
+12. holds the bf16 backward kernels (``dcn_im2col_bf16``,
+   ``dcn_col2im_bf16``, ``dcn_col2im_coord_bf16``, the bf16 forms of
+   ``csrc/dcn_bwd.cu``) each against its plain version, and the whole bf16
+   backward against the plain bf16 backward, at every distinct node shape
+   with B=2 and max_offset None, 8 and 1, and times them;
+13. trains as in phase 10 in bf16, as the shipped configs do
+   (``MIXED_PRECISION True``): the same checks, with ``dcn_fwd_bf16`` and the
+   bf16 backward kernels launched and no float32 DCN kernel, and float32
+   master parameters, AdamW state and checkpoints;
+14. runs phase 11's comparison in bf16: each DCN node's in-step bf16
+   backward against the plain bf16 backward on its own tensors, and the
+   kernel step against the float64 step at the noise of the plain bf16 step
+   and of the float64 draws at bf16's spacing;
+15. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -98,6 +115,8 @@ from centerfusiondetect3d_tpu_torch.runtime.fit import Trainer
 from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     FP32_OPTS,
     MAIN_PATH_OPTS,
+    TRAIN_ITEMS,
+    TRAIN_OPTS,
     SyntheticTrainingSet,
     calibrate_batchnorm,
     seeded_weights,
@@ -130,21 +149,32 @@ HEADS_RTOL = 1e-3
 # gradient tensor; sums over C, B*H*W or 9C in another order, and dx with
 # fp32 atomics whose order changes from run to run: the forward's limit
 GRAD_RTOL = 1e-4
-# one train step, kernel DCN against the float64 plain step: each loss part
-# and parameter gradient within NOISE_MULT times the plain float32 step's
-# own deviation plus STEP_RTOL (the heads' limit) of the float64 tensor's
-# largest magnitude; see step_kernel_vs_plain for why the float32 noise
-# floor and not STEP_RTOL alone
+# one NORM_EVAL train step, kernel DCN against the float64 plain step: each
+# loss part within NOISE_MULT times its noise plus STEP_RTOL (the heads'
+# limit), each parameter gradient in L2 within NOISE_MULT times its noise
+# plus GRAD_FLOOR; the noise is the largest deviation of the plain step and
+# of N_DRAWS + 1 float64 steps on inputs rounded or jittered at the working
+# precision (see step_kernel_vs_plain); tests/test_torch_bf16_training.py
+# holds the port's bf16 step to JAX's with the same rule and constants
 STEP_RTOL = 1e-3
-NOISE_MULT = 4  # the JAX package's golden train-step test's multiple
+GRAD_FLOOR = 1e-2
+NOISE_MULT = 2
+N_DRAWS = 2
 BWD_BATCH = 2  # the backward check's batch: the plain autograd must fit
-# the training main path: the flagship's batch of 26 (MAIN_PATH_OPTS) in
-# microbatches of 13; 2 epochs of 2 steps, the first frozen
-TRAIN_OPTS = FP32_OPTS + ["TRAIN.GRAD_ACCUM", "2", "MODEL.DEFREEZE", "0",
-                          "TRAIN.EPOCHS", "2"]
-TRAIN_ITEMS = 52
-BWD_KERNELS = ("dcn_im2col", "dcn_col2im", "dcn_col2im_coord")
+BWD_KERNELS = tuple(dcn.BACKWARD_KERNELS)
+BWD_KERNELS_BF16 = tuple(dcn.BACKWARD_KERNELS_BF16)
 GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
+# the bf16 backward kernels against their plain versions on identical
+# inputs: BF16_RTOL for the bf16 outputs (columns, dx), GRAD_RTOL for the
+# float32 ones (doffset, dmask); the whole bf16 backward against the plain
+# bf16 backward, and in the train step, BF16_RTOL for all five gradients:
+# the plain version's GEMMs are float32 products of the bf16 values and
+# cuBLAS's bf16 GEMMs round their own sums, so a column gradient, dweight or
+# dbias may round to the neighbouring bf16 value
+BF16_OUTPUTS = {"dcn_im2col_bf16", "dcn_col2im_bf16"}
+# the bf16 col2im's float32 dx scratch: zeroed, accumulated into with f32
+# atomics, read back by the rounding; 4 bytes each
+SCRATCH_BYTES = 12
 
 
 def log(msg: str) -> None:
@@ -470,30 +500,44 @@ def time_one(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bwd_bounds(shape):
-    """Least time on an H100 SXM (fp32: 67 TFLOP/s, 3.35 TB/s) of each part
-    of one node's backward: (flops, bytes, bound ms, bound_by) per part and
-    for the whole backward; each input read and each output written once.
-    Flops per column element: im2col 7 (4 products, 3 sums), col2im 8 (4
-    products and 4 atomic adds), coord 25 (the sample and its 2 bilinear
-    derivatives, 3 multiply-adds); GEMMs 2 x 2*B*O*9C*HW."""
+def bwd_bounds(shape, bf16: bool = False):
+    """Least time on an H100 SXM (3.35 TB/s; fp32 67 TFLOP/s, dense bf16
+    tensor cores 989 TFLOP/s) of each part of one node's backward: (flops,
+    bytes, bound ms, bound_by) per part and for the whole backward; each
+    input read and each output written once. Flops per column element:
+    im2col 7 (4 products, 3 sums), col2im 8 (4 products and 4 atomic adds),
+    coord 25 (the sample and its 2 bilinear derivatives, 3 multiply-adds),
+    all fp32; GEMMs 2 x 2*B*O*9C*HW, fp32 or bf16. In bf16 x, dx, the
+    columns, the column gradients, the weight and g are 2 bytes, offset,
+    mask and their gradients 4; the whole backward's ops time sums the fp32
+    kernels' and the bf16 GEMMs' times. The bytes are the function's own:
+    the f32 scratch that the bf16 col2im accumulates dx in is the design's
+    traffic, not the function's (``SCRATCH_BYTES`` per dx element, reported
+    beside the bound as ``scratch_mbytes``)."""
     b, c, h, w, o = shape
     hw = h * w
     cols = 9 * b * c * hw
     x, om, g, wt = b * c * hw, 27 * b * hw, b * o * hw, 9 * c * o
+    e = 2 if bf16 else 4
+    gemm_peak = PEAK_BF16 if bf16 else PEAK_FP32
     parts = {
-        "dcn_im2col": (7 * cols, 4 * (x + om + cols)),
-        "dcn_col2im": (8 * cols, 4 * (cols + om + x)),
-        "dcn_col2im_coord": (25 * cols, 4 * (cols + x + om + om)),
-        "gemms": (4 * b * o * 9 * c * hw, 4 * (g + cols + wt + wt + cols)),
+        "im2col": (7 * cols, 0, e * (x + cols) + 4 * om),
+        "col2im": (8 * cols, 0, e * (cols + x) + 4 * om),
+        "col2im_coord": (25 * cols, 0, e * (cols + x) + 8 * om),
+        "gemms": (0, 4 * b * o * 9 * c * hw, e * (g + cols + wt + wt + cols)),
     }
-    parts["backward"] = (sum(f for f, _ in parts.values()),
-                         4 * (x + om + wt + g + x + om + wt + o))
+    parts["backward"] = (sum(p[0] for p in parts.values()),
+                         parts["gemms"][1],
+                         e * (x + wt + g + x + wt + o) + 8 * om)
     out = {}
-    for name, (flops, nbytes) in parts.items():
-        t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
-        out[name] = (flops, nbytes, 1e3 * max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
+    for name, (f32_flops, gemm_flops, nbytes) in parts.items():
+        t_ops = f32_flops / PEAK_FP32 + gemm_flops / gemm_peak
+        t_bytes = nbytes / PEAK_BYTES
+        key = name if name in ("gemms", "backward") else (
+            "dcn_" + name + ("_bf16" if bf16 else ""))
+        out[key] = (f32_flops + gemm_flops, nbytes,
+                    1e3 * max(t_ops, t_bytes),
+                    "operations" if t_ops >= t_bytes else "bytes")
     return out
 
 
@@ -502,12 +546,45 @@ def rel_err(got, want) -> float:
                                                  1e-30)
 
 
-def check_backward(shapes, device, timed: bool, micro: int):
-    """Backward kernels vs plain at each distinct node shape with B=2 and
-    max_offset in (None, 8, 1): the five gradients, and each kernel against
-    its own plain version on the same inputs. On the card also the CUDA-event
-    medians of the backward, its parts and the plain versions, and of the
-    forward and backward kernels at the training microbatch ``micro``."""
+def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
+    """Phases 9 (float32) and 12 (bf16): the backward kernels of one dtype
+    (``dcn.BACKWARD_KERNELS`` or ``dcn.BACKWARD_KERNELS_BF16``) at each
+    distinct node shape with B=2 and max_offset in (None, 8, 1): the whole
+    backward against the plain backward of its dtype (the five gradients,
+    each in its input's dtype) and each kernel against its own plain version
+    on the same inputs, the column gradients those of the GEMM
+    (``dcn.column_gradients``). In bf16, x, weight, bias and the output
+    gradient are the same draws rounded to bf16. On the card also the
+    CUDA-event medians of the backward, its parts and the plain versions,
+    and of the forward and backward at the training microbatch ``micro``."""
+    if bf16:
+        kernels = dcn.BACKWARD_KERNELS_BF16
+        plains = (dcn.dcn_im2col_bf16_plain, dcn.dcn_col2im_bf16_plain,
+                  dcn.dcn_col2im_coord_bf16_plain)
+        backward_plain, whole_rtol = (dcn.deform_conv2d_bf16_backward_plain,
+                                      BF16_RTOL)
+    else:
+        kernels = dcn.BACKWARD_KERNELS
+        plains = (dcn.dcn_im2col_plain, dcn.dcn_col2im_plain,
+                  dcn.dcn_col2im_coord_plain)
+        backward_plain, whole_rtol = dcn.deform_conv2d_backward_plain, GRAD_RTOL
+    (n_im2col, im2col), (n_col2im, col2im), (n_coord, coord) = kernels.items()
+    p_im2col, p_col2im, p_coord = plains
+
+    def cast(*tensors):
+        return tuple(t.bfloat16() for t in tensors) if bf16 else tensors
+
+    def calls(x, off, mask, dcols, max_offset=None):
+        """name -> (kernel call, plain call) on the same inputs."""
+        return {
+            n_im2col: (lambda: im2col(x, off, mask, max_offset),
+                       lambda: p_im2col(x, off, mask, max_offset)),
+            n_col2im: (lambda: col2im(dcols, off, mask, max_offset),
+                       lambda: p_col2im(dcols, x, off, mask, max_offset)),
+            n_coord: (lambda: coord(dcols, x, off, mask, max_offset),
+                      lambda: p_coord(dcols, x, off, mask, max_offset)),
+        }
+
     rows = []
     for i, full in enumerate(sorted(set(shapes), key=shapes.index)):
         shape = (BWD_BATCH,) + tuple(full[1:])
@@ -515,110 +592,103 @@ def check_backward(shapes, device, timed: bool, micro: int):
         x, off, mask, wt, bias = dcn_inputs(shape, device, SEED + 100 + i)
         gen = torch.Generator(device=device).manual_seed(SEED + 200 + i)
         g = torch.randn((b, o, h, w), generator=gen, device=device)
-        errs = {k: 0.0 for k in BWD_KERNELS}
+        x, wt, bias, g = cast(x, wt, bias, g)
+        errs = {k: 0.0 for k in kernels}
         worst = 0.0
-
-        def dcols_of():
-            return torch.matmul(wt.reshape(o, 9 * c).t(),
-                                g.view(b, o, h * w)).contiguous()
-
         for max_offset in (None, 8.0, 1.0):
             got = dcn.deform_conv2d_backward(x, off, mask, wt, g, max_offset)
-            want = dcn.deform_conv2d_backward_plain(x, off, mask, wt, bias, g,
-                                                    max_offset)
+            want = backward_plain(x, off, mask, wt, bias, g, max_offset)
             for name, a, ref in zip(GRAD_NAMES, got, want):
-                rel = rel_err(a, ref)
+                rel = rel_err(a.float(), ref.float())
                 worst = max(worst, rel)
-                if not (math.isfinite(rel) and rel <= GRAD_RTOL):
+                if a.dtype != ref.dtype or not (math.isfinite(rel)
+                                                and rel <= whole_rtol):
                     raise AssertionError(
-                        f"DCN backward {name} disagrees with the plain "
-                        f"backward at {shape}, max_offset={max_offset}: "
-                        f"relative {rel:.3e} > {GRAD_RTOL}")
-            dcols = dcols_of()
-            pairs = {
-                "dcn_im2col": [(dcn.dcn_im2col(x, off, mask, max_offset),
-                                dcn.dcn_im2col_plain(x, off, mask,
-                                                     max_offset))],
-                "dcn_col2im": [(dcn.dcn_col2im(dcols, off, mask, max_offset),
-                                dcn.dcn_col2im_plain(dcols, x, off, mask,
-                                                     max_offset))],
-                "dcn_col2im_coord": list(zip(
-                    dcn.dcn_col2im_coord(dcols, x, off, mask, max_offset),
-                    dcn.dcn_col2im_coord_plain(dcols, x, off, mask,
-                                               max_offset))),
-            }
-            for name, items in pairs.items():
-                for a, ref in items:
-                    rel = rel_err(a, ref)
-                    if not (math.isfinite(rel) and rel <= GRAD_RTOL):
+                        f"DCN backward {name} ({a.dtype}) disagrees with the "
+                        f"plain backward ({ref.dtype}) at {shape}, "
+                        f"max_offset={max_offset}: relative {rel:.3e} > "
+                        f"{whole_rtol}")
+            dcols = dcn.column_gradients(wt, g)
+            for name, (kernel, plain) in calls(x, off, mask, dcols,
+                                               max_offset).items():
+                limit = BF16_RTOL if name in BF16_OUTPUTS else GRAD_RTOL
+                outs, refs = kernel(), plain()
+                if name == n_coord:
+                    pairs = list(zip(outs, refs))
+                else:
+                    pairs = [(outs, refs)]
+                for a, ref in pairs:
+                    rel = rel_err(a.float(), ref.float())
+                    if a.dtype != ref.dtype or not (math.isfinite(rel)
+                                                    and rel <= limit):
                         raise AssertionError(
-                            f"{name} disagrees with its plain version at "
-                            f"{shape}, max_offset={max_offset}: relative "
-                            f"{rel:.3e} > {GRAD_RTOL}")
-                    errs[name] = max(errs[name],
-                                     float((a - ref).abs().max()))
-        bounds = bwd_bounds(shape)
+                            f"{name} ({a.dtype}) disagrees with its plain "
+                            f"version ({ref.dtype}) at {shape}, max_offset="
+                            f"{max_offset}: relative {rel:.3e} > {limit}")
+                    errs[name] = max(errs[name], float(
+                        (a.float() - ref.float()).abs().max()))
+        bounds = bwd_bounds(shape, bf16)
         row = {"shape": list(shape), "nodes": shapes.count(full),
                "max_rel_err": worst, "max_abs_err": errs,
+               "scratch_mbytes": (SCRATCH_BYTES * b * c * h * w / 1e6
+                                  if bf16 else 0.0),
                "bound_ms": {k: v[2] for k, v in bounds.items()},
                "bound_by": {k: v[3] for k, v in bounds.items()},
                "gflop": {k: v[0] / 1e9 for k, v in bounds.items()},
                "mbytes": {k: v[1] / 1e6 for k, v in bounds.items()}}
         if timed:
-            dcols = dcols_of()
-            cols = dcn.dcn_im2col(x, off, mask)
+            dcols = dcn.column_gradients(wt, g)
+            cols = im2col(x, off, mask)
             ms, plain = {}, {}
             ms["backward"], plain["backward"] = time_pair(
                 lambda: dcn.deform_conv2d_backward(x, off, mask, wt, g),
-                lambda: dcn.deform_conv2d_backward_plain(
-                    x, off, mask, wt, bias, g), TIMING_REPS)
-            ms["dcn_im2col"], plain["dcn_im2col"] = time_pair(
-                lambda: dcn.dcn_im2col(x, off, mask),
-                lambda: dcn.dcn_im2col_plain(x, off, mask), TIMING_REPS)
-            ms["dcn_col2im"], plain["dcn_col2im"] = time_pair(
-                lambda: dcn.dcn_col2im(dcols, off, mask),
-                lambda: dcn.dcn_col2im_plain(dcols, x, off, mask),
+                lambda: backward_plain(x, off, mask, wt, bias, g),
                 TIMING_REPS)
-            ms["dcn_col2im_coord"], plain["dcn_col2im_coord"] = time_pair(
-                lambda: dcn.dcn_col2im_coord(dcols, x, off, mask),
-                lambda: dcn.dcn_col2im_coord_plain(dcols, x, off, mask),
-                TIMING_REPS)
+            for name, (kernel, plain_fn) in calls(x, off, mask,
+                                                  dcols).items():
+                ms[name], plain[name] = time_pair(kernel, plain_fn,
+                                                  TIMING_REPS)
             ms["gemms"] = time_one(lambda: (
-                torch.matmul(g.view(b, o, h * w), cols.transpose(1, 2)).sum(0),
-                dcols_of()), TIMING_REPS)
+                dcn.weight_gradient(g, cols), dcn.column_gradients(wt, g)),
+                TIMING_REPS)
             row["ms"], row["plain_ms"] = ms, plain
             # kernel times at the training microbatch, for the step shares
             mshape = (micro,) + tuple(full[1:])
             mx, moff, mmask, mwt, mbias = dcn_inputs(mshape, device, SEED)
             mg = torch.randn((micro, o, h, w), generator=gen, device=device)
+            mx, mwt, mbias, mg = cast(mx, mwt, mbias, mg)
             row["micro_ms"] = {
                 "forward": time_one(lambda: dcn.deform_conv2d(
                     mx, moff, mmask, mwt, mbias), 5),
                 "backward": time_one(lambda: dcn.deform_conv2d_backward(
                     mx, moff, mmask, mwt, mg), 5)}
         rows.append(row)
-        log(f"  dcn backward {shape} x{row['nodes']}: max rel err "
-            f"{worst:.2e} (limit {GRAD_RTOL}), per kernel abs "
+        log(f"  dcn {'bf16 ' if bf16 else ''}backward {shape} x{row['nodes']}"
+            f": max rel err {worst:.2e} (limit {whole_rtol}), per kernel abs "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
             + ("" if not timed else
                "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-               + f"; plain backward {plain['backward']:.4f} ms; bound "
-               f"{bounds['backward'][2]:.4f} ms ({bounds['backward'][3]})"
-               f"; at B={micro}: forward {row['micro_ms']['forward']:.3f} ms"
-               f", backward {row['micro_ms']['backward']:.3f} ms"))
+               + "; plain ms " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in plain.items())
+               + f"; bound {bounds['backward'][2]:.4f} ms "
+               f"({bounds['backward'][3]}); at B={micro}: forward "
+               f"{row['micro_ms']['forward']:.3f} ms, backward "
+               f"{row['micro_ms']['backward']:.3f} ms"))
     return rows
 
 
 def launch_counts():
     return {"dcn_fwd": dcn.deform_conv2d.launches,
             "dcn_fwd_bf16": dcn.dcn_fwd_bf16.launches,
-            **{k: f.launches for k, f in dcn.BACKWARD_KERNELS.items()}}
+            **{k: f.launches for k, f in dcn.BACKWARD_KERNELS.items()},
+            **{k: f.launches for k, f in dcn.BACKWARD_KERNELS_BF16.items()}}
 
 
 def reset_launch_counts():
     dcn.deform_conv2d.launches = 0
     dcn.dcn_fwd_bf16.launches = 0
-    for f in dcn.BACKWARD_KERNELS.values():
+    for f in (*dcn.BACKWARD_KERNELS.values(),
+              *dcn.BACKWARD_KERNELS_BF16.values()):
         f.launches = 0
 
 
@@ -635,10 +705,11 @@ def serve_counted(det: Detector, frames, n_cams: int):
     return launch_counts(), detections, ret["times"], det.stage_stats()
 
 
-def train_main_path(device, rehearsal: bool):
-    """Phase 10: the Trainer at full width in float32, counted, writing its
-    checkpoints into a temporary OUTPUT_DIR; returns its report."""
-    opts = MAIN_PATH_OPTS + TRAIN_OPTS
+def train_main_path(device, rehearsal: bool, bf16: bool):
+    """Phases 10 (float32) and 13 (bf16, as the configs ship it): the
+    Trainer at full width, counted, writing its checkpoints into a
+    temporary OUTPUT_DIR; returns its report."""
+    opts = MAIN_PATH_OPTS + TRAIN_OPTS + ([] if bf16 else FP32_OPTS)
     n_items = TRAIN_ITEMS
     if rehearsal:
         opts = opts + ["MODEL.INPUT_SIZE", "(64, 128)", "TRAIN.BATCH_SIZE",
@@ -647,10 +718,28 @@ def train_main_path(device, rehearsal: bool):
     with tempfile.TemporaryDirectory(prefix="cfd_smoke_") as out_dir:
         cfg = load_config(opts=opts + ["OUTPUT_DIR", repr(out_dir)],
                           num_classes=10)
-        return _train_main_path(cfg, n_items, device, rehearsal)
+        return _train_main_path(cfg, n_items, device, rehearsal, bf16)
 
 
-def _train_main_path(cfg, n_items, device, rehearsal: bool):
+def gradients(model):
+    """Per parameter after a step: None when the step gave it no gradient,
+    else whether its gradient is non-zero somewhere."""
+    return {n: None if p.grad is None else bool(p.grad.ne(0).any())
+            for n, p in model.named_parameters()}
+
+
+def float_dtypes(tensors) -> set:
+    """The dtypes of the floating tensors in a (nested) state dict."""
+    if isinstance(tensors, dict):
+        return set().union(*(float_dtypes(v) for v in tensors.values()))
+    if isinstance(tensors, (list, tuple)):
+        return set().union(*(float_dtypes(v) for v in tensors))
+    if torch.is_tensor(tensors) and tensors.is_floating_point():
+        return {tensors.dtype}
+    return set()
+
+
+def _train_main_path(cfg, n_items, device, rehearsal: bool, bf16: bool):
     accum = int(cfg.TRAIN.GRAD_ACCUM)
     batch_size = int(cfg.TRAIN.BATCH_SIZE)
     t0 = time.perf_counter()
@@ -658,6 +747,10 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool):
     trainer = Trainer(cfg, ds, device=device)
     trainer.init_state(seed=SEED)
     model = trainer.model
+    want_dtype = torch.bfloat16 if bf16 else None
+    if model.compute_dtype != want_dtype:
+        raise AssertionError(f"MIXED_PRECISION {bool(cfg.MIXED_PRECISION)} "
+                             f"built a {model.compute_dtype} model")
     n_nodes = sum(isinstance(m, DeformConvNode) for m in model.modules())
     # one untimed warm-up step (kernel builds, library handles), undone
     saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -676,12 +769,12 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool):
     def snapshot():
         return {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    snaps, counts, parts = [snapshot()], [], []
-
+    snaps, counts, parts, grads = [snapshot()], [], [], []
     def on_step(epoch, step, frozen, metrics):
         counts.append(launch_counts())
         snaps.append(snapshot())
         parts.append(metrics)
+        grads.append(gradients(model))
 
     trainer.on_step = on_step
     reset_launch_counts()
@@ -700,23 +793,32 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool):
     for k, frozen in enumerate(phases):
         prev, cur = snaps[k], snaps[k + 1]
         phase = "frozen" if frozen else "unfrozen"
-        for name in cur:
-            same = torch.equal(prev[name], cur[name])
-            backbone = name in backbone_names
-            if backbone and frozen and not same:
-                raise AssertionError(f"frozen step {k} changed {name}")
-            if (not backbone or not frozen) and same:
-                raise AssertionError(f"{phase} step {k} left {name} "
-                                     "unchanged")
-    # launches per step: the float32 forward once per node per microbatch;
-    # backward kernels the same, in unfrozen steps only; the bf16 forward
-    # never; none on the CPU
+        changed = [n for n in cur if n in backbone_names and frozen
+                   and not torch.equal(prev[n], cur[n])]
+        if changed:
+            raise AssertionError(f"frozen step {k} changed {changed}")
+        live = [n for n in cur if n not in backbone_names or not frozen]
+        no_grad = [n for n in live if grads[k][n] is None]
+        if no_grad:
+            raise AssertionError(f"{phase} step {k} gave no gradient to "
+                                 f"{no_grad}")
+        # in aggregate: non-zero gradients, and the step moved the live
+        # parameters
+        if not any(grads[k][n] for n in live):
+            raise AssertionError(f"{phase} step {k}: every gradient is 0")
+        if all(torch.equal(prev[n], cur[n]) for n in live):
+            raise AssertionError(f"{phase} step {k} changed no parameter")
+    # launches per step: the forward of the model's dtype once per node per
+    # microbatch; its backward kernels the same, in unfrozen steps only; no
+    # kernel of the other dtype; none on the CPU
     per_node = 0 if rehearsal else n_nodes * accum
+    fwd_kernel = "dcn_fwd_bf16" if bf16 else "dcn_fwd"
+    bwd_kernels = BWD_KERNELS_BF16 if bf16 else BWD_KERNELS
     prev = {k: 0 for k in counts[0]}
     for k, (frozen, cur) in enumerate(zip(phases, counts)):
         delta = {n: cur[n] - prev[n] for n in cur}
-        want = {n: (per_node if n == "dcn_fwd"
-                    or (n in BWD_KERNELS and not frozen) else 0)
+        want = {n: (per_node if n == fwd_kernel
+                    or (n in bwd_kernels and not frozen) else 0)
                 for n in cur}
         if delta != want:
             phase = "frozen" if frozen else "unfrozen"
@@ -736,6 +838,17 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool):
     for name, value in model.state_dict().items():
         if not torch.equal(ckpt["state_dict"][name], value.cpu()):
             raise AssertionError(f"checkpoint {name} differs from the model")
+    # float32 master parameters, AdamW state and checkpoint tensors, in
+    # either precision
+    dtypes = {"parameters": float_dtypes(dict(model.named_parameters())),
+              "optimizer state": float_dtypes(
+                  trainer.optimizer.state_dict()["state"]),
+              "checkpoint weights": float_dtypes(ckpt["state_dict"]),
+              "checkpoint optimizer": float_dtypes(ckpt["optimizer"])}
+    for what, found in dtypes.items():
+        if found != {torch.float32}:
+            raise AssertionError(f"{what} in {sorted(map(str, found))}, "
+                                 "want float32")
     ckpt_mb = os.path.getsize(os.path.join(ckpt_dir, "model_last.pt")) / 1e6
     del ckpt
     ms = {ph: [1e3 * s["seconds"] for s in steps if s["frozen"] == fz]
@@ -751,6 +864,7 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool):
         "setup_s": setup_s,
         "total": [s["total"] for s in steps],
         "checkpoints": files, "checkpoint_mb": ckpt_mb,
+        "precision": "bf16" if bf16 else "float32",
     }
     if not rehearsal:
         report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -785,93 +899,157 @@ def record_dcn_nodes(model):
     return records
 
 
-def step_kernel_vs_plain(device, rehearsal: bool):
-    """Phase 11: one unfrozen B=2 step on the same seeded weights and batch,
-    with the kernel DCN (float32), the plain DCN (float32) and the plain
-    DCN in float64. Inside the kernel step, each DCN node's backward is held
-    against the plain backward on the very tensors it saw (GRAD_RTOL). The
-    whole step's loss parts and parameter gradients, kernel against the
-    float64 step, are held to NOISE_MULT times the plain float32 step's own
-    deviation from it, plus STEP_RTOL: a float32 train step of this seeded
-    DLA-34 is chaotic (train-mode BatchNorm over nearly constant channels
-    amplifies rounding), so two correct float32 steps differ far more than
-    STEP_RTOL (measured up to 1.4x a gradient's largest magnitude)."""
-    opts = MAIN_PATH_OPTS + FP32_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"]
-                                         if rehearsal else [])
+def step_kernel_vs_plain(device, rehearsal: bool, bf16: bool):
+    """Phases 11 (float32) and 14 (bf16): one unfrozen B=2 step with
+    ``MODEL.NORM_EVAL True`` on the same seeded weights (BatchNorm at its
+    initial statistics) and batch, with the kernel DCN, the plain DCN
+    (autograd of ``deform_conv2d_plain``, or of ``deform_conv2d_bf16_plain``
+    in a bf16 model), and in float64 with the plain DCN. Inside the kernel step, each
+    DCN node's backward is held against the plain backward of its dtype on
+    the very tensors it saw (GRAD_RTOL; bf16: ``deform_conv2d_bf16_backward_
+    plain``, BF16_RTOL).
+
+    The whole step's loss parts and parameter gradients are held against
+    the float64 step: a deviation is relative, to the float64 value for a
+    scalar and in the L2 norm for a gradient tensor; each quantity of the
+    kernel step lies within NOISE_MULT times its noise plus STEP_RTOL (a
+    scalar) or GRAD_FLOOR (a tensor). The noise of a quantity is the largest
+    deviation of several draws of the same computation: the plain step, the
+    float64 step on the image rounded to the working dtype, and N_DRAWS
+    float64 steps with every parameter and the image scaled elementwise by
+    1 + u, |u| up to half the working dtype's spacing. With train-mode
+    BatchNorm (the main path's) this seeded full-width step is chaotic
+    (batch statistics of nearly constant channels): rounding the image to
+    bf16 moved the float64 step's gradient norm from 7.07e7 to 7.30e9, and
+    no limit there tells a correct backward from a zeroed one. With
+    NORM_EVAL, in float32, the limit of every gradient tensor stays below 1
+    (asserted), so a gradient that is zeroed, doubled or of the wrong sign
+    fails. In bf16 it does not: on these seeded weights the bf16 roundings
+    alone move many gradients O(1), in the plain step as in the draws (the
+    report's "largest gradient limit"), so the bf16 whole-step limit is
+    kept but cannot see such a fault. The sharp bf16 checks are the
+    per-node ones here, and the CPU tests of
+    ``tests/test_torch_bf16_training.py``, which hold the bf16 step to
+    JAX's on weights where it is smooth."""
+    opts = MAIN_PATH_OPTS + ([] if bf16 else FP32_OPTS) + [
+        "MODEL.NORM_EVAL", "True"] + (
+        ["MODEL.INPUT_SIZE", "(64, 128)"] if rehearsal else [])
     cfg = load_config(opts=opts, num_classes=10)
     ds = SyntheticTrainingSet(cfg, BWD_BATCH, seed=SEED + 1)
     host = stack_items([ds.get_item(i) for i in range(BWD_BATCH)])
-    runs, records = {}, []
-    for tag, fn, dtype in (("kernel", dcn.deform_conv2d, torch.float32),
-                           ("plain", dcn.deform_conv2d_plain, torch.float32),
-                           ("plain64", dcn.deform_conv2d_plain,
-                            torch.float64)):
-        model = build_model(cfg)
-        seeded_weights(model, SEED)
-        model = model.to(device, dtype)
+    work = torch.bfloat16 if bf16 else torch.float32
+    plain_fn = dcn.deform_conv2d_bf16_plain if bf16 else dcn.deform_conv2d_plain
+    plain_bwd = (dcn.deform_conv2d_bf16_backward_plain if bf16
+                 else dcn.deform_conv2d_backward_plain)
+    node_rtol = BF16_RTOL if bf16 else GRAD_RTOL
+
+    def on_device(dtype):
+        def cast(v):
+            return v.to(dtype) if v.is_floating_point() else v
+        return {k: ({kk: cast(vv) for kk, vv in v.items()}
+                    if isinstance(v, dict) else cast(v))
+                for k, v in to_device(host, device).items()}
+
+    seeded = build_model(cfg, torch.float64)
+    seeded_weights(seeded, SEED)
+    state = seeded.state_dict()
+    spacing = torch.finfo(work).eps  # relative; half of it rounds
+
+    def jittered(t, gen):
+        u = torch.rand(t.shape, generator=gen, dtype=torch.float64)
+        return (t.double() * (1 + (u.to(t.device) - 0.5) * spacing)).to(
+            t.dtype)
+
+    runs, records, node_worst, n_nodes = {}, [], 0.0, 0
+    # (tag, DCN op, model dtype, jitter seed): a bf16 model takes a float32
+    # batch and casts it itself; "rounded64" rounds the image to ``work``
+    variants = ([("kernel", dcn.deform_conv2d, work, None),
+                 ("plain", plain_fn, work, None),
+                 ("plain64", dcn.deform_conv2d_plain, torch.float64, None),
+                 ("rounded64", dcn.deform_conv2d_plain, torch.float64, None)]
+                + [(f"jitter64_{i}", dcn.deform_conv2d_plain, torch.float64,
+                    i) for i in range(N_DRAWS)])
+    for tag, fn, dtype, seed in variants:
+        model = build_model(cfg, dtype)
+        batch = on_device(torch.float32 if dtype == work else dtype)
+        sd = state
+        if tag == "rounded64":
+            batch["image"] = batch["image"].to(work).double()
+        if seed is not None:
+            gen = torch.Generator().manual_seed(seed)
+            sd = {k: jittered(v, gen) if v.is_floating_point()
+                  and "running" not in k else v for k, v in state.items()}
+            batch["image"] = jittered(batch["image"], gen)
+        model.load_state_dict(sd, strict=True)
+        model = model.to(device)
         if tag == "kernel":
             records = record_dcn_nodes(model)
         else:
             for m in model.modules():
                 if isinstance(m, DeformConvNode):
                     m.dcn_fn = fn
-
-        def cast(v):
-            return v.to(dtype) if v.is_floating_point() else v
-
-        batch = {k: ({kk: cast(vv) for kk, vv in v.items()}
-                     if isinstance(v, dict) else cast(v))
-                 for k, v in to_device(host, device).items()}
         metrics = train_step(model, make_optimizer(cfg, model),
                              GenericLoss(cfg), batch, float(cfg.TRAIN.LR))
         runs[tag] = ({k: float(v) for k, v in metrics.items()},
                      {n: p.grad.double() for n, p in model.named_parameters()})
-        if tag == "kernel":
-            node_worst = 0.0
-            for rec in records:
-                want = dcn.deform_conv2d_backward_plain(
-                    rec["x"], rec["offset"], rec["mask"], rec["weight"],
-                    rec["bias"], rec["grad_out"])
-                got = (rec["dx"], rec["doffset"], rec["dmask"],
-                       rec["node"].weight.grad, rec["node"].bias.grad)
-                for name, a, ref in zip(GRAD_NAMES, got, want):
-                    rel = rel_err(a, ref)
-                    node_worst = max(node_worst, rel)
-                    if not (math.isfinite(rel) and rel <= GRAD_RTOL):
-                        raise AssertionError(
-                            f"in-step DCN backward {name} at "
-                            f"{tuple(rec['x'].shape)}: relative {rel:.3e} "
-                            f"> {GRAD_RTOL} against the plain backward")
-            n_nodes = len(records)
-            records = []
+        for rec in records:
+            want = plain_bwd(rec["x"], rec["offset"], rec["mask"],
+                             rec["weight"], rec["bias"], rec["grad_out"])
+            got = (rec["dx"], rec["doffset"], rec["dmask"],
+                   rec["node"].weight.grad, rec["node"].bias.grad)
+            for name, a, ref in zip(GRAD_NAMES, got, want):
+                rel = rel_err(a.float(), ref.float())
+                node_worst = max(node_worst, rel)
+                if not (math.isfinite(rel) and rel <= node_rtol):
+                    raise AssertionError(
+                        f"in-step DCN backward {name} at "
+                        f"{tuple(rec['x'].shape)}: relative {rel:.3e} "
+                        f"> {node_rtol} against the plain backward")
+        n_nodes += len(records)
+        records = []
         del model, batch
-    (m_k, g_k), (m_p, g_p), (m_64, g_64) = (runs[t] for t in
-                                            ("kernel", "plain", "plain64"))
-    worst = {"loss_kernel": 0.0, "loss_plain": 0.0, "grad_kernel": 0.0,
-             "grad_plain": 0.0, "ratio": 0.0}
+    (m_k, g_k), (m_64, g_64) = runs.pop("kernel"), runs.pop("plain64")
+    draws = list(runs.values())
 
-    def held(what, ek, ep, kind):
-        worst[f"{kind}_kernel"] = max(worst[f"{kind}_kernel"], ek)
-        worst[f"{kind}_plain"] = max(worst[f"{kind}_plain"], ep)
-        worst["ratio"] = max(worst["ratio"], ek / max(ep, 1e-30))
-        if not (math.isfinite(ek) and ek <= NOISE_MULT * ep + STEP_RTOL):
+    def l2(got, want):
+        return float((got - want).norm()) / max(float(want.norm()), 1e-30)
+
+    kinds = {
+        "loss": [(f"loss {k}", abs(m_k[k] - want) / max(abs(want), 1e-30),
+                  max(abs(m[k] - want) for m, _ in draws)
+                  / max(abs(want), 1e-30)) for k, want in m_64.items()],
+        "grad": [(f"gradient {n}", l2(g_k[n], want),
+                  max(l2(g[n], want) for _, g in draws))
+                 for n, want in g_64.items()]}
+    out = {"nodes_checked": n_nodes, "node_rel": node_worst,
+           "node_rtol": node_rtol, "tensors": len(g_64),
+           "plain_dev": {"loss": max(abs(m_p - m_64[k]) / max(abs(m_64[k]),
+                                                                1e-30)
+                                     for k, m_p in draws[0][0].items()),
+                         "grad": max(l2(draws[0][1][n], w)
+                                     for n, w in g_64.items())}}
+    for kind, rows in kinds.items():
+        floor = STEP_RTOL if kind == "loss" else GRAD_FLOOR
+        limits = [NOISE_MULT * noise + floor for _, _, noise in rows]
+        for (what, dev, noise), limit in zip(rows, limits):
+            if not (math.isfinite(dev) and dev <= limit):
+                raise AssertionError(
+                    f"{what}: kernel step {dev:.3e} from the float64 step, "
+                    f"noise {noise:.3e}; limit {NOISE_MULT} x noise + "
+                    f"{floor}")
+        if kind == "grad" and not bf16 and not max(limits) < 1.0:
             raise AssertionError(
-                f"{what}: kernel step {ek:.3e} from the float64 step, plain "
-                f"float32 step {ep:.3e}; limit {NOISE_MULT} x plain + "
-                f"{STEP_RTOL}")
-
-    for k, want in m_64.items():
-        scale = max(abs(want), 1e-30)
-        held(f"loss {k}", abs(m_k[k] - want) / scale,
-             abs(m_p[k] - want) / scale, "loss")
-    for name, want in g_64.items():
-        base = name[:-len(".bias")]
-        if name.endswith(".bias") and base + ".conv_offset_mask.weight" in g_64:
-            continue  # exact gradient 0 (train-mode BatchNorm follows)
-        held(f"gradient {name}", rel_err(g_k[name], want),
-             rel_err(g_p[name], want), "grad")
-    return {"nodes_checked": n_nodes, "node_rel": node_worst,
-            "tensors": len(g_64), **worst}
+                f"the step is too noisy to see a zeroed gradient: limit "
+                f"{max(limits):.3e} for {rows[limits.index(max(limits))][0]}")
+        ratio, worst = max((dev / lim, what) for (what, dev, _), lim
+                           in zip(rows, limits))
+        out[kind] = {"kernel": max(d for _, d, _ in rows),
+                     "noise": max(n for _, _, n in rows),
+                     "median": (statistics.median(d for _, d, _ in rows),
+                                statistics.median(n for _, _, n in rows)),
+                     "worst_of_limit": ratio, "worst": worst,
+                     "largest_limit": max(limits)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -1036,56 +1214,46 @@ def main(argv=None) -> int:
     micro = (int(MAIN_PATH_OPTS[MAIN_PATH_OPTS.index("TRAIN.BATCH_SIZE") + 1])
              // int(TRAIN_OPTS[TRAIN_OPTS.index("TRAIN.GRAD_ACCUM") + 1]))
     bwd_rows = check_backward(shapes, args.device, timed=not rehearsal,
-                              micro=micro)
+                              micro=micro, bf16=False)
     log(f"phase backward-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # 10. the Trainer at full width in float32, counted
     t0 = time.perf_counter()
-    train = train_main_path(args.device, rehearsal)
-    log(f"training: batch {train['batch']} in {train['grad_accum']} "
-        f"microbatches, {train['steps']} steps ({train['steps'] // 2} frozen, "
-        f"{train['steps'] // 2} unfrozen) after 1 untimed warm-up step; "
-        f"launches {train['launches']} (backward kernels expected "
-        f"{train['expected_backward_launches']} each); losses "
-        + ", ".join(f"{v:.4f}" for v in train["total"]) + ", all finite; "
-        f"checkpoints {train['checkpoints']} "
-        f"({train['checkpoint_mb']:.1f} MB each) read back equal")
-    for phase in ("frozen", "unfrozen"):
-        log(f"  {phase}: {train['ms_per_step'][phase]:.1f} ms per step ("
-            + ", ".join(f"{v:.1f}" for v in train["ms_steps"][phase])
-            + f"), {train['images_per_s'][phase]:.2f} images/s"
-            + (" on the host CPU (rehearsal)" if rehearsal else f" on {card}"))
-    if not rehearsal:
-        fwd = sum(r["micro_ms"]["forward"] * r["nodes"] for r in bwd_rows)
-        bwd = sum(r["micro_ms"]["backward"] * r["nodes"] for r in bwd_rows)
-        accum = train["grad_accum"]
-        train["dcn_share"] = {
-            "forward_ms_per_step": fwd * accum,
-            "backward_ms_per_step": bwd * accum,
-            "frozen_forward": fwd * accum / train["ms_per_step"]["frozen"],
-            "unfrozen_forward": fwd * accum
-            / train["ms_per_step"]["unfrozen"],
-            "unfrozen_backward": bwd * accum
-            / train["ms_per_step"]["unfrozen"]}
-        log(f"  peak memory {train['peak_mem_gb']:.2f} GB; DCN kernels per "
-            f"step (node times at B={micro}, x{accum} microbatches): forward "
-            f"{fwd * accum:.1f} ms, backward {bwd * accum:.1f} ms = "
-            f"{100 * train['dcn_share']['unfrozen_backward']:.1f}% of an "
-            f"unfrozen step")
+    train = train_main_path(args.device, rehearsal, bf16=False)
+    report_training(train, bwd_rows, micro, card, rehearsal)
     log(f"phase training: {time.perf_counter() - t0:.1f} s")
 
     # 11. one unfrozen step, kernel DCN vs plain DCN
     t0 = time.perf_counter()
-    step = step_kernel_vs_plain(args.device, rehearsal)
-    log(f"train step B={BWD_BATCH}: in-step backward of {step['nodes_checked']}"
-        f" DCN nodes within {step['node_rel']:.2e} of the plain backward on "
-        f"their own tensors (limit {GRAD_RTOL}); against the float64 plain "
-        f"step, the kernel step's loss parts within {step['loss_kernel']:.2e}"
-        f" (plain float32 step {step['loss_plain']:.2e}) and its "
-        f"{step['tensors']} gradients within {step['grad_kernel']:.2e} "
-        f"(plain float32 {step['grad_plain']:.2e}); worst kernel/plain ratio "
-        f"{step['ratio']:.2f} (limit {NOISE_MULT} x plain + {STEP_RTOL})")
+    step = step_kernel_vs_plain(args.device, rehearsal, bf16=False)
+    report_step(step, "float32")
     log(f"phase step-vs-plain: {time.perf_counter() - t0:.1f} s")
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    # 12. bf16 backward kernels vs plain at every distinct node shape
+    t0 = time.perf_counter()
+    bwd_rows16 = check_backward(shapes, args.device, timed=not rehearsal,
+                                micro=micro, bf16=True)
+    log(f"phase bf16-backward-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+    # 13. the Trainer at full width in bf16, as the configs ship it, counted
+    t0 = time.perf_counter()
+    train16 = train_main_path(args.device, rehearsal, bf16=True)
+    report_training(train16, bwd_rows16, micro, card, rehearsal)
+    if not rehearsal:
+        log("  bf16 / float32 ms per step: " + ", ".join(
+            f"{ph} {train16['ms_per_step'][ph]:.1f} / "
+            f"{train['ms_per_step'][ph]:.1f}" for ph in ("frozen", "unfrozen"))
+            + f"; peak memory {train16['peak_mem_gb']:.2f} / "
+            f"{train['peak_mem_gb']:.2f} GB on {card}")
+    log(f"phase bf16 training: {time.perf_counter() - t0:.1f} s")
+
+    # 14. one unfrozen bf16 step, kernel DCN vs plain bf16 DCN
+    t0 = time.perf_counter()
+    step16 = step_kernel_vs_plain(args.device, rehearsal, bf16=True)
+    report_step(step16, "bf16")
+    log(f"phase bf16 step-vs-plain: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -1117,6 +1285,7 @@ def main(argv=None) -> int:
                           "scripts/probe_dcn_select.py:48",
                           "scripts/probe_dcn_select.py:83"],
         "launches": launches16,
+        "training_launches": train16["launches"]["dcn_fwd_bf16"],
         "max_abs_err": max(r["max_abs_err"] for r in rows16),
         # per bf16 forward of the main path: the sum over its DCN nodes
         "ms": sum(r["ms"] * r["nodes"] for r in rows16),
@@ -1129,37 +1298,105 @@ def main(argv=None) -> int:
         "ptxas": ptxas16,
         "per_node_shape": rows16,
     }]
-    for name in BWD_KERNELS:
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_bwd.cu",
-            "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:409",
-            "launches": train["launches"][name],
-            "max_abs_err": max(r["max_abs_err"][name] for r in bwd_rows),
-            # per backward of the model at B=2: sum over its DCN nodes
-            "ms": sum(r["ms"][name] * r["nodes"] for r in bwd_rows),
-            "plain_ms": sum(r["plain_ms"][name] * r["nodes"]
-                            for r in bwd_rows),
-            "bound_ms": sum(r["bound_ms"][name] * r["nodes"]
-                            for r in bwd_rows),
-            "bound_by": "operations" if all(
-                r["bound_by"][name] == "operations" for r in bwd_rows)
-            else "bytes",
-            "library_ms": None,
-            "per_node_shape": [
-                {"shape": r["shape"], "nodes": r["nodes"],
-                 "ms": r["ms"][name], "plain_ms": r["plain_ms"][name],
-                 "bound_ms": r["bound_ms"][name],
-                 "max_abs_err": r["max_abs_err"][name]} for r in bwd_rows],
-        })
-    log(json.dumps({"backward_per_node_shape": bwd_rows}))
-    log(json.dumps({"training": train, "step_kernel_vs_plain": step}))
+    for names, rows_b, run in ((BWD_KERNELS, bwd_rows, train),
+                               (BWD_KERNELS_BF16, bwd_rows16, train16)):
+        for name in names:
+            kernels.append(backward_kernel_entry(name, rows_b, run))
+    log(json.dumps({"backward_per_node_shape": bwd_rows,
+                    "bf16_backward_per_node_shape": bwd_rows16}))
+    log(json.dumps({"training": train, "step_kernel_vs_plain": step,
+                    "bf16_training": train16,
+                    "bf16_step_kernel_vs_plain": step16}))
     log(card)  # as nvidia-smi --query-gpu=name,power.limit gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def backward_kernel_entry(name, rows, train):
+    """The ``kernels`` line's entry of backward kernel ``name``: launches in
+    the training main path ``train`` of its dtype; times, plain times and
+    bounds per backward of the model at B=2 (the sum over its DCN nodes of
+    ``rows``, the per-shape rows of phase 9 or 12)."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_bwd.cu",
+        "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:409",
+        "launches": train["launches"][name],
+        "max_abs_err": max(r["max_abs_err"][name] for r in rows),
+        "ms": sum(r["ms"][name] * r["nodes"] for r in rows),
+        "plain_ms": sum(r["plain_ms"][name] * r["nodes"] for r in rows),
+        "bound_ms": sum(r["bound_ms"][name] * r["nodes"] for r in rows),
+        "bound_by": "operations" if all(
+            r["bound_by"][name] == "operations" for r in rows) else "bytes",
+        "library_ms": None,
+        "per_node_shape": [
+            {"shape": r["shape"], "nodes": r["nodes"],
+             "ms": r["ms"][name], "plain_ms": r["plain_ms"][name],
+             "bound_ms": r["bound_ms"][name],
+             "max_abs_err": r["max_abs_err"][name],
+             **({"scratch_mbytes": r["scratch_mbytes"]}
+                if name == "dcn_col2im_bf16" else {})} for r in rows],
+    }
+
+
+def report_training(train, bwd_rows, micro: int, card, rehearsal: bool):
+    """Logs a training main path's report (phase 10 or 13); on the card
+    also adds the DCN kernels' share of a step, from the node times at the
+    microbatch ``micro`` of the backward rows of the same dtype."""
+    log(f"training ({train['precision']}): batch {train['batch']} in "
+        f"{train['grad_accum']} microbatches, {train['steps']} steps "
+        f"({train['steps'] // 2} frozen, {train['steps'] // 2} unfrozen) "
+        f"after 1 untimed warm-up step; launches {train['launches']} "
+        f"(backward kernels expected {train['expected_backward_launches']} "
+        "each); losses " + ", ".join(f"{v:.4f}" for v in train["total"])
+        + ", all finite; float32 parameters, optimizer state and checkpoint "
+        f"tensors; checkpoints {train['checkpoints']} "
+        f"({train['checkpoint_mb']:.1f} MB each) read back equal")
+    for phase in ("frozen", "unfrozen"):
+        log(f"  {phase}: {train['ms_per_step'][phase]:.1f} ms per step ("
+            + ", ".join(f"{v:.1f}" for v in train["ms_steps"][phase])
+            + f"), {train['images_per_s'][phase]:.2f} images/s"
+            + (" on the host CPU (rehearsal)" if rehearsal else f" on {card}"))
+    if rehearsal:
+        return
+    fwd = sum(r["micro_ms"]["forward"] * r["nodes"] for r in bwd_rows)
+    bwd = sum(r["micro_ms"]["backward"] * r["nodes"] for r in bwd_rows)
+    accum = train["grad_accum"]
+    train["dcn_share"] = {
+        "forward_ms_per_step": fwd * accum,
+        "backward_ms_per_step": bwd * accum,
+        "frozen_forward": fwd * accum / train["ms_per_step"]["frozen"],
+        "unfrozen_forward": fwd * accum / train["ms_per_step"]["unfrozen"],
+        "unfrozen_backward": bwd * accum / train["ms_per_step"]["unfrozen"]}
+    log(f"  peak memory {train['peak_mem_gb']:.2f} GB; DCN kernels per "
+        f"step (node times at B={micro}, x{accum} microbatches): forward "
+        f"{fwd * accum:.1f} ms, backward {bwd * accum:.1f} ms = "
+        f"{100 * train['dcn_share']['unfrozen_backward']:.1f}% of an "
+        f"unfrozen step")
+
+
+def report_step(step, precision: str):
+    """Logs phase 11's or 14's comparison of one train step."""
+    loss, grad = step["loss"], step["grad"]
+    log(f"train step B={BWD_BATCH} ({precision}, NORM_EVAL): in-step backward "
+        f"of {step['nodes_checked']} DCN nodes within {step['node_rel']:.2e} "
+        f"of the plain backward on their own tensors (limit "
+        f"{step['node_rtol']}); against the float64 step, the kernel step's "
+        f"loss parts within {loss['kernel']:.2e} (plain {precision} step "
+        f"{step['plain_dev']['loss']:.2e}, largest noise {loss['noise']:.2e}"
+        f") and its {step['tensors']} gradients within {grad['kernel']:.2e} "
+        f"in L2 (plain {step['plain_dev']['grad']:.2e}, largest noise "
+        f"{grad['noise']:.2e}); medians kernel/noise: loss parts "
+        f"{loss['median'][0]:.2e}/{loss['median'][1]:.2e}, gradients "
+        f"{grad['median'][0]:.2e}/{grad['median'][1]:.2e}; worst share of "
+        f"its limit: loss parts {loss['worst_of_limit']:.2f} "
+        f"({loss['worst']}), gradients {grad['worst_of_limit']:.2f} "
+        f"({grad['worst']}); largest gradient limit "
+        f"{grad['largest_limit']:.3f} (limit {NOISE_MULT} x noise + "
+        f"{STEP_RTOL} or {GRAD_FLOOR})")
 
 
 if __name__ == "__main__":

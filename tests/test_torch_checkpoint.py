@@ -10,8 +10,9 @@ model's heads (float32 tolerance of ``test_torch_model.py``, 2e-3).
 (``legacy_names.npz``).
 (4) ``TRAIN.RESUME`` restores the epoch and the optimizer state: the epoch
 after a resume equals the same epoch of an uninterrupted run, in float64.
-(5) What the Trainer refuses: a ``TRAIN.VAL_INTERVALS`` epoch, a
-``LOAD_DIR`` that is not a ``.pt``/``.pth`` file, and ``MIXED_PRECISION``.
+(5) What the Trainer refuses: a ``TRAIN.VAL_INTERVALS`` epoch and a
+``LOAD_DIR`` that is not a ``.pt``/``.pth`` file; it trains under
+``MIXED_PRECISION`` and saves float32 checkpoints.
 Small model: Conv nodes, 64x128.
 """
 
@@ -294,7 +295,21 @@ def test_load_dir_that_is_not_a_pt_file_raises(tmp_path, kind):
 
 
 def test_trainer_raises_on_mixed_precision(tmp_path):
-    cfg = load_config(opts=_opts(tmp_path, "MIXED_PRECISION", "True"),
-                      num_classes=10)
-    with pytest.raises(NotImplementedError, match="MIXED_PRECISION"):
-        Trainer(cfg, device="cpu")
+    """The Trainer no longer raises on MIXED_PRECISION True: it builds a
+    bf16 model over float32 parameters, trains, and saves float32
+    reference checkpoints that read back equal to the model."""
+    cfg = load_config(opts=_opts(tmp_path, "MIXED_PRECISION", "True",
+                                 "TRAIN.EPOCHS", "1"), num_classes=10)
+    trainer = Trainer(cfg, SyntheticTrainingSet(cfg, 2, seed=6),
+                      device="cpu")
+    assert trainer.model.compute_dtype == torch.bfloat16
+    trainer.init_state(seed=0)
+    trainer.train()
+    assert len(trainer.steps) == 1
+    assert np.isfinite(trainer.steps[0]["total"])
+    ckpt = checkpoint.load_torch_file(str(tmp_path / "ckpts" /
+                                          "model_last.pt"))
+    tensors = [v for v in ckpt["state_dict"].values() if v.is_floating_point()]
+    assert tensors and {v.dtype for v in tensors} == {torch.float32}
+    for name, value in trainer.model.state_dict().items():
+        assert torch.equal(ckpt["state_dict"][name], value), name

@@ -95,12 +95,14 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     assert report["modules"] >= 20
     assert report["loaded"] == [], report["loaded"]
     # serving in float32 and in bf16, then the DCN backward check, the
-    # Trainer and the kernel-vs-plain train step
+    # Trainer and the kernel-vs-plain train step in float32 and in bf16
     assert report["phases"] == [
         "phase environment", "phase build+warm-up", "phase kernel-vs-plain",
         "phase bf16-kernel-vs-plain", "phase main path", "phase heads",
         "phase bf16 main path", "phase bf16 heads", "phase backward-vs-plain",
-        "phase training", "phase step-vs-plain"], report["phases"]
+        "phase training", "phase step-vs-plain",
+        "phase bf16-backward-vs-plain", "phase bf16 training",
+        "phase bf16 step-vs-plain"], report["phases"]
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
 
 

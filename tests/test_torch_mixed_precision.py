@@ -165,15 +165,26 @@ def test_float16_raises():
 
 
 def test_bf16_under_autograd_raises_and_counts_nothing():
-    before = dcn.dcn_fwd_bf16.launches
-    with pytest.raises(NotImplementedError, match="MIXED_PRECISION False"):
-        dcn.deform_conv2d(*_small_args(torch.bfloat16, requires_grad=True))
+    """A bf16 DCN under autograd no longer raises: it returns gradients in
+    the inputs' dtypes through ``DeformConv2dFunction``; without autograd
+    it still takes the forward alone. The CPU runs the plain versions, so
+    no kernel launch is counted either way."""
+    counts = [dcn.dcn_fwd_bf16.launches] + [
+        f.launches for f in dcn.BACKWARD_KERNELS_BF16.values()]
+    x, offset, mask, weight, bias = _small_args(torch.bfloat16,
+                                                requires_grad=True)
+    out = dcn.deform_conv2d(x, offset, mask, weight, bias)
+    assert type(out.grad_fn).__name__ == "DeformConv2dFunctionBackward"
+    out.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
+    assert bool(x.grad.float().abs().sum() > 0)
     with torch.no_grad():
         out = dcn.deform_conv2d(*_small_args(torch.bfloat16,
                                              requires_grad=True))
     assert out.dtype == torch.bfloat16 and out.shape == (1, 3, 5, 6)
-    # the CPU runs the plain version: no kernel launch to count
-    assert dcn.dcn_fwd_bf16.launches == before
+    assert out.grad_fn is None
+    assert counts == [dcn.dcn_fwd_bf16.launches] + [
+        f.launches for f in dcn.BACKWARD_KERNELS_BF16.values()]
 
 
 @pytest.mark.parametrize("bad", ["weight_f32", "offset_bf16", "bias_f32"])
