@@ -39,7 +39,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when an earlier build was loaded
-    ptxas: List[str]  # nvcc -Xptxas -v lines on registers and spills
+    ptxas: List[str]  # nvcc -Xptxas -v lines: kernels, registers, spills
 
 
 _LOADED: Dict[str, KernelLibrary] = {}
@@ -107,5 +107,6 @@ def _build_and_load(src: Path) -> KernelLibrary:
     ptxas = []
     if log_path.exists():
         ptxas = [line.strip() for line in log_path.read_text().splitlines()
-                 if "registers" in line or "spill" in line]
+                 if any(k in line for k in ("entry function", "registers",
+                                            "spill"))]
     return KernelLibrary(ctypes.CDLL(str(so_path)), so_path, seconds, ptxas)

@@ -9,7 +9,8 @@ On the card it:
 1. prints the torch and CUDA versions and the card's name and power limit,
    builds the DCNv2 kernels from ``csrc/`` (``dcn_fwd.cu``, ``dcn_bwd.cu``,
    ``dcn_fwd_bf16.cu``) with one nvcc each, all in parallel, and prints the
-   build time and ptxas' register, shared memory and spill lines;
+   build time and ptxas' register, shared memory and spill lines (with
+   ``dcn_probes.cu``, the probe kernels of phase 15);
 2. builds ``Detector`` at the full width of ``configs/Centerfusion_Middle.yaml``
    (DLA-34 with DeformConv nodes, 448x800 input, 6 cameras, K=100, frustum
    middle fusion, device radar paint) in float32 (``MIXED_PRECISION False``)
@@ -74,14 +75,23 @@ On the card it:
    backward against the plain bf16 backward on its own tensors, and the
    kernel step against the float64 step at the noise of the plain bf16 step
    and of the float64 draws at bf16's spacing;
-15. prints a ``{"kernels": [...]}`` line and, last, the
+15. drives the DCN probe path (``tools/probe_dcn.py``, the port of the
+   TPU rounds' probe scripts) with the probe kernels' launch counts set to
+   0: each of the sixteen kernels of ``csrc/dcn_probes.cu`` on the
+   scripts' inputs and two seeded draws at the scripts' geometry and a
+   second one, held against its plain version (``ops/probes.py``), and K1
+   at the probes' shapes through ``dcn_fwd_bf16``; every kernel must have
+   launched. Then each kernel, its plain version and, for ``p1``, the one
+   PyTorch call that computes it are timed on each of its inputs at the
+   scripts' geometry, beside the bound of those inputs;
+16. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
 rehearsal runs the same path at 64x128 with 2 cameras (and a training batch
 of 4 in 2 microbatches) on the CPU, where the DCN ops are the plain versions
-(the bf16 phases included); its last line is
+(the bf16 phases and the probes included); its last line is
 ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
@@ -105,7 +115,7 @@ from centerfusiondetect3d_tpu_torch.data.pipeline import stack_items, to_device
 from centerfusiondetect3d_tpu_torch.losses import GenericLoss
 from centerfusiondetect3d_tpu_torch.models import build_model
 from centerfusiondetect3d_tpu_torch.models.layers import DeformConvNode
-from centerfusiondetect3d_tpu_torch.ops import dcn
+from centerfusiondetect3d_tpu_torch.ops import dcn, probes
 from centerfusiondetect3d_tpu_torch.ops.cuda_build import load_kernel_libraries
 from centerfusiondetect3d_tpu_torch.ops.rasterize import (
     paint_rects_device_batch,
@@ -122,6 +132,7 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     seeded_weights,
     synthetic_frames,
 )
+from centerfusiondetect3d_tpu_torch.tools import probe_dcn
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
 from centerfusiondetect3d_tpu_torch.training.checkpoint import load_torch_file
 
@@ -1052,6 +1063,195 @@ def step_kernel_vs_plain(device, rehearsal: bool, bf16: bool):
     return out
 
 
+def x_footprint(geom, off, *, row_block=True, x_loop=True,
+                y_cut=probes.OPEN, x_cut=probes.OPEN) -> int:
+    """Elements of x's (B, HP, WP) plane that a tile probe reads on these
+    offsets: the union over its tiles of the rows [rb*BR] + gy + pad + r
+    and columns gx + pad + c for gy, gx in the tile's (cut) box."""
+    g = geom
+    seen = torch.zeros((g.batch, g.hp, g.wp), dtype=torch.bool)
+    for b, rb, _, (ylo, yhi, xlo, xhi) in probes.tiles(g, off):
+        y0, y1 = max(ylo, y_cut[0]), min(yhi, y_cut[1])
+        x0, x1 = (max(xlo, x_cut[0]), min(xhi, x_cut[1])) if x_loop \
+            else (0, 0)
+        if y1 < y0 or x1 < x0:
+            continue
+        base = (rb * g.br if row_block else 0) + g.pad
+        seen[b, base + y0:base + y1 + g.br, g.pad + x0:g.pad + x1 + g.w] = 1
+    return int(seen.sum())
+
+
+def probe_work(name: str, args, geom):
+    """(fp32 operations, bf16 tensor-core operations, bytes) that probe
+    ``name`` needs on ``args``: each input element it reads counted once
+    (only the offset, mask and tap channels and the x windows it reads),
+    each output element written once; the loops' trip counts are this
+    run's tile bounds. Per hat-weighted term: 4 operations for a hat, 1 for
+    wy * wx, then a multiply and an add per channel."""
+    if name == "p1":
+        x, _ = args
+        return 0, 0, 2 * 4 * probes.P5_ROWS * probes.P5_COLS * x.shape[2]
+    if name == "p2":
+        x, lo, hi = args
+        rows = (hi - 1 + probes.P5_ROWS - lo) if hi > lo else 0
+        return ((hi - lo) * probes.P5_ROWS * x.shape[1], 0,
+                4 * (rows + probes.P5_ROWS) * x.shape[1])
+    if name == "p3":
+        (x,) = args
+        return 3 * x.numel(), 0, 8 * x.numel()
+    if name == "p4":
+        x, w = args
+        k, n = w.shape
+        m = probes.P5_ROWS * probes.P5_COLS
+        return m * k, 2 * m * k * n, 2 * (m * k + k * n) + 4 * m * n
+    g = geom
+    pixels = g.batch * g.h * g.w
+    out_c = g.c if name in ("kf", "kg") else g.o
+    nbytes = 4 * pixels * out_c
+    if name == "k1":
+        return pixels * g.c, 0, nbytes + 2 * pixels * g.c
+    off = args[probes.PROBES[name].kernel.inputs.index("off")].cpu()
+    field = 4 * pixels  # one offset channel
+    if name == "k2":
+        return 0, 0, nbytes + field
+    ylo, yhi, xlo, xhi = probes.tile_bounds(off, g)
+    y_cut = probes.KE_ROWS if name == "ke" else probes.OPEN
+    x_cut = probes.KF_COLS if name == "kf" else probes.OPEN
+    ny = (yhi.clamp(max=y_cut[1]) - ylo.clamp(min=y_cut[0]) + 1).clamp(min=0)
+    nx = (xhi.clamp(max=x_cut[1]) - xlo.clamp(min=x_cut[0]) + 1).clamp(min=0)
+    tile_px = g.br * g.w
+    rows_terms = int(ny.sum()) * tile_px  # (gy, pixel) pairs
+    terms = int((ny * nx).sum()) * tile_px  # (gy, gx, pixel) triples
+    if name == "ka":
+        return terms, 0, nbytes + 2 * field
+    if name in ("k3", "kc"):
+        x0 = x_footprint(g, off, row_block=name == "kc", x_loop=False)
+        return rows_terms, 0, nbytes + field + 2 * x0
+    if name == "kb":
+        x0 = x_footprint(g, off, row_block=False, x_loop=False)
+        return 6 * rows_terms, 0, nbytes + field + 2 * x0
+    channels = 1 if name in ("k4", "kd", "ke") else g.c
+    x_elems = channels * x_footprint(g, off, y_cut=y_cut, x_cut=x_cut)
+    fp32 = 4 * rows_terms + terms * (5 + 2 * channels)
+    nbytes += 2 * field + 2 * x_elems
+    if name != "k5":
+        return fp32, 0, nbytes
+    # k5: the mask channel, the bf16 rounding of the taps, the w[3] taps
+    return (fp32 + pixels * g.c, 2 * pixels * g.c * g.o,
+            nbytes + 4 * pixels + 2 * g.c * g.o)
+
+
+def probe_bound(name: str, args, geom):
+    """(bound ms, bound_by, flops, bytes) of probe ``name`` on ``args``:
+    fp32 operations at 67 TFLOP/s plus bf16 contraction at 989, against the
+    bytes at 3.35 TB/s, on an H100 SXM."""
+    fp32, bf16, nbytes = probe_work(name, args, geom)
+    t_ops = fp32 / PEAK_FP32 + bf16 / PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", fp32 + bf16,
+            nbytes)
+
+
+def probe_timing_cases(name: str, device):
+    """(label, kernel call, plain call, args) of probe ``name`` on each of
+    its inputs at the scripts' geometry, the script's own first."""
+    probe = probes.PROBES[name]
+    geom = probes.SCRIPT_GEOMETRY
+    if name in ("p1", "p2", "p3", "p4"):
+        return [(label, (lambda a=a: probe.kernel(*a)),
+                 (lambda a=a: probe.plain(*a)), a)
+                for label, a, _ in probe_dcn.p5_cases(name, SEED, device)]
+    cases = []
+    for case in probe_dcn.CASES:
+        inp = probe_dcn.tile_inputs(probe.script, geom, case, SEED, device)
+        a = [inp[k] for k in probe.kernel.inputs]
+        cases.append((case, (lambda a=a: probe.kernel(*a, geom=geom)),
+                      (lambda a=a: probe.plain(*a, geom)), a))
+    return cases
+
+
+def check_probes(device, timed: bool):
+    """Phase 15. The probe path: ``tools/probe_dcn.py:run`` with the probe
+    kernels' launch counts set to 0 just before and read just after; it
+    holds every probe kernel against its plain version (and K1 at the
+    probes' shapes, ``dcn_fwd_bf16``, against its plain version) and every
+    probe must pass; on the card each of the sixteen kernels must have
+    launched. On the card each kernel, its plain version and, for ``p1``,
+    ``x[g:g+8, g+1:g+17].clone()`` (the one PyTorch call that computes
+    it) are then timed on each of its inputs at the scripts' geometry;
+    the headline is the script's own input."""
+    probes.reset_launch_counts()
+    lines = []
+    results = probe_dcn.run(torch.device(device), SEED, out=lines.append)
+    counts = probes.launch_counts()
+    for line in lines:
+        log(f"  {line}")
+    failed = [r.line() for r in results if not r.passed]
+    if failed:
+        raise AssertionError("probe kernels disagree with their plain "
+                             "versions: " + " | ".join(failed))
+    if device == "cuda":
+        idle = [n for n, c in counts.items() if c == 0]
+        if idle:
+            raise AssertionError(f"probe kernels never launched: {idle}")
+    log(f"probe path: launches {counts}")
+    rows = {r.name: {"max_abs_err": r.max_abs_err,
+                     "max_rel_err": r.max_rel_err, "cases": r.cases,
+                     "launches": counts[r.name], "rtol": r.rtol}
+            for r in results if r.name in probes.PROBES}
+    if not timed:
+        return rows
+    geom = probes.SCRIPT_GEOMETRY
+    for name, row in rows.items():
+        per_case = []
+        for label, kernel, plain, a in probe_timing_cases(name, device):
+            ms, plain_ms = time_pair(kernel, plain, TIMING_REPS)
+            bound_ms, bound_by, flops, nbytes = probe_bound(name, a, geom)
+            case = {"case": label, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "flops": flops, "bytes": nbytes, "library_ms": None}
+            if name == "p1":
+                x, g = a
+                case["library_ms"] = time_one(
+                    lambda: x[g:g + probes.P5_ROWS,
+                              g + 1:g + 1 + probes.P5_COLS].clone(),
+                    TIMING_REPS)
+            per_case.append(case)
+        row["per_case"] = per_case
+        head = per_case[0]
+        log(f"  probe {name}: kernel {head['ms']:.4f} ms, plain "
+            f"{head['plain_ms']:.4f} ms, bound {head['bound_ms']:.2e} ms "
+            f"({head['bound_by']}) on the script's input"
+            + (f", library {head['library_ms']:.4f} ms"
+               if head["library_ms"] is not None else "")
+            + "; other inputs " + ", ".join(
+                f"{c['case']} {c['ms']:.4f} / {c['plain_ms']:.3f} ms"
+                for c in per_case[1:]))
+    return rows
+
+
+def probe_kernel_entries(rows):
+    """The ``kernels`` line's entries of the sixteen probe kernels: launches
+    on the probe path, and the script's own input at the scripts' geometry
+    for the times and the bound (every input in ``per_case``)."""
+    entries = []
+    for name, row in rows.items():
+        probe = probes.PROBES[name]
+        head = row["per_case"][0]
+        entries.append({
+            "name": f"probe_{name}", "route": "cuda",
+            "source": "centerfusiondetect3d_tpu_torch/csrc/"
+                      + probes.SOURCE,
+            "replaces": probe.replaces, "path": "tools/probe_dcn.py",
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "per_case": row["per_case"],
+        })
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1079,7 +1279,7 @@ def main(argv=None) -> int:
         card = nvidia_smi()
         log(f"card: {card}")
         t_build = time.perf_counter()
-        built = load_kernel_libraries(dcn.KERNEL_SOURCES)
+        built = load_kernel_libraries(dcn.KERNEL_SOURCES + (probes.SOURCE,))
         log(f"built {len(built)} sources with nvcc in parallel in "
             f"{time.perf_counter() - t_build:.1f} s")
         for source, lib in built.items():
@@ -1254,6 +1454,12 @@ def main(argv=None) -> int:
     step16 = step_kernel_vs_plain(args.device, rehearsal, bf16=True)
     report_step(step16, "bf16")
     log(f"phase bf16 step-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+    # 15. the DCN probe path, counted; each probe kernel against its plain
+    # version, timed
+    t0 = time.perf_counter()
+    probe_rows = check_probes(args.device, timed=not rehearsal)
+    log(f"phase probes: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -1283,7 +1489,9 @@ def main(argv=None) -> int:
         "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:117",
         "also_replaces": ["centerfusiondetect3d_tpu/ops/pallas_dcn.py:240",
                           "scripts/probe_dcn_select.py:48",
-                          "scripts/probe_dcn_select.py:83"],
+                          "scripts/probe_dcn_select.py:83",
+                          "scripts/probe_dcn_bisect.py:132",
+                          "scripts/probe_mosaic.py:150"],
         "launches": launches16,
         "training_launches": train16["launches"]["dcn_fwd_bf16"],
         "max_abs_err": max(r["max_abs_err"] for r in rows16),
@@ -1302,6 +1510,7 @@ def main(argv=None) -> int:
                                (BWD_KERNELS_BF16, bwd_rows16, train16)):
         for name in names:
             kernels.append(backward_kernel_entry(name, rows_b, run))
+    kernels += probe_kernel_entries(probe_rows)
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
