@@ -152,6 +152,94 @@ def dcn_col2im_plain(dcols, x, offset, mask,
         return torch.autograd.grad(cols, xs, dcols)[0]
 
 
+def _plain_corners(offset, mask, h, w, max_offset):
+    """Every (b, k, p, corner) of the sampling as the col2im kernels see it:
+    (q, weight, lands), each (B, 9, H*W, 4): the corner's flat pixel (any
+    value where it lies outside), ``mask * wy * wx`` in the kernels' order
+    (zero outside), and whether it lies in the image with a non-zero
+    weight."""
+    b = offset.shape[0]
+    hw = h * w
+    off = offset.reshape(b, 9, 2, hw)
+    if max_offset is not None:
+        off = off.clamp(-float(max_offset), float(max_offset))
+    pos = torch.arange(hw, device=offset.device)
+    tap = torch.arange(9, device=offset.device)
+    row = torch.div(pos, w, rounding_mode="floor")
+    base_y = (row[None, :] + torch.div(tap, 3, rounding_mode="floor")[:, None]
+              - 1).to(offset.dtype)
+    base_x = ((pos - row * w)[None, :] + (tap % 3)[:, None] - 1).to(
+        offset.dtype)
+    py = base_y + off[:, :, 0]
+    px = base_x + off[:, :, 1]
+    y0, x0 = torch.floor(py), torch.floor(px)
+    ly, lx = py - y0, px - x0
+    msk = mask.reshape(b, 9, hw)
+    q, weight, lands = [], [], []
+    for cy, cx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yy, xx = y0 + cy, x0 + cx
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        wgt = (msk * (ly if cy else 1 - ly) * (lx if cx else 1 - lx)
+               * inside.to(offset.dtype))
+        q.append((yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long())
+        weight.append(wgt)
+        lands.append(inside & (wgt != 0))
+    return (torch.stack(q, -1), torch.stack(weight, -1),
+            torch.stack(lands, -1))
+
+
+def dcn_inverse_map_plain(offset, mask, h: int, w: int,
+                          max_offset: Optional[float] = None):
+    """Plain version of the ``dcn_col2im`` kernels' inverse sampling map:
+    (ends, keys, weights) in the kernels' layout, int32, int32 and offset's
+    dtype.
+
+    The entries of pixel q of image b (segment ``bq = b*H*W + q``) are
+    ``[ends[bq-1], ends[bq])`` (from 0 for bq = 0), one per tap k and output
+    pixel p whose sample has a corner on q inside the image with a non-zero
+    weight ``mask * wy * wx``: the key ``p*9 + k`` (the row of the sample's
+    channels in the kernels' transposed columns) in increasing order, and
+    the weight.
+    """
+    b = offset.shape[0]
+    hw = h * w
+    q, weight, lands = _plain_corners(offset, mask, h, w, max_offset)
+    seg = (torch.arange(b, device=offset.device)[:, None, None, None] * hw
+           + q)[lands]
+    key = (torch.arange(hw, device=offset.device)[None, :, None] * 9
+           + torch.arange(9, device=offset.device)[:, None, None]).expand(
+               b, 9, hw, 4)[lands]
+    order = torch.argsort(seg * (9 * hw) + key)
+    ends = torch.cumsum(torch.bincount(seg, minlength=b * hw), 0)
+    return (ends.to(torch.int32), key[order].to(torch.int32),
+            weight[lands][order])
+
+
+def dcn_col2im_gather_plain(dcols, offset, mask, h: int, w: int,
+                            max_offset: Optional[float] = None):
+    """Plain model of the ``dcn_col2im`` kernels' gather: dx (B, C, H, W)
+    as the segment sums over :func:`dcn_inverse_map_plain`'s map of
+    ``weight * dcols[b, c*9+k, p]``. Sums in float32 (float64 for float64
+    column gradients), one rounding to dcols' dtype."""
+    b, rows, hw = dcols.shape
+    c = rows // 9
+    acc = torch.float64 if dcols.dtype == torch.float64 else torch.float32
+    ends, keys, weights = dcn_inverse_map_plain(offset, mask, h, w,
+                                                max_offset)
+    ends, keys = ends.long(), keys.long()
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    seg = torch.repeat_interleave(torch.arange(b * hw, device=dcols.device),
+                                  counts)
+    bi = torch.div(seg, hw, rounding_mode="floor")
+    p = torch.div(keys, 9, rounding_mode="floor")
+    k = keys - 9 * p
+    g = dcols.to(acc).reshape(b, c, 9, hw)[bi, :, k, p]  # (entries, C)
+    dx = torch.zeros((b * hw, c), dtype=acc, device=dcols.device)
+    dx.index_add_(0, seg, weights.to(acc)[:, None] * g)
+    return dx.view(b, h, w, c).permute(0, 3, 1, 2).contiguous().to(
+        dcols.dtype)
+
+
 def dcn_col2im_coord_plain(dcols, x, offset, mask,
                            max_offset: Optional[float] = None):
     """Plain version of the ``dcn_col2im_coord`` kernel: (doffset, dmask),
@@ -372,20 +460,38 @@ def dcn_im2col(x, offset, mask, max_offset: Optional[float] = None):
 
 
 def dcn_col2im(dcols, offset, mask, max_offset: Optional[float] = None):
-    """The ``dcn_col2im`` kernel: dx (B, C, H, W) from the column gradients
-    (B, 9C, H*W), as :func:`dcn_col2im_plain` (which runs instead on CPU
-    tensors). ``dcn_col2im.launches`` counts launches."""
+    """The ``dcn_col2im`` kernels: dx (B, C, H, W) from the column gradients
+    (B, 9C, H*W), a gather through the inverse sampling map
+    (:func:`dcn_inverse_map`), as :func:`dcn_col2im_plain` (which runs
+    instead on CPU tensors). ``dcn_col2im.launches`` counts calls."""
     if dcols.device.type == "cpu":
         return dcn_col2im_plain(dcols, _like_x(dcols, offset), offset, mask,
                                 max_offset)
-    _require_cuda(dcols)
-    b, c, h, w = _check_columns(dcols, offset, mask, max_offset)
-    dx = torch.zeros((b, c, h, w), device=dcols.device, dtype=dcols.dtype)
-    _run(dcols, "cfd_dcn_col2im", dcols.data_ptr(), offset.data_ptr(),
-         mask.data_ptr(), dx.data_ptr(), b, c, h, w, *dcols.stride()[:2],
-         _clamp(max_offset))
+    dx = _col2im("cfd_dcn_col2im", torch.float32, dcols, offset, mask,
+                 max_offset)
     dcn_col2im.launches += 1
     return dx
+
+
+def dcn_inverse_map(offset, mask, max_offset: Optional[float] = None):
+    """(ends, keys, weights) of the ``dcn_col2im`` kernels' inverse sampling
+    map, as :func:`dcn_inverse_map_plain` (which runs instead on CPU
+    tensors); keys and weights cut to the entries used. The map is what the
+    col2im wrappers build before their gather; this entry returns it for
+    tests and reports. ``dcn_inverse_map.launches`` counts calls."""
+    _, _, h, w = offset.shape
+    if offset.device.type == "cpu":
+        return dcn_inverse_map_plain(offset, mask, h, w, max_offset)
+    _require_cuda(offset)
+    _check_offset_mask(offset, mask, max_offset)
+    _, ends, entries, _ = _inverse_map(offset, mask, max_offset)
+    dcn_inverse_map.launches += 1
+    entries = entries[:int(ends[-1])]
+    return (ends, entries[:, 0].contiguous(),
+            entries[:, 1].contiguous().view(torch.float32))
+
+
+dcn_inverse_map.launches = 0
 
 
 def dcn_col2im_coord(dcols, x, offset, mask,
@@ -423,22 +529,16 @@ def dcn_im2col_bf16(x, offset, mask, max_offset: Optional[float] = None):
 
 
 def dcn_col2im_bf16(dcols, offset, mask, max_offset: Optional[float] = None):
-    """The ``dcn_col2im_bf16`` kernel: bf16 dx (B, C, H, W) from bf16
-    column gradients (B, 9C, H*W), summed in a float32 scratch and rounded
-    once; as :func:`dcn_col2im_bf16_plain` (which runs instead on CPU
-    tensors). ``dcn_col2im_bf16.launches`` counts launches."""
+    """The ``dcn_col2im_bf16`` kernels: bf16 dx (B, C, H, W) from bf16
+    column gradients (B, 9C, H*W), the gather of :func:`dcn_col2im` summed
+    in float32 registers and rounded once; as :func:`dcn_col2im_bf16_plain`
+    (which runs instead on CPU tensors). ``dcn_col2im_bf16.launches``
+    counts calls."""
     if dcols.device.type == "cpu":
         return dcn_col2im_bf16_plain(dcols, _like_x(dcols, offset), offset,
                                      mask, max_offset)
-    _require_cuda(dcols)
-    b, c, h, w = _check_columns(dcols, offset, mask, max_offset,
-                                torch.bfloat16)
-    scratch = torch.zeros((b, c, h, w), device=dcols.device,
-                          dtype=torch.float32)
-    dx = torch.empty((b, c, h, w), device=dcols.device, dtype=torch.bfloat16)
-    _run(dcols, "cfd_dcn_col2im_bf16", dcols.data_ptr(), offset.data_ptr(),
-         mask.data_ptr(), scratch.data_ptr(), dx.data_ptr(), b, c, h, w,
-         *dcols.stride()[:2], _clamp(max_offset))
+    dx = _col2im("cfd_dcn_col2im_bf16", torch.bfloat16, dcols, offset, mask,
+                 max_offset)
     dcn_col2im_bf16.launches += 1
     return dx
 
@@ -476,6 +576,79 @@ def _im2col(name, dtype, x, offset, mask, max_offset):
     _run(x, name, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
          cols.data_ptr(), b, c, h, w, *cols.stride()[:2], _clamp(max_offset))
     return cols
+
+
+# blocks of the kernels that sort and sum the long segments of col2im's map
+# (a sorting block keeps a bitmap of the 9*H*W keys in ``bits``)
+_LONG_BLOCKS = 132
+# entries of the map per pixel at most: 9 taps x 4 corners
+_MAX_ENTRIES = 36
+# pixels per block of the map's prefix sum (kScanTile of csrc/dcn_bwd.cu)
+_SCAN_TILE = 4096
+
+
+def _check_offset_mask(offset, mask, max_offset):
+    """Checks float32 offset (B, 18, H, W) and mask (B, 9, H, W) on one
+    device, and max_offset; returns (B, H, W)."""
+    b, _, h, w = _check(offset, "offset", 4)
+    if tuple(offset.shape) != (b, 18, h, w):
+        raise ValueError(f"offset must be ({b}, 18, {h}, {w}), got "
+                         f"{tuple(offset.shape)}")
+    if tuple(_check(mask, "mask", 4)) != (b, 9, h, w):
+        raise ValueError(f"mask must be ({b}, 9, {h}, {w}), got "
+                         f"{tuple(mask.shape)}")
+    if mask.device != offset.device:
+        raise ValueError("deform_conv2d: all tensors must be on one device")
+    if max_offset is not None and not float(max_offset) >= 0:
+        raise ValueError(f"max_offset must be >= 0 or None, got {max_offset}")
+    return b, h, w
+
+
+def _inverse_map(offset, mask, max_offset):
+    """Launches the map kernels of col2im (count, the prefix sum, fill and
+    sort); returns (count, ends, entries, long_q) on offset's device,
+    int32: entries (36*B*H*W, 2) holds the map's {key, float32 weight bits}
+    pairs at its start, count[-1] the number of segments longer than a warp
+    sorts, listed in long_q."""
+    b, _, h, w = offset.shape
+    n = b * h * w
+    if _MAX_ENTRIES * n >= 2 ** 31:
+        raise ValueError(f"dcn_col2im: {b}x{h}x{w} pixels overflow the "
+                         "map's int32 keys and slots")
+    dev = offset.device
+    count = torch.empty(n + 1, device=dev, dtype=torch.int32)
+    ends = torch.empty(n, device=dev, dtype=torch.int32)
+    sums = torch.empty(-(-n // _SCAN_TILE), device=dev, dtype=torch.int32)
+    _run(offset, "cfd_dcn_col2im_count", offset.data_ptr(), mask.data_ptr(),
+         count.data_ptr(), ends.data_ptr(), sums.data_ptr(), b, h, w,
+         _clamp(max_offset))
+    entries = torch.empty((_MAX_ENTRIES * n, 2), device=dev,
+                          dtype=torch.int32)
+    long_q = torch.empty(n, device=dev, dtype=torch.int32)
+    bits = torch.empty(_LONG_BLOCKS * ((9 * h * w + 31) // 32), device=dev,
+                       dtype=torch.int32)
+    _run(offset, "cfd_dcn_col2im_fill", offset.data_ptr(), mask.data_ptr(),
+         count.data_ptr(), ends.data_ptr(), entries.data_ptr(),
+         long_q.data_ptr(), bits.data_ptr(), b, h, w, _LONG_BLOCKS,
+         _clamp(max_offset))
+    return count, ends, entries, long_q
+
+
+def _col2im(name, dtype, dcols, offset, mask, max_offset):
+    """Builds the map and launches col2im ``name`` (the transpose of the
+    column gradients into a (B, H*W, 9, C rounded up to 32) scratch, then
+    the gather) on column gradients of ``dtype``: dx (B, C, H, W) of
+    ``dtype``."""
+    _require_cuda(dcols)
+    b, c, h, w = _check_columns(dcols, offset, mask, max_offset, dtype)
+    count, ends, entries, long_q = _inverse_map(offset, mask, max_offset)
+    dcols_t = torch.empty((b, h * w, 9, -(-c // 32) * 32),
+                          device=dcols.device, dtype=dtype)
+    dx = torch.empty((b, c, h, w), device=dcols.device, dtype=dtype)
+    _run(dcols, name, dcols.data_ptr(), count.data_ptr(), ends.data_ptr(),
+         entries.data_ptr(), long_q.data_ptr(), dcols_t.data_ptr(),
+         dx.data_ptr(), b, c, h, w, _LONG_BLOCKS, *dcols.stride()[:2])
+    return dx
 
 
 def _coord(name, dtype, dcols, x, offset, mask, max_offset):
@@ -594,26 +767,21 @@ def _check(t, name: str, ndim: int, dtype=torch.float32):
 
 
 def _check_sampling(x, offset, mask, max_offset, x_dtype=torch.float32):
-    """Checks x (of ``x_dtype``), float32 offset and mask, and max_offset;
-    returns (B, C, H, W)."""
+    """Checks x (of ``x_dtype``) against offset and mask
+    (:func:`_check_offset_mask`); returns (B, C, H, W)."""
     b, c, h, w = _check(x, "x", 4, x_dtype)
-    if tuple(_check(offset, "offset", 4)) != (b, 18, h, w):
+    if _check_offset_mask(offset, mask, max_offset) != (b, h, w):
         raise ValueError(f"offset must be ({b}, 18, {h}, {w}), got "
                          f"{tuple(offset.shape)}")
-    if tuple(_check(mask, "mask", 4)) != (b, 9, h, w):
-        raise ValueError(f"mask must be ({b}, 9, {h}, {w}), got "
-                         f"{tuple(mask.shape)}")
-    if offset.device != x.device or mask.device != x.device:
+    if offset.device != x.device:
         raise ValueError("deform_conv2d: all tensors must be on one device")
-    if max_offset is not None and not float(max_offset) >= 0:
-        raise ValueError(f"max_offset must be >= 0 or None, got {max_offset}")
     return b, c, h, w
 
 
 def _check_columns(dcols, offset, mask, max_offset, dtype=torch.float32):
     """Checks (B, 9C, H*W) column gradients of ``dtype`` against offset and
-    mask: any strides over B and the rows (the kernels take them), the
-    pixels contiguous; returns (B, C, H, W)."""
+    mask (:func:`_check_offset_mask`): any strides over B and the rows (the
+    kernels take them), the pixels contiguous; returns (B, C, H, W)."""
     if dcols.dtype != dtype:
         raise TypeError(f"deform_conv2d: dcols must be {str(dtype)[6:]}, "
                         f"got {dcols.dtype}")
@@ -624,17 +792,13 @@ def _check_columns(dcols, offset, mask, max_offset, dtype=torch.float32):
     if hw > 1 and dcols.stride(2) != 1:
         raise ValueError("deform_conv2d: the pixels of dcols must be "
                          "contiguous")
-    _, _, h, w = _check(offset, "offset", 4)
-    if rows % 9 or hw != h * w or tuple(offset.shape) != (b, 18, h, w):
+    if (rows % 9 or offset.dim() != 4 or offset.shape[0] != b
+            or hw != offset.shape[2] * offset.shape[3]):
         raise ValueError(f"dcols {tuple(dcols.shape)} does not match offset "
                          f"{tuple(offset.shape)}")
-    if tuple(_check(mask, "mask", 4)) != (b, 9, h, w):
-        raise ValueError(f"mask must be ({b}, 9, {h}, {w}), got "
-                         f"{tuple(mask.shape)}")
-    if offset.device != dcols.device or mask.device != dcols.device:
+    _, h, w = _check_offset_mask(offset, mask, max_offset)
+    if offset.device != dcols.device:
         raise ValueError("deform_conv2d: all tensors must be on one device")
-    if max_offset is not None and not float(max_offset) >= 0:
-        raise ValueError(f"max_offset must be >= 0 or None, got {max_offset}")
     return b, rows // 9, h, w
 
 
@@ -648,30 +812,32 @@ def _clamp(max_offset) -> float:
 
 
 # C signatures: pointer arguments, then the int shape arguments, then the
-# int64 column strides (stride_b, stride_row), then the float clamp and the
-# stream
+# int64 column strides (stride_b, stride_row), then the float clamp (where
+# the entry point takes one) and the stream
 _SIGNATURES = {
-    "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5, 0),
-    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 6, 5, 0),
-    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4, 2),
-    "cfd_dcn_col2im": (BACKWARD_SOURCE, 4, 4, 2),
-    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4, 2),
-    "cfd_dcn_im2col_bf16": (BACKWARD_SOURCE, 4, 4, 2),
-    "cfd_dcn_col2im_bf16": (BACKWARD_SOURCE, 5, 4, 2),
-    "cfd_dcn_col2im_coord_bf16": (BACKWARD_SOURCE, 6, 4, 2),
+    "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5, 0, 1),
+    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 6, 5, 0, 1),
+    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4, 2, 1),
+    "cfd_dcn_col2im_count": (BACKWARD_SOURCE, 5, 3, 0, 1),
+    "cfd_dcn_col2im_fill": (BACKWARD_SOURCE, 7, 4, 0, 1),
+    "cfd_dcn_col2im": (BACKWARD_SOURCE, 7, 5, 2, 0),
+    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4, 2, 1),
+    "cfd_dcn_im2col_bf16": (BACKWARD_SOURCE, 4, 4, 2, 1),
+    "cfd_dcn_col2im_bf16": (BACKWARD_SOURCE, 7, 5, 2, 0),
+    "cfd_dcn_col2im_coord_bf16": (BACKWARD_SOURCE, 6, 4, 2, 1),
 }
 
 
 def _run(like, name: str, *args) -> None:
     """Builds (once) and calls the C entry point ``name`` on the current
     stream of ``like``'s device; raises on a launch error."""
-    source, n_ptr, n_int, n_stride = _SIGNATURES[name]
+    source, n_ptr, n_int, n_stride, n_float = _SIGNATURES[name]
     fn = getattr(load_kernel_library(source).lib, name)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_int64] * n_stride
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
         err = fn(*args, stream)

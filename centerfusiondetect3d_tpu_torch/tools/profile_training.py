@@ -49,8 +49,9 @@ from .profile_serving import CONV_KEYS
 
 GROUPS = (
     ("DCN forward (dcn_fwd, dcn_fwd_bf16)", ("dcn_fwd",)),
-    ("DCN backward (dcn_im2col, dcn_col2im, dcn_col2im_coord, float32 and "
-     "bf16)", ("dcn_im2col", "dcn_col2im", "round_to_bf16")),
+    ("DCN backward (dcn_im2col; dcn_col2im: its map's count, prefix sum, "
+     "fill and sort, transpose and gather; dcn_col2im_coord; float32 and "
+     "bf16)", ("dcn_im2col", "dcn_col2im")),
     ("convolution / GEMM (cuDNN, cuBLAS, their layout copies)",
      CONV_KEYS + ("dgrad", "wgrad", "depthwise")),
 )

@@ -37,10 +37,16 @@ On the card it:
    float32 forward plus HEADS_RTOL, and prints that bf16-vs-float32
    deviation (not bounded: the weights are seeded, not trained);
 9. holds the DCN backward kernels (``csrc/dcn_bwd.cu``: ``dcn_im2col``,
-   ``dcn_col2im``, ``dcn_col2im_coord``, around two plain GEMMs) against the
-   plain backward (autograd of the plain DCN) at every distinct node shape
-   with B=2, at max_offset None, 8 and 1, each kernel also against its own
-   plain version, and times the backward, its parts and the plain backward;
+   ``dcn_col2im`` (a gather through an inverse sampling map),
+   ``dcn_col2im_coord``, around two plain GEMMs) against the plain backward
+   (autograd of the plain DCN) at every distinct node shape with B=2, at
+   max_offset None, 8 and 1, each kernel also against its own plain
+   version, and times the backward, its parts and the plain backward; at
+   the training microbatch it times the forward, the backward and
+   ``dcn_col2im``, holding it against its plain version on the inputs it
+   is timed on, reports the map's entries per pixel and bytes, and at the
+   largest shape checks and times ``dcn_col2im`` on offsets that collapse
+   every tap onto one pixel (at B=2 and at the microbatch);
 10. trains with ``runtime/fit.py:Trainer`` at the same full width in float32:
    ``TRAIN.BATCH_SIZE 26`` in 2 microbatches of 13 (``GRAD_ACCUM 2``) on 52
    synthetic items, ``FREEZE_BACKBONE`` with ``DEFREEZE 0`` and 2 epochs:
@@ -66,7 +72,7 @@ On the card it:
    ``dcn_col2im_bf16``, ``dcn_col2im_coord_bf16``, the bf16 forms of
    ``csrc/dcn_bwd.cu``) each against its plain version, and the whole bf16
    backward against the plain bf16 backward, at every distinct node shape
-   with B=2 and max_offset None, 8 and 1, and times them;
+   with B=2 and max_offset None, 8 and 1, and times them as phase 9 does;
 13. trains as in phase 10 in bf16, as the shipped configs do
    (``MIXED_PRECISION True``): the same checks, with ``dcn_fwd_bf16`` and the
    bf16 backward kernels launched and no float32 DCN kernel, and float32
@@ -83,7 +89,8 @@ On the card it:
    at the probes' shapes through ``dcn_fwd_bf16``; every kernel must have
    launched. Then each kernel, its plain version and, for ``p1``, the one
    PyTorch call that computes it are timed on each of its inputs at the
-   scripts' geometry, beside the bound of those inputs;
+   scripts' geometry, beside the bound of those inputs; ``p1`` and its
+   PyTorch call also by their device time alone;
 16. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -157,8 +164,8 @@ BF16_HEAD_MULT = 2
 # per-node difference above passes through the rest of DLA-34
 HEADS_RTOL = 1e-3
 # backward kernels vs plain backward: max |kernel - plain| / max |plain| per
-# gradient tensor; sums over C, B*H*W or 9C in another order, and dx with
-# fp32 atomics whose order changes from run to run: the forward's limit
+# gradient tensor; sums over C, B*H*W, 9C or a pixel's map entries in
+# another order: the forward's limit
 GRAD_RTOL = 1e-4
 # one NORM_EVAL train step, kernel DCN against the float64 plain step: each
 # loss part within NOISE_MULT times its noise plus STEP_RTOL (the heads'
@@ -183,9 +190,16 @@ GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
 # cuBLAS's bf16 GEMMs round their own sums, so a column gradient, dweight or
 # dbias may round to the neighbouring bf16 value
 BF16_OUTPUTS = {"dcn_im2col_bf16", "dcn_col2im_bf16"}
-# the bf16 col2im's float32 dx scratch: zeroed, accumulated into with f32
-# atomics, read back by the rounding; 4 bytes each
-SCRATCH_BYTES = 12
+COL2IM = ("dcn_col2im", "dcn_col2im_bf16")
+# col2im's design traffic beside the function's own bytes: its inverse
+# sampling map, an 8-byte entry written by the fill, read and written back
+# by the sort and read by the gather, and per pixel a count and a segment
+# end, each written once and read once; and its transposed copy of the
+# column gradients (channels rounded up to 32), written once and read once
+MAP_ENTRY_BYTES = 32
+MAP_PIXEL_BYTES = 16
+# launches per event pair when a kernel's device time is taken alone
+DEVICE_LAUNCHES = 200
 
 
 def log(msg: str) -> None:
@@ -516,15 +530,15 @@ def bwd_bounds(shape, bf16: bool = False):
     tensor cores 989 TFLOP/s) of each part of one node's backward: (flops,
     bytes, bound ms, bound_by) per part and for the whole backward; each
     input read and each output written once. Flops per column element:
-    im2col 7 (4 products, 3 sums), col2im 8 (4 products and 4 atomic adds),
-    coord 25 (the sample and its 2 bilinear derivatives, 3 multiply-adds),
-    all fp32; GEMMs 2 x 2*B*O*9C*HW, fp32 or bf16. In bf16 x, dx, the
-    columns, the column gradients, the weight and g are 2 bytes, offset,
-    mask and their gradients 4; the whole backward's ops time sums the fp32
-    kernels' and the bf16 GEMMs' times. The bytes are the function's own:
-    the f32 scratch that the bf16 col2im accumulates dx in is the design's
-    traffic, not the function's (``SCRATCH_BYTES`` per dx element, reported
-    beside the bound as ``scratch_mbytes``)."""
+    im2col 7 (4 products, 3 sums), col2im 8 (4 products, 4 adds), coord 25
+    (the sample and its 2 bilinear derivatives, 3 multiply-adds), all fp32;
+    GEMMs 2 x 2*B*O*9C*HW, fp32 or bf16. In bf16 x, dx, the columns, the
+    column gradients, the weight and g are 2 bytes, offset, mask and their
+    gradients 4; the whole backward's ops time sums the fp32 kernels' and
+    the bf16 GEMMs' times. The bytes are the function's own: col2im's
+    inverse sampling map is the design's traffic, not the function's
+    (``map_stats``, reported beside the bound as ``map_mbytes``), and so is
+    its transposed copy of the column gradients (``transpose_mbytes``)."""
     b, c, h, w, o = shape
     hw = h * w
     cols = 9 * b * c * hw
@@ -552,9 +566,86 @@ def bwd_bounds(shape, bf16: bool = False):
     return out
 
 
+def map_stats(offset, mask):
+    """Entries of col2im's inverse sampling map on these offsets (the
+    kernels' map on the card, the plain one on the CPU): their number, the
+    mean and the longest segment (entries per pixel), and the map's bytes
+    (MAP_ENTRY_BYTES per entry, MAP_PIXEL_BYTES per pixel)."""
+    ends = dcn.dcn_inverse_map(offset, mask)[0]
+    seg = torch.diff(ends, prepend=ends.new_zeros(1))
+    entries, pixels = int(ends[-1]), ends.numel()
+    return {"entries": entries, "mean_segment": entries / pixels,
+            "longest_segment": int(seg.max()),
+            "map_mbytes": (MAP_ENTRY_BYTES * entries
+                           + MAP_PIXEL_BYTES * pixels) / 1e6}
+
+
+def transpose_mbytes(shape, bf16: bool) -> float:
+    """MB that col2im's transposed copy of the column gradients moves: the
+    (B, HW, 9, C rounded up to 32) scratch written once and read once."""
+    b, c, h, w = shape[:4]
+    return 2 * (2 if bf16 else 4) * b * h * w * 9 * (-(-c // 32) * 32) / 1e6
+
+
+def collapsed_offsets(b, h, w, device):
+    """Offsets that send every tap of every pixel of an image to one point:
+    the pixel (h // 2, w // 2) in even images (one corner each: segments of
+    9*H*W entries), half a pixel below and right of it in odd ones (four
+    such segments)."""
+    ys = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    off = torch.empty((b, 18, h, w), device=device)
+    for img in range(b):
+        shift = 0.5 * (img % 2)
+        for k in range(9):
+            i, j = divmod(k, 3)
+            off[img, 2 * k] = h // 2 + shift - (ys + i - 1)
+            off[img, 2 * k + 1] = w // 2 + shift - (xs + j - 1)
+    return off
+
+
+def time_device(fn, n: int = DEVICE_LAUNCHES) -> float:
+    """ms of device time per call of fn: one event pair around n calls,
+    enqueued behind a sleep of the stream long enough to cover the host's
+    enqueue of all n, so that the calls run back to back and the pair
+    brackets device time, not host time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # >= 2 x at <= 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-30)
+
+
+def col2im_vs_plain(pair, shape, offsets: str, bf16: bool) -> float:
+    """Relative error of a col2im call against its plain version on the same
+    inputs (``pair`` = (kernel call, plain call)); raises past GRAD_RTOL
+    (float32) or BF16_RTOL (bf16)."""
+    kernel, plain = pair
+    got, want = kernel(), plain()
+    rel = rel_err(got.float(), want.float())
+    limit = BF16_RTOL if bf16 else GRAD_RTOL
+    if got.dtype != want.dtype or not (math.isfinite(rel) and rel <= limit):
+        raise AssertionError(
+            f"col2im ({got.dtype}) disagrees with its plain version "
+            f"({want.dtype}) at {tuple(shape)} on {offsets} offsets: "
+            f"relative {rel:.3e} > {limit}")
+    return rel
 
 
 def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
@@ -565,9 +656,14 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
     each in its input's dtype) and each kernel against its own plain version
     on the same inputs, the column gradients those of the GEMM
     (``dcn.column_gradients``). In bf16, x, weight, bias and the output
-    gradient are the same draws rounded to bf16. On the card also the
-    CUDA-event medians of the backward, its parts and the plain versions,
-    and of the forward and backward at the training microbatch ``micro``."""
+    gradient are the same draws rounded to bf16. Each shape reports col2im's
+    map on its offsets (``map_stats``); at the largest shape col2im is also
+    held against its plain version on offsets that collapse every tap onto
+    one pixel. On the card also the CUDA-event medians of the backward, its
+    parts and the plain versions, and at the training microbatch ``micro``
+    of the forward, the backward and col2im (the collapsed case too), with
+    col2im's bound and map there; col2im is held against its plain version
+    on the inputs it is timed on."""
     if bf16:
         kernels = dcn.BACKWARD_KERNELS_BF16
         plains = (dcn.dcn_im2col_bf16_plain, dcn.dcn_col2im_bf16_plain,
@@ -597,6 +693,7 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
         }
 
     rows = []
+    largest = max(shapes, key=lambda s: s[1] * s[2] * s[3])
     for i, full in enumerate(sorted(set(shapes), key=shapes.index)):
         shape = (BWD_BATCH,) + tuple(full[1:])
         b, c, h, w, o = shape
@@ -639,14 +736,22 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                     errs[name] = max(errs[name], float(
                         (a.float() - ref.float()).abs().max()))
         bounds = bwd_bounds(shape, bf16)
+        stats = map_stats(off, mask)
         row = {"shape": list(shape), "nodes": shapes.count(full),
                "max_rel_err": worst, "max_abs_err": errs,
-               "scratch_mbytes": (SCRATCH_BYTES * b * c * h * w / 1e6
-                                  if bf16 else 0.0),
+               "map_mbytes": stats["map_mbytes"], "map": stats,
+               "transpose_mbytes": transpose_mbytes(shape, bf16),
                "bound_ms": {k: v[2] for k, v in bounds.items()},
                "bound_by": {k: v[3] for k, v in bounds.items()},
                "gflop": {k: v[0] / 1e9 for k, v in bounds.items()},
                "mbytes": {k: v[1] / 1e6 for k, v in bounds.items()}}
+        if full == largest:
+            # every tap onto one pixel: segments of 9*H*W entries (the long
+            # sort of csrc/dcn_bwd.cu)
+            coff = collapsed_offsets(b, h, w, device)
+            rel = col2im_vs_plain(calls(x, coff, mask, dcols)[n_col2im],
+                                  shape, "collapsed", bf16)
+            row["collapsed"] = {"max_rel_err": rel, **map_stats(coff, mask)}
         if timed:
             dcols = dcn.column_gradients(wt, g)
             cols = im2col(x, off, mask)
@@ -673,6 +778,24 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                     mx, moff, mmask, mwt, mbias), 5),
                 "backward": time_one(lambda: dcn.deform_conv2d_backward(
                     mx, moff, mmask, mwt, mg), 5)}
+            mdcols = dcn.column_gradients(mwt, mg)
+            row["micro_max_rel_err"] = col2im_vs_plain(
+                calls(mx, moff, mmask, mdcols)[n_col2im], mshape, "seeded",
+                bf16)
+            row["micro_ms"][n_col2im] = time_one(
+                lambda: col2im(mdcols, moff, mmask), TIMING_REPS)
+            row["micro_bound_ms"] = bwd_bounds(mshape, bf16)[n_col2im][2]
+            row["micro_map"] = map_stats(moff, mmask)
+            row["micro_transpose_mbytes"] = transpose_mbytes(mshape, bf16)
+            if full == largest:
+                mcoff = collapsed_offsets(micro, h, w, device)
+                row["collapsed"]["micro_max_rel_err"] = col2im_vs_plain(
+                    calls(mx, mcoff, mmask, mdcols)[n_col2im], mshape,
+                    "collapsed", bf16)
+                row["collapsed"]["micro_ms"] = time_one(
+                    lambda: col2im(mdcols, mcoff, mmask), 3)
+                row["collapsed"]["micro_map"] = map_stats(mcoff, mmask)
+            del mdcols
         rows.append(row)
         log(f"  dcn {'bf16 ' if bf16 else ''}backward {shape} x{row['nodes']}"
             f": max rel err {worst:.2e} (limit {whole_rtol}), per kernel abs "
@@ -684,7 +807,24 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                + f"; bound {bounds['backward'][2]:.4f} ms "
                f"({bounds['backward'][3]}); at B={micro}: forward "
                f"{row['micro_ms']['forward']:.3f} ms, backward "
-               f"{row['micro_ms']['backward']:.3f} ms"))
+               f"{row['micro_ms']['backward']:.3f} ms, {n_col2im} "
+               f"{row['micro_ms'][n_col2im]:.4f} ms (rel err "
+               f"{row['micro_max_rel_err']:.2e})"
+               + f", bound {row['micro_bound_ms']:.4f} ms, map "
+               f"{row['micro_map']['map_mbytes']:.1f} MB, transposed columns "
+               f"{row['micro_transpose_mbytes']:.1f} MB"))
+        log(f"    {n_col2im} map at B={b}: {stats['mean_segment']:.2f} "
+            f"entries per pixel, longest segment {stats['longest_segment']}, "
+            f"{stats['map_mbytes']:.2f} MB and transposed columns "
+            f"{row['transpose_mbytes']:.2f} MB beside the function's "
+            f"{bounds[n_col2im][1] / 1e6:.2f} MB"
+            + ("" if "collapsed" not in row else
+               f"; collapsed offsets: rel err "
+               f"{row['collapsed']['max_rel_err']:.2e}, longest segment "
+               f"{row['collapsed']['longest_segment']}"
+               + ("" if not timed else
+                  f", {row['collapsed']['micro_ms']:.3f} ms at B={micro} "
+                  f"(rel err {row['collapsed']['micro_max_rel_err']:.2e})")))
     return rows
 
 
@@ -1180,7 +1320,8 @@ def check_probes(device, timed: bool):
     launched. On the card each kernel, its plain version and, for ``p1``,
     ``x[g:g+8, g+1:g+17].clone()`` (the one PyTorch call that computes
     it) are then timed on each of its inputs at the scripts' geometry;
-    the headline is the script's own input."""
+    the headline is the script's own input. ``p1`` and its PyTorch call are
+    also timed by device time alone (``time_device``)."""
     probes.reset_launch_counts()
     lines = []
     results = probe_dcn.run(torch.device(device), SEED, out=lines.append)
@@ -1213,18 +1354,25 @@ def check_probes(device, timed: bool):
                     "flops": flops, "bytes": nbytes, "library_ms": None}
             if name == "p1":
                 x, g = a
-                case["library_ms"] = time_one(
-                    lambda: x[g:g + probes.P5_ROWS,
-                              g + 1:g + 1 + probes.P5_COLS].clone(),
-                    TIMING_REPS)
+
+                def library():
+                    return x[g:g + probes.P5_ROWS,
+                             g + 1:g + 1 + probes.P5_COLS].clone()
+
+                case["library_ms"] = time_one(library, TIMING_REPS)
+                # device time alone, per launch
+                case["device_ms"] = time_device(kernel)
+                case["library_device_ms"] = time_device(library)
             per_case.append(case)
         row["per_case"] = per_case
         head = per_case[0]
         log(f"  probe {name}: kernel {head['ms']:.4f} ms, plain "
             f"{head['plain_ms']:.4f} ms, bound {head['bound_ms']:.2e} ms "
             f"({head['bound_by']}) on the script's input"
-            + (f", library {head['library_ms']:.4f} ms"
-               if head["library_ms"] is not None else "")
+            + (f", library {head['library_ms']:.4f} ms; device time alone "
+               f"{head['device_ms']:.5f} ms, library "
+               f"{head['library_device_ms']:.5f} ms per launch of "
+               f"{DEVICE_LAUNCHES}" if head["library_ms"] is not None else "")
             + "; other inputs " + ", ".join(
                 f"{c['case']} {c['ms']:.4f} / {c['plain_ms']:.3f} ms"
                 for c in per_case[1:]))
@@ -1528,8 +1676,11 @@ def backward_kernel_entry(name, rows, train):
     """The ``kernels`` line's entry of backward kernel ``name``: launches in
     the training main path ``train`` of its dtype; times, plain times and
     bounds per backward of the model at B=2 (the sum over its DCN nodes of
-    ``rows``, the per-shape rows of phase 9 or 12)."""
-    return {
+    ``rows``, the per-shape rows of phase 9 or 12); for col2im also per
+    unfrozen training step (the node times at the microbatch, over the
+    microbatches) with its bound and map bytes, and per node shape its
+    map."""
+    entry = {
         "name": name, "route": "cuda",
         "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_bwd.cu",
         "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:409",
@@ -1546,9 +1697,28 @@ def backward_kernel_entry(name, rows, train):
              "ms": r["ms"][name], "plain_ms": r["plain_ms"][name],
              "bound_ms": r["bound_ms"][name],
              "max_abs_err": r["max_abs_err"][name],
-             **({"scratch_mbytes": r["scratch_mbytes"]}
-                if name == "dcn_col2im_bf16" else {})} for r in rows],
+             **({"map": r["map"], "map_mbytes": r["map_mbytes"],
+                 "transpose_mbytes": r["transpose_mbytes"],
+                 "micro_ms": r["micro_ms"][name],
+                 "micro_bound_ms": r["micro_bound_ms"],
+                 "micro_map": r["micro_map"],
+                 "micro_transpose_mbytes": r["micro_transpose_mbytes"],
+                 "micro_max_rel_err": r["micro_max_rel_err"],
+                 **({"collapsed": r["collapsed"]} if "collapsed" in r
+                    else {})}
+                if name in COL2IM else {})} for r in rows],
     }
+    if name in COL2IM:
+        accum = train["grad_accum"]
+        entry["ms_per_unfrozen_step"] = accum * sum(
+            r["micro_ms"][name] * r["nodes"] for r in rows)
+        entry["bound_ms_per_unfrozen_step"] = accum * sum(
+            r["micro_bound_ms"] * r["nodes"] for r in rows)
+        entry["map_mbytes_per_unfrozen_step"] = accum * sum(
+            r["micro_map"]["map_mbytes"] * r["nodes"] for r in rows)
+        entry["transpose_mbytes_per_unfrozen_step"] = accum * sum(
+            r["micro_transpose_mbytes"] * r["nodes"] for r in rows)
+    return entry
 
 
 def report_training(train, bwd_rows, micro: int, card, rehearsal: bool):
@@ -1573,10 +1743,13 @@ def report_training(train, bwd_rows, micro: int, card, rehearsal: bool):
         return
     fwd = sum(r["micro_ms"]["forward"] * r["nodes"] for r in bwd_rows)
     bwd = sum(r["micro_ms"]["backward"] * r["nodes"] for r in bwd_rows)
+    col2im = COL2IM[train["precision"] == "bf16"]
+    c2i = sum(r["micro_ms"][col2im] * r["nodes"] for r in bwd_rows)
     accum = train["grad_accum"]
     train["dcn_share"] = {
         "forward_ms_per_step": fwd * accum,
         "backward_ms_per_step": bwd * accum,
+        "col2im_ms_per_step": c2i * accum,
         "frozen_forward": fwd * accum / train["ms_per_step"]["frozen"],
         "unfrozen_forward": fwd * accum / train["ms_per_step"]["unfrozen"],
         "unfrozen_backward": bwd * accum / train["ms_per_step"]["unfrozen"]}
@@ -1584,7 +1757,7 @@ def report_training(train, bwd_rows, micro: int, card, rehearsal: bool):
         f"step (node times at B={micro}, x{accum} microbatches): forward "
         f"{fwd * accum:.1f} ms, backward {bwd * accum:.1f} ms = "
         f"{100 * train['dcn_share']['unfrozen_backward']:.1f}% of an "
-        f"unfrozen step")
+        f"unfrozen step, of it {col2im} {c2i * accum:.1f} ms")
 
 
 def report_step(step, precision: str):

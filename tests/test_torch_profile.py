@@ -47,13 +47,17 @@ class _FakeProfile:
 def test_device_time_report_groups_the_training_kernels():
     """Busy time is the union of the kernels' intervals (two overlapping
     kernels count once); each kernel joins the first group whose key its
-    lower-cased name holds: the bf16 and float32 DCN backward kernels and
-    the dx rounding in the backward group, the cuDNN wgrad in the
-    convolution group."""
+    lower-cased name holds: the bf16 DCN backward's gather and the kernels
+    that build its map (the prefix sum too) and transpose its columns in
+    the backward group, the cuDNN wgrad in the convolution group."""
     prof = _FakeProfile([
-        ("void (anonymous namespace)::dcn_col2im_kernel<__nv_bfloat16>(...)",
-         0, 400),
-        ("(anonymous namespace)::round_to_bf16_kernel(...)", 400, 450),
+        ("void (anonymous namespace)::dcn_col2im_gather_kernel<__nv_bfloat16>"
+         "(...)", 0, 400),
+        ("void (anonymous namespace)::dcn_col2im_map_kernel<true>(...)", 400,
+         415),
+        ("(anonymous namespace)::dcn_col2im_scan_kernel(...)", 415, 430),
+        ("void (anonymous namespace)::dcn_col2im_transpose_kernel<unsigned "
+         "short>(...)", 430, 450),
         ("(anonymous namespace)::dcn_fwd_bf16_kernel(...)", 500, 700),
         ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32", 700, 1000),
         ("void at::native::vectorized_elementwise_kernel<8>", 900, 1100),
