@@ -1,181 +1,202 @@
-// Modulated 3x3 stride-1 deformable convolution (DCNv2) forward, NCHW fp32.
+// Modulated 3x3 stride-1 deformable convolution (DCNv2) forward, fp32.
 //
-// Replaces the TPU kernels _dcn_shift_kernel (deform_conv2d_pallas) and
-// _dcn_static_kernel (deform_conv2d_pallas_static) of
-// centerfusiondetect3d_tpu/ops/pallas_dcn.py. Those sum hat-weighted
-// integer-shift windows because the TPU has no fast gather; a GPU gathers
-// cheaply, so this kernel computes the exact op of
-// centerfusiondetect3d_tpu/ops/dcn.py:deform_conv2d: bilinear sampling at
-// p + t_k + d_k(p), a corner contributing only inside the image, times the
-// mask, contracted with the weight, plus the bias. max_offset >= 0 clamps
-// dy and dx to +-max_offset first (the Pallas kernels' semantics, 8 for K1
-// and 1 for K2); max_offset < 0 means no clamp.
+// Replaces the TPU kernels _dcn_shift_kernel
+// (centerfusiondetect3d_tpu/ops/pallas_dcn.py:117, via deform_conv2d_pallas
+// :179, K1) and _dcn_static_kernel (:240, via deform_conv2d_pallas_static
+// :303, K2). Those sum hat-weighted integer-shift windows because the TPU
+// has no fast gather; a GPU gathers cheaply, so this kernel computes the
+// exact op of centerfusiondetect3d_tpu/ops/dcn.py:deform_conv2d: bilinear
+// sampling at p + t_k + d_k(p), a corner contributing only inside the image,
+// weighted by the bilinear weight folded with the mask, contracted with the
+// weight in full fp32 (no TF32: the 1e-4 limit and TF32-off serving rule it
+// out), plus the bias. max_offset >= 0 clamps dy and dx to +-max_offset
+// first (the Pallas kernels' semantics, 8 for K1 and 1 for K2); max_offset
+// < 0 means no clamp.
 //
 // What bounds it: the contraction is 2*B*H*W*9*C*O flops against about
 // 4*B*H*W*(C + 27 + O) bytes, over 100 flops per byte at every node shape
 // of the model, while the card's fp32 balance is 67 TFLOP/s / 3.35 TB/s = 20
-// flops per byte; on the CUDA cores in fp32 it is bound by operations. The design keeps the FMA units fed from
-// registers and shared memory: a block owns 64 output pixels x 64 output
-// channels of one image, computes each pixel's 9 taps x 4 corner indices and
-// mask-folded bilinear weights once into shared memory, then walks the input
-// channels 4 at a time, sampling a 36 x 64 column tile and staging the
-// matching 36 x 64 weight slice in shared memory, and each thread
-// accumulates a 4 x 4 register tile with float4 shared-memory reads. The
-// gathers hit L1/L2 and are paid once per 64 output channels. Tensor cores
-// (bf16/TF32 wgmma) are the next step and are not used here.
+// flops per byte: on the CUDA cores it is bound by operations. In practice
+// the corner gathers through L1 (one wavefront per distinct 128-byte line a
+// warp's load touches: 36 * C / group a pixel) cost about as much as the
+// FFMAs, and the two overlap only across the two blocks of an SM.
 //
-// Layouts: x (B, C, H, W); offset (B, 18, H, W) with offset[2k] = dy_k and
-// offset[2k+1] = dx_k, taps k = 3i + j in row-major order; mask (B, 9, H, W)
-// already sigmoided; wt (C, 3, 3, O), the (O, C, 3, 3) weight permuted so
-// that a chunk's rows are contiguous; bias (O,) or null; out (B, O, H, W).
-// Every tensor is contiguous fp32 on one device.
+// Design: the front end of dcn_fwd_common.cuh (channels-last x, 16-byte
+// corner loads of 4 channels, pixel tiles of B*H*W covering all O <= 256 so
+// each pixel is sampled once per call, a split of the 9*C rows where tiles
+// are few, a three-stage weight ring fed by cp.async). The engine is an
+// fp32 FFMA outer product with an 8 x 8 register tile per thread; the
+// block's 256 threads are two halves of 128 that take alternate halves of
+// each step's rows over the same P x NO tile (8,192 outputs), and the
+// halves' sums meet in shared memory at the end, the first plus the
+// second: a fixed order. Tiles by output tile NO:
+//   NO  pixels  group  rows a step  blocks/SM
+//   64   128     16        16           2
+//   128   64     16        24           2
+//   256   32     32        16           2
+// Thread (half, tp, to) owns pixels tp + (P/8) i and outputs to + (NO/8) j.
+// Both tiles keep a row's values contiguous in an odd number of 16-byte
+// units, so a quarter-warp's float4 reads of 8 rows are free of bank
+// conflicts and the lanes reading one weight row broadcast; per 4 rows a
+// thread reads 8 + 8 float4 and does 256 FFMAs. Two blocks per SM hold a
+// thread to 128 registers, and ptxas spills a few (its log). The in-block
+// overlap variant (dcn_fwd::Overlapped: one block per SM, 168 registers,
+// no spills) is slower at every node shape (PERF.md).
+//
+// Shared memory per block: corner tables 180 bytes a pixel + one tap tile
+// + 3 weight stages: 114,176 (NO 64), 92,416 (NO 128), 104,576 bytes (NO
+// 256).
+//
+// Layouts: x (B, H, W, C) (channels-last; dcn_fwd_nhwc makes it from NCHW);
+// offset (B, 18, H, W) with offset[2k] = dy_k and offset[2k+1] = dx_k, taps
+// k = 3i + j in row-major order; mask (B, 9, H, W) already sigmoided;
+// weight (O, C, 3, 3); bias (O,) or null; out (B, O, H, W); partial
+// (splits, O, B*H*W) scratch when splits > 1. Every tensor is dense fp32 on
+// one device.
 
-#include <cuda_runtime.h>
+#include "dcn_fwd_common.cuh"
 
 namespace {
 
-constexpr int kTileP = 64;            // output pixels per block
-constexpr int kTileO = 64;            // output channels per block
-constexpr int kChunkC = 4;            // input channels per shared-memory chunk
-constexpr int kRows = kChunkC * 9;    // contraction rows per chunk
-constexpr int kThreads = 256;         // 16 x 16 threads, 4 x 4 outputs each
+template <int NO>
+struct Fp32Engine {
+  using T = float;
+  using TA = float;
+  static constexpr int kNO = NO;
+  static constexpr int kP = 8192 / NO;  // 128, 64 or 32 pixels
+  static constexpr int kGC = NO == 256 ? 32 : 16;  // channels a group
+  static constexpr int kKB = NO == 128 ? 24 : 16;  // weight rows a step
+  static constexpr int kStages = 3;                // weight stages
+  static constexpr int kMinBlocks = 2;
+  static constexpr bool kOverlap = false;  // dcn_fwd::Overlapped
+  static constexpr int kBatch = 3;  // gather items a thread in flight
+  static constexpr int kSteps = 9 * kGC / kKB;
+  static constexpr int kLdA = 9 * kGC + 4;
+  static constexpr int kLdB = kKB + 4;
+  static constexpr int kLdC = kP + 4;  // epilogue tile [o][pixel]
+  static constexpr int kABytes = kP * kLdA * 4;
+  static constexpr int kBBytes = kNO * kLdB * 4;
+  static constexpr int kSmem = 9 * kP * 20 + kABytes + kStages * kBBytes;
+  static constexpr int kTP = kP / 8;  // threads of a half along the pixels
+  static constexpr int kTO = NO / 8;  // threads of a half along the outputs
+  static_assert(2 * kTP * kTO == dcn_fwd::kThreads, "8 x 8 a thread");
+  static_assert((kLdA / 4) % 2 == 1 && (kLdB / 4) % 2 == 1,
+                "float4 rows: odd 16-byte units");
+  static_assert(kKB % 8 == 0, "each half takes whole float4 rows");
+  static_assert(kNO * kLdC * 4 <= kSmem, "the epilogue tile fits");
+  static_assert(kMinBlocks * (kSmem + 1024) <= 233472, "blocks per SM");
 
-__global__ void __launch_bounds__(kThreads)
-dcn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-               const float* __restrict__ mask, const float* __restrict__ wt,
-               const float* __restrict__ bias, float* __restrict__ out,
-               int C, int H, int W, int O, float max_offset) {
-  __shared__ int s_idx[4][9 * kTileP];
-  __shared__ float s_wgt[4][9 * kTileP];
-  __shared__ __align__(16) float s_col[kRows][kTileP];
-  __shared__ __align__(16) float s_w[kRows][kTileO];
+  float acc[8][8];
 
-  const int tid = threadIdx.x;
-  const int hw = H * W;
-  const int p0 = blockIdx.x * kTileP;
-  const int o0 = blockIdx.y * kTileO;
-  const int b = blockIdx.z;
-
-  // 1. corner indices and mask-folded bilinear weights of every (tap, pixel)
-  for (int t = tid; t < 9 * kTileP; t += kThreads) {
-    const int k = t / kTileP;
-    const int p = p0 + t % kTileP;
-    int idx[4] = {0, 0, 0, 0};
-    float wgt[4] = {0.f, 0.f, 0.f, 0.f};
-    if (p < hw) {
-      const int h = p / W;
-      const int w = p - h * W;
-      float dy = offset[((size_t)b * 18 + 2 * k) * hw + p];
-      float dx = offset[((size_t)b * 18 + 2 * k + 1) * hw + p];
-      if (max_offset >= 0.f) {
-        dy = fminf(fmaxf(dy, -max_offset), max_offset);
-        dx = fminf(fmaxf(dx, -max_offset), max_offset);
-      }
-      const float m = mask[((size_t)b * 9 + k) * hw + p];
-      const float py = (float)(h + k / 3 - 1) + dy;
-      const float px = (float)(w + k % 3 - 1) + dx;
-      const float fy = floorf(py);
-      const float fx = floorf(px);
-      const float ly = py - fy;
-      const float lx = px - fx;
-      const int y0 = (int)fy;
-      const int x0 = (int)fx;
+  __device__ Fp32Engine() {
 #pragma unroll
-      for (int corner = 0; corner < 4; ++corner) {
-        const int cy = corner >> 1;
-        const int cx = corner & 1;
-        const int yy = y0 + cy;
-        const int xx = x0 + cx;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          idx[corner] = yy * W + xx;
-          wgt[corner] = m * (cy ? ly : 1.f - ly) * (cx ? lx : 1.f - lx);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  // thread (half, tp, to): half the step's rows, pixels tp + kTP i and
+  // outputs to + kTO j
+  __device__ __forceinline__ static int half() { return threadIdx.x / 128; }
+  __device__ __forceinline__ static int tp() {
+    return (threadIdx.x % 128) % kTP;
+  }
+  __device__ __forceinline__ static int to() {
+    return (threadIdx.x % 128) / kTP;
+  }
+
+  // acc += A[:, col0 + r] B[:, r]^T over this half's rows r of the stage
+  __device__ __forceinline__ void contract(const float* a, int col0,
+                                           const float* b) {
+    const int r0 = half() * (kKB / 2);
+    const float* a_row = a + tp() * kLdA + col0;
+    const float* b_row = b + to() * kLdB;
+#pragma unroll 1
+    for (int r = r0; r < r0 + kKB / 2; r += 4) {
+      float4 bv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(b_row + kTO * j * kLdB + r);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(a_row + kTP * i * kLdA + r);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
         }
       }
-    }
-#pragma unroll
-    for (int corner = 0; corner < 4; ++corner) {
-      s_idx[corner][t] = idx[corner];
-      s_wgt[corner][t] = wgt[corner];
     }
   }
 
-  const int tx = tid % 16;  // pixels 4*tx .. 4*tx+3 of the tile
-  const int ty = tid / 16;  // output channels 4*ty .. 4*ty+3 of the tile
-  float acc[4][4];
+  // the two halves' sums, the first plus the second, through shared
+  // memory, then written out coalesced along the pixels
+  __device__ __forceinline__ void epilogue(const dcn_fwd::Params<T>& prm,
+                                           unsigned char* smem, int p0,
+                                           int o0) const {
+    float* s_c = reinterpret_cast<float*>(smem);
+    float* mine = s_c + to() * kLdC + tp();
+    if (half() == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kChunkC) {
-    __syncthreads();  // tables ready; the previous chunk's FMAs are done
-    // 2. sample the (kChunkC x 9 taps) x kTileP column tile
-    for (int t = tid; t < 9 * kTileP; t += kThreads) {
-      const int k = t / kTileP;
-      const int pl = t % kTileP;
-      const int i0 = s_idx[0][t], i1 = s_idx[1][t];
-      const int i2 = s_idx[2][t], i3 = s_idx[3][t];
-      const float w0 = s_wgt[0][t], w1 = s_wgt[1][t];
-      const float w2 = s_wgt[2][t], w3 = s_wgt[3][t];
-#pragma unroll
-      for (int c = 0; c < kChunkC; ++c) {
-        float v = 0.f;
-        if (c0 + c < C) {
-          const float* xc = x + ((size_t)b * C + c0 + c) * hw;
-          v = w0 * __ldg(xc + i0) + w1 * __ldg(xc + i1) +
-              w2 * __ldg(xc + i2) + w3 * __ldg(xc + i3);
-        }
-        s_col[c * 9 + k][pl] = v;
-      }
-    }
-    // 3. the matching weight rows (c0..c0+kChunkC) x 9 taps
-    for (int t = tid; t < kRows * kTileO; t += kThreads) {
-      const int r = t / kTileO;
-      const int ol = t % kTileO;
-      const int row = c0 * 9 + r;
-      s_w[r][ol] = (row < C * 9 && o0 + ol < O)
-                       ? wt[(size_t)row * O + o0 + ol] : 0.f;
+        for (int j = 0; j < 8; ++j)
+          mine[kTO * j * kLdC + kTP * i] = acc[i][j];
     }
     __syncthreads();
-    // 4. rank-kRows update of the 4 x 4 register tile
-#pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&s_col[r][tx * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&s_w[r][ty * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
+    if (half() == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) {
+          float& v = mine[kTO * j * kLdC + kTP * i];
+          v = acc[i][j] + v;
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kNO * kP; i += dcn_fwd::kThreads) {
+      const int ol = i / kP;
+      const int pl = i - ol * kP;
+      if (o0 + ol < prm.O && p0 + pl < prm.npix)
+        dcn_fwd::write_out(prm, o0 + ol, p0 + pl, s_c[ol * kLdC + pl]);
     }
   }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = o0 + ty * 4 + j;
-    if (o >= O) continue;
-    const float bv = bias ? bias[o] : 0.f;
-    float* dst = out + ((size_t)b * O + o) * hw;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + tx * 4 + i;
-      if (p < hw) dst[p] = acc[i][j] + bv;
-    }
-  }
-}
+};
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int cfd_dcn_fwd(const float* x, const float* offset,
-                           const float* mask, const float* wt,
-                           const float* bias, float* out, int B, int C, int H,
-                           int W, int O, float max_offset, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || O <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((H * W + kTileP - 1) / kTileP, (O + kTileO - 1) / kTileO, B);
-  dcn_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, offset, mask, wt, bias, out, C, H, W, O, max_offset);
-  return (int)cudaGetLastError();
+// Launches the forward on `stream`: where xh is given, the channels-last
+// copy of the NCHW x into it first (else x is channels-last); then the
+// kernel and, when splits > 1, the reduction of the splits' partials.
+// tile_p, tile_o and group are the caller's plan (dcn_fwd_plan), held
+// against the engine's tiles. overlap = 1 runs the engine's in-block
+// overlap variant (dcn_fwd::Overlapped), for comparison. Returns the CUDA
+// error of the launches (0 on success). vec = 1 when C is
+// a multiple of 4 and the channels-last x and the weight are 16-byte
+// aligned.
+extern "C" int cfd_dcn_fwd(const float* x, float* xh, const float* offset,
+                           const float* mask, const float* weight,
+                           const float* bias, float* out, float* partial,
+                           int B, int C, int H, int W, int O, int tile_p,
+                           int tile_o, int group, int splits, int vec,
+                           int overlap, float max_offset, void* stream) {
+  using dcn_fwd::Overlapped;
+  const auto run =
+      O <= 64    ? overlap ? dcn_fwd::run<Overlapped<Fp32Engine<64>>, float>
+                           : dcn_fwd::run<Fp32Engine<64>, float>
+      : O <= 128 ? overlap ? dcn_fwd::run<Overlapped<Fp32Engine<128>>, float>
+                           : dcn_fwd::run<Fp32Engine<128>, float>
+      : overlap  ? dcn_fwd::run<Overlapped<Fp32Engine<256>>, float>
+                 : dcn_fwd::run<Fp32Engine<256>, float>;
+  return run(x, xh, offset, mask, weight, bias, out, partial, B, C, H, W, O,
+             tile_p, tile_o, group, splits, vec, max_offset, stream);
+}
+
+// The channels-last copy of an NCHW fp32 x: (B, C, H*W) -> (B, H*W, C).
+extern "C" int cfd_dcn_fwd_nhwc(const float* x, float* xh, int B, int C,
+                                int hw, void* stream) {
+  return dcn_fwd::launch_nhwc<float>(x, xh, B, C, hw, stream);
 }

@@ -3,8 +3,8 @@
 Each source has a plain ``extern "C"`` entry point and includes no PyTorch
 header, so one ``nvcc`` call builds it in seconds. The shared library goes to
 ``_build/`` beside the package (git-ignored), named after a hash of the
-source and the flags, so a changed source builds anew and an unchanged one is
-loaded as it is. nvcc writes to a temporary name that is then moved into
+source, the headers beside it (``csrc/*.cuh``) and the flags, so a changed
+source or header builds anew and an unchanged one is loaded as it is. nvcc writes to a temporary name that is then moved into
 place, so a process never loads a half-written library.
 
 Nothing here runs at import time: the first launch of a kernel builds it.
@@ -82,8 +82,11 @@ def load_kernel_libraries(sources) -> Dict[str, KernelLibrary]:
 
 
 def _build_and_load(src: Path) -> KernelLibrary:
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     so_path = BUILD_DIR / f"{src.stem}_{digest}.so"
     log_path = so_path.with_suffix(".log")
     seconds = 0.0

@@ -5,7 +5,11 @@ a float32 or float64 CPU tensor it runs the plain PyTorch version,
 ``deform_conv2d_plain``, and autograd differentiates that; on a CUDA tensor it runs ``DeformConv2dFunction``,
 whose forward launches the hand-written kernel ``csrc/dcn_fwd.cu`` (which
 replaces the Pallas forward kernels of
-``centerfusiondetect3d_tpu/ops/pallas_dcn.py``) and whose backward launches
+``centerfusiondetect3d_tpu/ops/pallas_dcn.py``; its decomposition, shared
+with the bf16 forward, is ``csrc/dcn_fwd_common.cuh``: a channels-last x,
+pixel tiles of B*H*W, a fixed-order split of the 9*C rows where the tiles
+are few, modelled in plain PyTorch by :func:`deform_conv2d_tiled_plain`)
+and whose backward launches
 the kernels of ``csrc/dcn_bwd.cu`` (which replace the backward of
 ``deform_conv2d_fast``, ``pallas_dcn.py:409``) around two plain matrix
 products. On the card a kernel launches or the call raises: nothing falls
@@ -37,7 +41,7 @@ gets a zero gradient; it reproduces the TPU kernels (8 for
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -129,6 +133,106 @@ def deform_conv2d_bf16_plain(x, offset, mask, weight, bias=None,
     if bias is not None:
         out = out + bias.float()[:, None]
     return out.reshape(b, o, h, w).to(torch.bfloat16)
+
+
+# The forward kernels' decomposition (csrc/dcn_fwd_common.cuh): a split of
+# the groups of input channels where the pixel and output tiles give fewer
+# blocks than this (two per SM of an H100's 132)
+_FWD_TARGET_BLOCKS = 264
+# True runs the forward kernels' in-block overlap variant
+# (dcn_fwd_common.cuh: Overlapped) where it fits (not the bf16 256-channel
+# tile), for tools/compare_kernels.py --overlap; the bitwise same output
+FWD_OVERLAP = False
+_FWD_VECTOR = {torch.bfloat16: 8, torch.float32: 4}  # channels per 16 bytes
+
+
+class FwdPlan(NamedTuple):
+    """How ``dcn_fwd`` / ``dcn_fwd_bf16`` cut one call: pixel tiles of
+    ``tile_p`` pixels of the flattened B*H*W, output tiles of ``tile_o``
+    channels, groups of ``group`` input channels (9 * group contraction
+    rows, gathered together), ``groups`` of them, walked in ``splits``
+    ranges of ``groups_per_split`` whose float32 partials are summed in
+    split order."""
+    tile_p: int
+    tile_o: int
+    group: int
+    groups: int
+    groups_per_split: int
+    splits: int
+
+
+def dcn_fwd_plan(dtype, b: int, c: int, h: int, w: int, o: int) -> FwdPlan:
+    """The plan of the forward kernel of ``dtype`` (bf16; anything else is
+    the float32 kernel's) for a (B, C, H, W) x and O outputs: the tiles of
+    the kernels' engines (bf16: 64 pixels and groups of 32 channels, 128
+    pixels where tile_o is 64, groups of 64 where it is 256; float32: 8192
+    / tile_o pixels, groups of 16 channels, 32 where tile_o is 256) and,
+    where pixel tiles times output tiles are fewer than
+    ``_FWD_TARGET_BLOCKS``, as many splits of the groups as reach it, none
+    empty."""
+    bf16 = dtype == torch.bfloat16
+    tile_o = 64 if o <= 64 else 128 if o <= 128 else 256
+    if bf16:
+        tile_p = 128 if tile_o == 64 else 64
+        group = 64 if tile_o == 256 else 32
+    else:
+        tile_p, group = 8192 // tile_o, 32 if tile_o == 256 else 16
+    groups = -(-c // group)
+    blocks = -(-(b * h * w) // tile_p) * -(-o // tile_o)
+    target = _FWD_TARGET_BLOCKS
+    splits = 1 if blocks >= target else min(groups, -(-target // blocks))
+    per = -(-groups // splits)
+    return FwdPlan(tile_p, tile_o, group, groups, per, -(-groups // per))
+
+
+def deform_conv2d_tiled_plain(x, offset, mask, weight, bias=None,
+                              max_offset: Optional[float] = None):
+    """Plain model of the forward kernels' decomposition
+    (``csrc/dcn_fwd_common.cuh``, :func:`dcn_fwd_plan`): the same function
+    as :func:`deform_conv2d_plain` (float32, float64) and
+    :func:`deform_conv2d_bf16_plain` (bf16), computed as the kernels cut it.
+
+    x goes channels-last, (B*H*W, C); each pixel tile of the flattened B*H*W
+    (tiles straddle images) gathers its taps from 4 corner rows per (pixel,
+    tap), weighted by ``mask * wy * wx`` (zero outside the image) and summed
+    corner by corner in float32 (float64 for float64 x); bf16 taps are
+    rounded once; the 9*C rows (``c*9 + k``, the weight's order) contract in
+    the plan's splits, whose partials are summed in split order; then the
+    bias and one rounding to x's dtype. Returns (B, O, H, W).
+    """
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    n = b * h * w
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    plan = dcn_fwd_plan(x.dtype, b, c, h, w, o)
+    xh = x.permute(0, 2, 3, 1).reshape(n, c).to(acc)
+    q, wgt, _ = _plain_corners(offset.to(acc), mask.to(acc), h, w,
+                               max_offset)
+    images = torch.arange(b, device=x.device)[:, None, None, None] * (h * w)
+    rows = (q + images).permute(0, 2, 1, 3).reshape(n, 9, 4)
+    wgt = wgt.permute(0, 2, 1, 3).reshape(n, 9, 4)
+    wmat = weight.to(acc).reshape(o, 9 * c)
+    span = plan.groups_per_split * plan.group
+    out = torch.empty((n, o), dtype=acc, device=x.device)
+    for p0 in range(0, n, plan.tile_p):
+        tile = slice(p0, min(p0 + plan.tile_p, n))
+        taps = None
+        for corner in range(4):
+            term = wgt[tile, :, corner, None] * xh[rows[tile, :, corner]]
+            taps = term if taps is None else taps + term
+        taps = taps.transpose(1, 2)  # (pixels, C, 9): row c*9 + k
+        if x.dtype == torch.bfloat16:
+            taps = taps.to(torch.bfloat16).to(acc)
+        total = None
+        for s in range(plan.splits):
+            lo, hi = s * span, min(c, (s + 1) * span)
+            part = (taps[:, lo:hi].reshape(taps.shape[0], -1)
+                    @ wmat[:, 9 * lo:9 * hi].t())
+            total = part if total is None else total + part
+        out[tile] = total
+    if bias is not None:
+        out = out + bias.to(acc)
+    return out.view(b, h, w, o).permute(0, 3, 1, 2).contiguous().to(x.dtype)
 
 
 def dcn_im2col_plain(x, offset, mask, max_offset: Optional[float] = None):
@@ -363,7 +467,8 @@ class DeformConv2dFunction(torch.autograd.Function):
     def forward(ctx, x, offset, mask, weight, bias, max_offset):
         forward = dcn_fwd_bf16 if x.dtype == torch.bfloat16 else _launch
         out = forward(x, offset, mask, weight, bias, max_offset)
-        ctx.save_for_backward(x, offset, mask, weight)
+        # the backward kernels read an NCHW x
+        ctx.save_for_backward(x.contiguous(), offset, mask, weight)
         ctx.has_bias = bias is not None
         ctx.max_offset = max_offset
         return out
@@ -680,12 +785,14 @@ def dcn_fwd_bf16(x, offset, mask, weight, bias=None,
     cores, as :func:`deform_conv2d_bf16_plain` (which runs instead on CPU
     tensors).
 
-    x (B, C, H, W) bf16; offset (B, 18, H, W) and mask (B, 9, H, W)
-    float32; weight (O, C, 3, 3) bf16; bias (O,) bf16 or None; all
-    contiguous on one device. Returns (B, O, H, W) bf16. It records no
-    gradient: under grad mode it takes no tensor that requires grad
-    (:func:`deform_conv2d` routes those through ``DeformConv2dFunction``).
-    ``dcn_fwd_bf16.launches`` counts launches.
+    x (B, C, H, W) bf16, contiguous or ``torch.channels_last`` (read as it
+    is; an NCHW x gets its channels-last copy, :func:`dcn_fwd_nhwc`);
+    offset (B, 18, H, W) and mask (B, 9, H, W) float32; weight (O, C, 3, 3)
+    bf16; bias (O,) bf16 or None; the rest contiguous, all on one device.
+    Returns (B, O, H, W) bf16. It records no gradient: under grad mode it
+    takes no tensor that requires grad (:func:`deform_conv2d` routes those
+    through ``DeformConv2dFunction``). ``dcn_fwd_bf16.launches`` counts
+    calls: the copy, the kernel and the reduction of a split are one.
     """
     o = _check_forward(x, offset, mask, weight, bias, max_offset,
                        torch.bfloat16)
@@ -697,14 +804,8 @@ def dcn_fwd_bf16(x, offset, mask, weight, bias=None,
     if x.device.type == "cpu":
         return deform_conv2d_bf16_plain(x, offset, mask, weight, bias,
                                         max_offset)
-    _require_cuda(x)
-    b, c, h, w = x.shape
-    wt = weight.permute(1, 2, 3, 0).contiguous()  # (C, 3, 3, O)
-    out = torch.empty((b, o, h, w), device=x.device, dtype=torch.bfloat16)
-    _run(x, "cfd_dcn_fwd_bf16", x.data_ptr(), offset.data_ptr(),
-         mask.data_ptr(), wt.data_ptr(),
-         bias.data_ptr() if bias is not None else None, out.data_ptr(),
-         b, c, h, w, o, _clamp(max_offset))
+    out = _forward("cfd_dcn_fwd_bf16", x, offset, mask, weight, bias, o,
+                   max_offset)
     dcn_fwd_bf16.launches += 1
     return out
 
@@ -714,9 +815,11 @@ dcn_fwd_bf16.launches = 0
 
 def _check_forward(x, offset, mask, weight, bias, max_offset,
                    dtype) -> int:
-    """Checks a forward's arguments: x, weight and bias of ``dtype``,
-    float32 offset and mask, shapes, contiguity and one device; returns O."""
-    _, c, _, _ = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype)
+    """Checks a forward's arguments: x (contiguous or channels-last), weight
+    and bias of ``dtype``, float32 offset and mask, shapes, contiguity and
+    one device; returns O."""
+    _, c, _, _ = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype,
+                                 channels_last=True)
     o = _check(weight, "weight", 4, dtype)[0]
     if tuple(weight.shape) != (o, c, 3, 3):
         raise ValueError(f"weight must be ({o}, {c}, 3, 3), got "
@@ -743,33 +846,80 @@ def _launch(x, offset, mask, weight, bias, max_offset):
         raise RuntimeError("deform_conv2d: _launch records no gradient; "
                            "call deform_conv2d")
 
-    b, c, h, w = x.shape
-    # (O, C, 3, 3) -> (C, 3, 3, O): each chunk's weight rows are contiguous
-    wt = weight.permute(1, 2, 3, 0).contiguous()
-    out = torch.empty((b, o, h, w), device=x.device, dtype=x.dtype)
-    _run(x, "cfd_dcn_fwd", x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-         wt.data_ptr(), bias.data_ptr() if bias is not None else None,
-         out.data_ptr(), b, c, h, w, o, _clamp(max_offset))
+    out = _forward("cfd_dcn_fwd", x, offset, mask, weight, bias, o,
+                   max_offset)
     deform_conv2d.launches += 1
     return out
 
 
-def _check(t, name: str, ndim: int, dtype=torch.float32):
+def dcn_fwd_nhwc(x):
+    """x (B, C, H, W) as the forward kernels read it: channels-last
+    (``torch.channels_last`` strides). x itself where it is already
+    channels-last; else the copy by the ``dcn_fwd_nhwc`` /
+    ``dcn_fwd_bf16_nhwc`` kernel of x's dtype (a plain copy on the CPU)."""
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return x
+    if x.device.type == "cpu":
+        return x.contiguous(memory_format=torch.channels_last)
+    _require_cuda(x)
+    b, c, h, w = x.shape
+    xh = torch.empty_like(x, memory_format=torch.channels_last)
+    name = ("cfd_dcn_fwd_bf16_nhwc" if x.dtype == torch.bfloat16
+            else "cfd_dcn_fwd_nhwc")
+    _run(x, name, x.data_ptr(), xh.data_ptr(), b, c, h * w)
+    return xh
+
+
+def _forward(name, x, offset, mask, weight, bias, o, max_offset):
+    """Launches forward kernel ``name`` (``cfd_dcn_fwd`` or
+    ``cfd_dcn_fwd_bf16``) on checked arguments: one entry point that makes
+    x's channels-last copy where x is NCHW (the ``dcn_fwd_nhwc`` kernels),
+    runs the kernel and sums the float32 partials of :func:`dcn_fwd_plan`'s
+    split."""
+    _require_cuda(x)
+    b, c, h, w = x.shape
+    plan = dcn_fwd_plan(x.dtype, b, c, h, w, o)
+    xh = (None if x.is_contiguous(memory_format=torch.channels_last)
+          else torch.empty_like(x, memory_format=torch.channels_last))
+    out = torch.empty((b, o, h, w), device=x.device, dtype=x.dtype)
+    partial = (torch.empty((plan.splits, o, b * h * w), device=x.device,
+                           dtype=torch.float32)
+               if plan.splits > 1 else None)
+    vec = int(c % _FWD_VECTOR[x.dtype] == 0
+              and (x if xh is None else xh).data_ptr() % 16 == 0
+              and weight.data_ptr() % 16 == 0)
+    overlap = int(FWD_OVERLAP and (x.dtype != torch.bfloat16
+                                   or plan.tile_o <= 128))
+    _run(x, name, x.data_ptr(), xh.data_ptr() if xh is not None else None,
+         offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+         bias.data_ptr() if bias is not None else None, out.data_ptr(),
+         partial.data_ptr() if partial is not None else None,
+         b, c, h, w, o, plan.tile_p, plan.tile_o, plan.group, plan.splits,
+         vec, overlap, _clamp(max_offset))
+    return out
+
+
+def _check(t, name: str, ndim: int, dtype=torch.float32,
+           channels_last: bool = False):
     if t.dtype != dtype:
         raise TypeError(f"deform_conv2d: {name} must be "
                         f"{str(dtype)[6:]}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"deform_conv2d: {name} must be {ndim}-D, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"deform_conv2d: {name} must be contiguous")
+    if not (t.is_contiguous() or channels_last and t.is_contiguous(
+            memory_format=torch.channels_last)):
+        raise ValueError(f"deform_conv2d: {name} must be contiguous"
+                         + (" or channels-last" if channels_last else ""))
     return t.shape
 
 
-def _check_sampling(x, offset, mask, max_offset, x_dtype=torch.float32):
-    """Checks x (of ``x_dtype``) against offset and mask
-    (:func:`_check_offset_mask`); returns (B, C, H, W)."""
-    b, c, h, w = _check(x, "x", 4, x_dtype)
+def _check_sampling(x, offset, mask, max_offset, x_dtype=torch.float32,
+                    channels_last: bool = False):
+    """Checks x (of ``x_dtype``; channels-last too where ``channels_last``)
+    against offset and mask (:func:`_check_offset_mask`); returns
+    (B, C, H, W)."""
+    b, c, h, w = _check(x, "x", 4, x_dtype, channels_last)
     if _check_offset_mask(offset, mask, max_offset) != (b, h, w):
         raise ValueError(f"offset must be ({b}, 18, {h}, {w}), got "
                          f"{tuple(offset.shape)}")
@@ -815,8 +965,10 @@ def _clamp(max_offset) -> float:
 # int64 column strides (stride_b, stride_row), then the float clamp (where
 # the entry point takes one) and the stream
 _SIGNATURES = {
-    "cfd_dcn_fwd": (KERNEL_SOURCE, 6, 5, 0, 1),
-    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 6, 5, 0, 1),
+    "cfd_dcn_fwd": (KERNEL_SOURCE, 8, 11, 0, 1),
+    "cfd_dcn_fwd_nhwc": (KERNEL_SOURCE, 2, 3, 0, 0),
+    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 8, 11, 0, 1),
+    "cfd_dcn_fwd_bf16_nhwc": (BF16_SOURCE, 2, 3, 0, 0),
     "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4, 2, 1),
     "cfd_dcn_col2im_count": (BACKWARD_SOURCE, 5, 3, 0, 1),
     "cfd_dcn_col2im_fill": (BACKWARD_SOURCE, 7, 4, 0, 1),
@@ -828,18 +980,31 @@ _SIGNATURES = {
 }
 
 
-def _run(like, name: str, *args) -> None:
-    """Builds (once) and calls the C entry point ``name`` on the current
-    stream of ``like``'s device; raises on a launch error."""
-    source, n_ptr, n_int, n_stride, n_float = _SIGNATURES[name]
-    fn = getattr(load_kernel_library(source).lib, name)
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+_ENTRIES = {}  # name -> the loaded ctypes function, argument types set
+
+
+def _entry(name: str):
+    """The C entry point ``name``, built (once) and loaded."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        source, n_ptr, n_int, n_stride, n_float = _SIGNATURES[name]
+        fn = getattr(load_kernel_library(source).lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_int64] * n_stride
                        + [ctypes.c_float] * n_float + [ctypes.c_void_p])
-    with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream(like.device).cuda_stream
-        err = fn(*args, stream)
+        _ENTRIES[name] = fn
+    return fn
+
+
+def _run(like, name: str, *args) -> None:
+    """Calls the C entry point ``name`` on the current stream of ``like``'s
+    device; raises on a launch error."""
+    fn = _entry(name)
+    if like.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(like.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -2,6 +2,11 @@
 
     python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
         --other _compare/parent --kernel dcn_col2im --kernel dcn_col2im_bf16
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel dcn_fwd --kernel dcn_fwd_bf16 \\
+        --batch 6                # serving's batch of 6 cameras
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --overlap --kernel dcn_fwd --kernel dcn_fwd_bf16 --batch 6
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
@@ -12,12 +17,22 @@ its kernels build from its own sources into its own ``_build/``. Each
 distinct DCN node shape of the training main path (``runtime/synthetic.py``:
 ``MAIN_PATH_OPTS`` and ``TRAIN_OPTS``, 448x800, microbatches of 13, the
 shapes recorded by hooks in one frozen ``train_step``) on the same seeded
-inputs in both trees. The two outputs are held against each other within
-1e-4 (float32) or 8e-3 (bf16) relative to the largest magnitude. Then each
-kernel is timed with CUDA events in turns (other, this, this, other, ...),
-medians of 11 after one warm-up call of each. Prints the card, one
-line per kernel and shape, the sums per unfrozen training step (over the
-nodes and microbatches), and a JSON line with every number. Card only.
+inputs in both trees; ``--batch N`` replaces the microbatch with N (6:
+serving's node shapes, one image per camera). The two outputs are held
+against each other within 1e-4 (float32) or 8e-3 (bf16) relative to the
+largest magnitude. With ``--overlap`` in place of ``--other`` the other
+side is this tree's forward kernels in their in-block overlap variant
+(``ops/dcn.py:FWD_OVERLAP``; the bf16 kernel's 256-channel tile has none
+and runs as it is), whose output must equal the kernels' bitwise. Then
+each kernel is timed with CUDA events in turns
+(other, this, this, other, ...), medians of 11 after one warm-up call of
+each, one call per event pair (host work included); the forward kernels
+also by their device time alone (one event pair around 200 calls queued
+behind a sleep of the stream), in turns (other, this, this, other; the
+means). Prints the card, one line per
+kernel and shape, the sums per model forward (over the 16 nodes) and, at
+the training microbatch, per unfrozen training step (over the nodes and
+microbatches), and a JSON line with every number. Card only.
 """
 
 from __future__ import annotations
@@ -41,12 +56,14 @@ from ..ops import dcn
 from ..runtime.synthetic import (MAIN_PATH_OPTS, TRAIN_OPTS,
                                  SyntheticTrainingSet, seeded_weights)
 from ..training import learning_rate, make_optimizer, train_step
+from ..utils.observability import time_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.realpath(__file__))))
 PACKAGE = "centerfusiondetect3d_tpu_torch"
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 REPS = 11  # timed calls of each tree per kernel and shape
+FORWARD = ("dcn_fwd", "dcn_fwd_bf16")
 SEED = 0
 
 
@@ -64,6 +81,18 @@ def kernel_call(name: str, module, inputs):
     if "coord" in name:
         return lambda: fn(dcols, x, off, mask)
     return lambda: fn(dcols, off, mask)
+
+
+def overlap_call(fn):
+    """fn, run with ``dcn.FWD_OVERLAP`` set: the forward kernels' in-block
+    overlap variant."""
+    def call():
+        dcn.FWD_OVERLAP = True
+        try:
+            return fn()
+        finally:
+            dcn.FWD_OVERLAP = False
+    return call
 
 
 def dtype_of(name: str):
@@ -110,6 +139,14 @@ def training_node_shapes(device):
         for h in hooks:
             h.remove()
     return shapes[:len(shapes) // accum], accum
+
+
+def at_batch(shapes, batch=None):
+    """The (B, C, H, W, O) node shapes with B replaced by ``batch`` (as
+    they are where ``batch`` is None)."""
+    if batch is None:
+        return list(shapes)
+    return [(batch,) + tuple(s[1:]) for s in shapes]
 
 
 def node_inputs(shape, dtype, device, seed: int):
@@ -161,17 +198,31 @@ def time_turns(fn_other, fn_this, reps: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True, metavar="DIR",
-                    help="another checkout, inside this one")
+    other_side = ap.add_mutually_exclusive_group(required=True)
+    other_side.add_argument("--other", metavar="DIR",
+                            help="another checkout, inside this one")
+    other_side.add_argument("--overlap", action="store_true",
+                            help="the forward kernels against their "
+                                 "in-block overlap variant")
     ap.add_argument("--kernel", action="append", required=True,
                     choices=KERNELS)
+    ap.add_argument("--batch", type=int, default=None, metavar="N",
+                    help="images per node call (default: the training "
+                         "microbatch, 13)")
     args = ap.parse_args(argv)
-    other_root = os.path.realpath(args.other)
-    if (other_root == ROOT
-            or os.path.commonpath([ROOT, other_root]) != ROOT
-            or not os.path.isdir(os.path.join(other_root, PACKAGE))):
-        raise SystemExit(f"compare_kernels: --other must be a directory "
-                         f"inside {ROOT} that holds {PACKAGE}/")
+    if args.batch is not None and args.batch < 1:
+        raise SystemExit("compare_kernels: --batch must be >= 1")
+    if args.overlap:
+        if not set(args.kernel) <= set(FORWARD):
+            raise SystemExit("compare_kernels: --overlap takes only the "
+                             "forward kernels " + ", ".join(FORWARD))
+    else:
+        other_root = os.path.realpath(args.other)
+        if (other_root == ROOT
+                or os.path.commonpath([ROOT, other_root]) != ROOT
+                or not os.path.isdir(os.path.join(other_root, PACKAGE))):
+            raise SystemExit(f"compare_kernels: --other must be a directory "
+                             f"inside {ROOT} that holds {PACKAGE}/")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: no CUDA device available")
     device = torch.device("cuda")
@@ -182,38 +233,69 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=False).stdout.strip().splitlines()
     print(card[0] if card else "nvidia-smi: no reading")
-    other = load_other(other_root)
+    other = None if args.overlap else load_other(other_root)
     shapes, accum = training_node_shapes(device)
+    micro = shapes[0][0]
+    shapes = at_batch(shapes, args.batch)
+    batch = shapes[0][0]
     torch.cuda.empty_cache()
-    report = {"card": card[0] if card else None, "other": args.other,
-              "microbatches": accum, "kernels": {}}
+    report = {"card": card[0] if card else None,
+              "other": "overlap" if args.overlap else args.other,
+              "batch": batch, "microbatches": accum, "kernels": {}}
     for name in args.kernel:
         dtype, rows = dtype_of(name), []
         for i, shape in enumerate(sorted(set(shapes), key=shapes.index)):
             inputs = node_inputs(shape, dtype, device, SEED + i)
             fn_this = kernel_call(name, dcn, inputs)
-            fn_other = kernel_call(name, other, inputs)
+            fn_other = (overlap_call(fn_this) if args.overlap
+                        else kernel_call(name, other, inputs))
             with torch.no_grad():
-                rel = rel_err(fn_this(), fn_other())
+                got, want = fn_this(), fn_other()
+                rel = rel_err(got, want)
+                if args.overlap and not torch.equal(got, want):
+                    raise SystemExit(
+                        f"compare_kernels: {name} and its overlap variant "
+                        f"differ at {shape}: relative {rel:.3e}")
                 if not rel <= RTOL[dtype]:
                     raise SystemExit(
                         f"compare_kernels: {name} of the two trees disagree "
                         f"at {shape}: relative {rel:.3e} > {RTOL[dtype]}")
                 ms_other, ms_this = time_turns(fn_other, fn_this, REPS)
-            row = {"shape": list(shape), "nodes": shapes.count(shape),
-                   "ms": ms_this, "other_ms": ms_other, "max_rel_err": rel}
+                row = {"shape": list(shape), "nodes": shapes.count(shape),
+                       "ms": ms_this, "other_ms": ms_other,
+                       "max_rel_err": rel}
+                line = (f"{name} {tuple(shape)} x{row['nodes']}: this "
+                        f"{ms_this:.4f} ms, other {ms_other:.4f} ms")
+                if args.overlap:
+                    row["overlap_variant"] = (dtype != torch.bfloat16
+                                              or shape[4] <= 128)
+                    if not row["overlap_variant"]:
+                        line += " (no overlap variant: the same kernel)"
+                if name in FORWARD:
+                    dev = ([], [])
+                    for which in (0, 1, 1, 0):
+                        dev[which].append(time_device(
+                            (fn_other, fn_this)[which]))
+                    row["other_device_ms"] = statistics.mean(dev[0])
+                    row["device_ms"] = statistics.mean(dev[1])
+                    line += (f"; device alone this {row['device_ms']:.4f} "
+                             f"ms, other {row['other_device_ms']:.4f} ms")
             rows.append(row)
-            print(f"{name} {tuple(shape)} x{row['nodes']}: this {ms_this:.4f}"
-                  f" ms, other {ms_other:.4f} ms (rel err {rel:.2e})")
-            del inputs, fn_this, fn_other
-        per_step = {k: accum * sum(r[k] * r["nodes"] for r in rows)
-                    for k in ("ms", "other_ms")}
-        print(f"{name} per unfrozen step ({accum} microbatches): this "
-              f"{per_step['ms']:.3f} ms, other {per_step['other_ms']:.3f} ms")
-        report["kernels"][name] = {"per_node_shape": rows,
-                                   "ms_per_unfrozen_step": per_step["ms"],
-                                   "other_ms_per_unfrozen_step":
-                                       per_step["other_ms"]}
+            print(f"{line} (rel err {rel:.2e})")
+            del inputs, fn_this, fn_other, got, want
+        keys = ["ms", "other_ms"] + (["device_ms", "other_device_ms"]
+                                     if name in FORWARD else [])
+        per_forward = {k: sum(r[k] * r["nodes"] for r in rows) for k in keys}
+        entry = {"per_node_shape": rows, "per_forward": per_forward}
+        print(f"{name} per forward ({len(shapes)} nodes at B={batch}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in per_forward.items()))
+        if batch == micro:
+            entry["per_unfrozen_step"] = {
+                k: accum * v for k, v in per_forward.items()}
+            print(f"{name} per unfrozen step ({accum} microbatches): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              entry["per_unfrozen_step"].items()))
+        report["kernels"][name] = entry
     print(json.dumps(report))
     return 0
 

@@ -42,7 +42,8 @@ from ..utils.observability import device_time_report, trace_profile
 CONV_KEYS = ("convolve", "conv2d", "cudnn", "gemm", "xmma", "cutlass",
              "winograd", "implicit", "fprop", "nchwtonhwc", "nhwctonchw")
 GROUPS = (
-    ("dcn_fwd, dcn_fwd_bf16 (hand-written DCNv2)", ("dcn_fwd",)),
+    ("dcn_fwd, dcn_fwd_bf16 (hand-written DCNv2: NHWC copy, kernel, "
+     "split reduction)", ("dcn_fwd",)),
     ("convolution / GEMM (cuDNN, cuBLAS, their layout copies)", CONV_KEYS),
     ("sort / top-k", ("sort", "radix", "topk")),
 )

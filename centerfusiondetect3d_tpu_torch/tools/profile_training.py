@@ -48,7 +48,8 @@ from ..utils.observability import device_time_report, trace_profile
 from .profile_serving import CONV_KEYS
 
 GROUPS = (
-    ("DCN forward (dcn_fwd, dcn_fwd_bf16)", ("dcn_fwd",)),
+    ("DCN forward (dcn_fwd, dcn_fwd_bf16: NHWC copy, kernel, split "
+     "reduction)", ("dcn_fwd",)),
     ("DCN backward (dcn_im2col; dcn_col2im: its map's count, prefix sum, "
      "fill and sort, transpose and gather; dcn_col2im_coord; float32 and "
      "bf16)", ("dcn_im2col", "dcn_col2im")),

@@ -9,7 +9,9 @@ CUDA device ``stop`` first waits for the device with
 ``torch.cuda.synchronize`` and a stage's time covers its device work.
 ``trace_profile`` wraps ``torch.profiler`` (imported when it is entered) and
 ``device_time_report`` reads the card's kernels out of a profile, for
-``tools/profile_serving.py`` and ``tools/profile_training.py``.
+``tools/profile_serving.py`` and ``tools/profile_training.py``;
+``time_device`` times a call by its device time alone, for ``chip_smoke.py``
+and ``tools/compare_kernels.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,32 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+
+DEVICE_LAUNCHES = 200  # calls per event pair of a device time alone
+
+
+def time_device(fn, n: int = DEVICE_LAUNCHES) -> float:
+    """ms of device time per call of fn on the current CUDA stream: one
+    event pair around n calls, enqueued behind a sleep of the stream long
+    enough to cover the host's enqueue of all n, so that the calls run back
+    to back and the pair brackets device time, not host time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # >= 2 x at <= 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 class AverageMeter:

@@ -8,7 +8,8 @@ On the card it:
 
 1. prints the torch and CUDA versions and the card's name and power limit,
    builds the DCNv2 kernels from ``csrc/`` (``dcn_fwd.cu``, ``dcn_bwd.cu``,
-   ``dcn_fwd_bf16.cu``) with one nvcc each, all in parallel, and prints the
+   ``dcn_fwd_bf16.cu``; the forward ones share ``dcn_fwd_common.cuh``) with
+   one nvcc each, all in parallel, and prints the
    build time and ptxas' register, shared memory and spill lines (with
    ``dcn_probes.cu``, the probe kernels of phase 15);
 2. builds ``Detector`` at the full width of ``configs/Centerfusion_Middle.yaml``
@@ -18,10 +19,13 @@ On the card it:
    synthetic 800x450 uint8 frames with radar;
 3. holds the float32 kernel against its plain PyTorch version at every
    distinct DCN node shape that run met, at max_offset None, 8 and 1, and
-   times both;
+   times both: per call (host work included) and, for the kernel, by its
+   device time alone, with the device time of its NHWC copy of x apart;
+   at the largest shape also on offsets that collapse every tap onto one
+   pixel (``collapsed_offsets``);
 4. does the same for the bf16 kernel ``dcn_fwd_bf16`` against its plain
    version (``deform_conv2d_bf16_plain``), with its bound on the bf16
-   tensor cores and the float32 kernel's time beside it;
+   tensor cores and the float32 kernel's times beside it;
 5. runs ``Detector.run`` 5 more times with the launch counts set to 0 and
    checks that the kernel ran once per DCN node per run and that the
    detections are finite;
@@ -43,10 +47,13 @@ On the card it:
    max_offset None, 8 and 1, each kernel also against its own plain
    version, and times the backward, its parts and the plain backward; at
    the training microbatch it times the forward, the backward and
-   ``dcn_col2im``, holding it against its plain version on the inputs it
-   is timed on, reports the map's entries per pixel and bytes, and at the
-   largest shape checks and times ``dcn_col2im`` on offsets that collapse
-   every tap onto one pixel (at B=2 and at the microbatch);
+   ``dcn_col2im``, holding ``dcn_col2im`` and the forward kernel against
+   their plain versions on the inputs they are timed on (the forward at
+   max_offset None, 8 and 1, and at the largest shape on collapsed
+   offsets: the microbatch gives the forward other pixel tiles and splits
+   than phases 3 and 4), reports the map's entries per pixel and bytes,
+   and at the largest shape checks and times ``dcn_col2im`` on offsets
+   that collapse every tap onto one pixel (at B=2 and at the microbatch);
 10. trains with ``runtime/fit.py:Trainer`` at the same full width in float32:
    ``TRAIN.BATCH_SIZE 26`` in 2 microbatches of 13 (``GRAD_ACCUM 2``) on 52
    synthetic items, ``FREEZE_BACKBONE`` with ``DEFREEZE 0`` and 2 epochs:
@@ -142,6 +149,8 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
 from centerfusiondetect3d_tpu_torch.tools import probe_dcn
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
 from centerfusiondetect3d_tpu_torch.training.checkpoint import load_torch_file
+from centerfusiondetect3d_tpu_torch.utils.observability import (
+    DEVICE_LAUNCHES, time_device)
 
 SEED = 0
 TIMED_RUNS = 5
@@ -198,8 +207,6 @@ COL2IM = ("dcn_col2im", "dcn_col2im_bf16")
 # column gradients (channels rounded up to 32), written once and read once
 MAP_ENTRY_BYTES = 32
 MAP_PIXEL_BYTES = 16
-# launches per event pair when a kernel's device time is taken alone
-DEVICE_LAUNCHES = 200
 
 
 def log(msg: str) -> None:
@@ -295,87 +302,175 @@ def node_shapes(det: Detector, frames):
     return shapes
 
 
-def check_kernel(shapes, device, timed: bool):
-    """Kernel (the wrapper on the card) vs plain at each distinct shape and
-    max_offset in (None, 8, 1); on the card also their times."""
-    rows = []
-    for i, shape in enumerate(sorted(set(shapes), key=shapes.index)):
-        args = dcn_inputs(shape, device, SEED + i)
-        worst = 0.0
-        worst_rel = 0.0
-        for max_offset in (None, 8.0, 1.0):
-            got = dcn.deform_conv2d(*args, max_offset=max_offset)
-            want = dcn.deform_conv2d_plain(*args, max_offset=max_offset)
-            err = float((got - want).abs().max())
-            rel = err / max(float(want.abs().max()), 1e-30)
-            if not (math.isfinite(err) and rel <= KERNEL_RTOL):
-                raise AssertionError(
-                    f"DCN kernel disagrees with the plain version at {shape}, "
-                    f"max_offset={max_offset}: max abs err {err:.3e}, "
-                    f"relative {rel:.3e} > {KERNEL_RTOL}")
-            worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        flops, nbytes, bound_ms, bound_by, bf16_ms = dcn_bound(shape)
-        row = {"shape": list(shape), "nodes": shapes.count(shape),
-               "max_abs_err": worst, "max_rel_err": worst_rel,
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_bf16_ms": bf16_ms}
-        if timed:
-            row["ms"], row["plain_ms"] = time_pair(
-                lambda: dcn.deform_conv2d(*args),
-                lambda: dcn.deform_conv2d_plain(*args), TIMING_REPS)
-        rows.append(row)
-        log(f"  dcn {shape} x{row['nodes']}: max abs err {worst:.3e} "
-            f"(rel {worst_rel:.2e}, limit {KERNEL_RTOL})"
-            + (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-               f"ms, bound {bound_ms:.4f} ms ({bound_by}, fp32), "
-               f"{bf16_ms:.4f} ms at bf16" if timed else ""))
-    return rows
+def forward_vs_plain(kernel, plain, what: str, limit: float):
+    """(max abs err, relative err) of a forward kernel's call against its
+    plain version's on the same inputs; raises past ``limit`` or on a dtype
+    that differs."""
+    got, want = kernel(), plain()
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{what}: the kernel returned {got.dtype}, the "
+                             f"plain version {want.dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    if not (math.isfinite(err) and rel <= limit):
+        raise AssertionError(f"{what} disagrees with the plain version: max "
+                             f"abs err {err:.3e}, relative {rel:.3e} > "
+                             f"{limit}")
+    return err, rel
 
 
-def check_kernel_bf16(shapes, device, timed: bool, fp32_rows):
-    """The bf16 kernel (``dcn_fwd_bf16``) vs its plain version at each
-    distinct shape and max_offset in (None, 8, 1), on the phase-3 inputs
-    rounded to bf16 (offset and mask stay float32); on the card also both
-    times, beside the float32 kernel's time from ``fp32_rows``."""
+def micro_forward_vs_plain(inputs, collapsed, shape, bf16: bool):
+    """The forward kernel of one dtype against its plain version on
+    ``inputs`` (x, offset, mask, weight, bias at the training microbatch)
+    with max_offset in (None, 8, 1) and, where ``collapsed`` is given, on
+    those offsets (KERNEL_RTOL, BF16_RTOL); returns the worst errors."""
+    x, offset, mask, weight, bias = inputs
+    kernel = dcn.dcn_fwd_bf16 if bf16 else dcn.deform_conv2d
+    plain = dcn.deform_conv2d_bf16_plain if bf16 else dcn.deform_conv2d_plain
+    name = "dcn_fwd_bf16" if bf16 else "dcn_fwd"
+    cases = [(offset, m, "") for m in (None, 8.0, 1.0)]
+    if collapsed is not None:
+        cases.append((collapsed, None, ", collapsed offsets"))
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+             "collapsed": collapsed is not None}
+    for off, max_offset, what in cases:
+        err, rel = forward_vs_plain(
+            lambda: kernel(x, off, mask, weight, bias, max_offset=max_offset),
+            lambda: plain(x, off, mask, weight, bias, max_offset=max_offset),
+            f"{name} at {tuple(shape)}, max_offset={max_offset}{what}",
+            BF16_RTOL if bf16 else KERNEL_RTOL)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_rel_err"] = max(worst["max_rel_err"], rel)
+    return worst
+
+
+def check_forward(shapes, device, timed: bool, bf16: bool, fp32_rows=None):
+    """Phases 3 (float32 ``dcn_fwd`` through ``deform_conv2d``) and 4
+    (``dcn_fwd_bf16``, on the phase-3 inputs rounded to bf16, offset and
+    mask float32): the kernel against its plain version at each distinct
+    node shape and max_offset in (None, 8, 1), and at the largest shape on
+    collapsed offsets. On the card also their times: one call per event
+    pair (host work included), in turns with the plain version; the
+    kernel's device time alone (``time_device``: the NHWC copy of x, the
+    kernel and a split's reduction) and its NHWC copy's apart; in bf16 the
+    float32 kernel's times from ``fp32_rows`` beside them."""
+    name = "dcn_fwd_bf16" if bf16 else "dcn_fwd"
+    limit = BF16_RTOL if bf16 else KERNEL_RTOL
+    plain = dcn.deform_conv2d_bf16_plain if bf16 else dcn.deform_conv2d_plain
+    kernel = dcn.dcn_fwd_bf16 if bf16 else dcn.deform_conv2d
+    distinct = sorted(set(shapes), key=shapes.index)
+    largest = max(distinct, key=lambda s: s[0] * s[2] * s[3] * (s[1] + s[4]))
     rows = []
-    for i, shape in enumerate(sorted(set(shapes), key=shapes.index)):
+    for i, shape in enumerate(distinct):
         x, offset, mask, weight, bias = dcn_inputs(shape, device, SEED + i)
-        args = (x.bfloat16(), offset, mask, weight.bfloat16(),
-                bias.bfloat16())
+        if bf16:
+            x, weight, bias = x.bfloat16(), weight.bfloat16(), bias.bfloat16()
+        cases = [(offset, m) for m in (None, 8.0, 1.0)]
+        if shape == largest:
+            cases.append((collapsed_offsets(shape[0], shape[2], shape[3],
+                                            device), None))
         worst = worst_rel = 0.0
-        for max_offset in (None, 8.0, 1.0):
-            got = dcn.dcn_fwd_bf16(*args, max_offset=max_offset)
-            want = dcn.deform_conv2d_bf16_plain(*args, max_offset=max_offset)
-            if got.dtype != torch.bfloat16:
-                raise AssertionError(f"dcn_fwd_bf16 returned {got.dtype}")
-            err = float((got.float() - want.float()).abs().max())
-            rel = err / max(float(want.float().abs().max()), 1e-30)
-            if not (math.isfinite(err) and rel <= BF16_RTOL):
-                raise AssertionError(
-                    f"bf16 DCN kernel disagrees with its plain version at "
-                    f"{shape}, max_offset={max_offset}: max abs err "
-                    f"{err:.3e}, relative {rel:.3e} > {BF16_RTOL}")
+        for k, (off, max_offset) in enumerate(cases):
+            what = (f"{name} at {shape}, max_offset={max_offset}"
+                    + (", collapsed offsets" if k == 3 else ""))
+            err, rel = forward_vs_plain(
+                lambda: kernel(x, off, mask, weight, bias,
+                               max_offset=max_offset),
+                lambda: plain(x, off, mask, weight, bias,
+                              max_offset=max_offset), what, limit)
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        flops, nbytes, bound_ms, bound_by = dcn_bound_bf16(shape)
+        if bf16:
+            flops, nbytes, bound_ms, bound_by = dcn_bound_bf16(shape)
+        else:
+            flops, nbytes, bound_ms, bound_by, bf16_ms = dcn_bound(shape)
         row = {"shape": list(shape), "nodes": shapes.count(shape),
                "max_abs_err": worst, "max_rel_err": worst_rel,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "bound_ms": bound_ms, "bound_by": bound_by}
+        if not bf16:
+            row["bound_bf16_ms"] = bf16_ms
         if timed:
-            row["ms"], row["plain_ms"] = time_pair(
-                lambda: dcn.dcn_fwd_bf16(*args),
-                lambda: dcn.deform_conv2d_bf16_plain(*args), TIMING_REPS)
-            row["fp32_ms"] = next(r["ms"] for r in fp32_rows
-                                  if r["shape"] == list(shape))
+            for key, off in (("", offset), ("collapsed_", cases[-1][0])):
+                if key and shape != largest:
+                    continue
+                call = lambda: kernel(x, off, mask, weight, bias)
+                row[key + "ms"], row[key + "plain_ms"] = time_pair(
+                    call, lambda: plain(x, off, mask, weight, bias),
+                    TIMING_REPS)
+                row[key + "device_ms"] = time_device(call)
+            row["nhwc_copy_device_ms"] = time_device(
+                lambda: dcn.dcn_fwd_nhwc(x))
+            if bf16:
+                fp32 = next(r for r in fp32_rows if r["shape"] == list(shape))
+                row["fp32_ms"] = fp32["ms"]
+                row["fp32_device_ms"] = fp32["device_ms"]
         rows.append(row)
-        log(f"  dcn bf16 {shape} x{row['nodes']}: max abs err {worst:.3e} "
-            f"(rel {worst_rel:.2e}, limit {BF16_RTOL})"
-            + (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-               f"ms, fp32 kernel {row['fp32_ms']:.4f} ms, bound "
-               f"{bound_ms:.4f} ms ({bound_by}, bf16 tensor cores)"
-               if timed else ""))
+        log(f"  {name} {shape} x{row['nodes']}: max abs err {worst:.3e} "
+            f"(rel {worst_rel:.2e}, limit {limit}"
+            + (", collapsed offsets included" if shape == largest else "")
+            + ")" + (f", kernel {row['ms']:.4f} ms a call, device "
+                     f"{row['device_ms']:.4f} ms (NHWC copy "
+                     f"{row['nhwc_copy_device_ms']:.4f}), plain "
+                     f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}" + (", bf16 tensor cores" if bf16 else
+                                       f", fp32; {bf16_ms:.4f} at bf16")
+                     + ")" if timed else ""))
+        if timed and shape == largest:
+            log(f"    collapsed offsets: kernel {row['collapsed_ms']:.4f} ms "
+                f"a call, device {row['collapsed_device_ms']:.4f} ms, plain "
+                f"{row['collapsed_plain_ms']:.4f} ms")
+        if timed and bf16:
+            log(f"    float32 kernel: {row['fp32_ms']:.4f} ms a call, device "
+                f"{row['fp32_device_ms']:.4f} ms")
     return rows
+
+
+def forward_entry(rows, name: str, bf16: bool, launches: int,
+                  training_launches: int, ptxas, micro_rows, micro: int):
+    """The ``kernels`` line's entry of forward kernel ``name``: times, plain
+    times and bounds per forward of the main path (sums over its DCN node
+    launches of the per-shape ``rows`` of phase 3 or 4), and its errors
+    against the plain version at the training microbatch ``micro`` (the
+    backward ``micro_rows`` of phase 9 or 12)."""
+    per_forward = lambda key: sum(r[key] * r["nodes"] for r in rows)
+    also = ["centerfusiondetect3d_tpu/ops/pallas_dcn.py:240"]
+    if bf16:
+        also += ["scripts/probe_dcn_select.py:48",
+                 "scripts/probe_dcn_select.py:83",
+                 "scripts/probe_dcn_bisect.py:132",
+                 "scripts/probe_mosaic.py:150"]
+    entry = {
+        "name": name, "route": "cuda",
+        "source": f"centerfusiondetect3d_tpu_torch/csrc/{name}.cu",
+        "front_end": "centerfusiondetect3d_tpu_torch/csrc/dcn_fwd_common.cuh",
+        "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:117",
+        "also_replaces": also,
+        "launches": launches,
+        "training_launches": training_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in rows]
+                           + [r["micro_forward"]["max_abs_err"]
+                              for r in micro_rows]),
+        "micro_batch": micro,
+        "micro_per_node_shape": [{"shape": [micro] + r["shape"][1:],
+                                  **r["micro_forward"]} for r in micro_rows],
+        # per forward of the main path: the sums over its DCN node launches;
+        # ms one call per event pair (host work included), device_ms the
+        # device time alone (NHWC copy, kernel, a split's reduction)
+        "ms": per_forward("ms"),
+        "device_ms": per_forward("device_ms"),
+        "nhwc_copy_device_ms": per_forward("nhwc_copy_device_ms"),
+        "plain_ms": per_forward("plain_ms"),
+        "bound_ms": per_forward("bound_ms"),
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in rows) else "bytes",
+        "library_ms": None,
+        "ptxas": ptxas,
+        "per_node_shape": rows,
+    }
+    if bf16:
+        entry["fp32_ms"] = per_forward("fp32_ms")
+        entry["fp32_device_ms"] = per_forward("fp32_device_ms")
+    return entry
 
 
 def check_results(ret, n_images: int) -> int:
@@ -604,29 +699,6 @@ def collapsed_offsets(b, h, w, device):
     return off
 
 
-def time_device(fn, n: int = DEVICE_LAUNCHES) -> float:
-    """ms of device time per call of fn: one event pair around n calls,
-    enqueued behind a sleep of the stream long enough to cover the host's
-    enqueue of all n, so that the calls run back to back and the pair
-    brackets device time, not host time."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # >= 2 x at <= 2 GHz
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-30)
@@ -662,8 +734,10 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
     one pixel. On the card also the CUDA-event medians of the backward, its
     parts and the plain versions, and at the training microbatch ``micro``
     of the forward, the backward and col2im (the collapsed case too), with
-    col2im's bound and map there; col2im is held against its plain version
-    on the inputs it is timed on."""
+    col2im's bound and map there; col2im and the forward kernel are held
+    against their plain versions on the inputs they are timed on (the
+    forward with max_offset in (None, 8, 1) and at the largest shape on
+    collapsed offsets: ``micro_forward_vs_plain``)."""
     if bf16:
         kernels = dcn.BACKWARD_KERNELS_BF16
         plains = (dcn.dcn_im2col_bf16_plain, dcn.dcn_col2im_bf16_plain,
@@ -773,6 +847,13 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
             mx, moff, mmask, mwt, mbias = dcn_inputs(mshape, device, SEED)
             mg = torch.randn((micro, o, h, w), generator=gen, device=device)
             mx, mwt, mbias, mg = cast(mx, mwt, mbias, mg)
+            # the forward kernel at the microbatch against its plain
+            # version: B sets its pixel tiles and splits (dcn_fwd_plan), so
+            # training's calls take other layouts than phases 3 and 4 check
+            mcoff = (collapsed_offsets(micro, h, w, device)
+                     if full == largest else None)
+            row["micro_forward"] = micro_forward_vs_plain(
+                (mx, moff, mmask, mwt, mbias), mcoff, mshape, bf16)
             row["micro_ms"] = {
                 "forward": time_one(lambda: dcn.deform_conv2d(
                     mx, moff, mmask, mwt, mbias), 5),
@@ -788,7 +869,6 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
             row["micro_map"] = map_stats(moff, mmask)
             row["micro_transpose_mbytes"] = transpose_mbytes(mshape, bf16)
             if full == largest:
-                mcoff = collapsed_offsets(micro, h, w, device)
                 row["collapsed"]["micro_max_rel_err"] = col2im_vs_plain(
                     calls(mx, mcoff, mmask, mdcols)[n_col2im], mshape,
                     "collapsed", bf16)
@@ -809,7 +889,9 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                f"{row['micro_ms']['forward']:.3f} ms, backward "
                f"{row['micro_ms']['backward']:.3f} ms, {n_col2im} "
                f"{row['micro_ms'][n_col2im]:.4f} ms (rel err "
-               f"{row['micro_max_rel_err']:.2e})"
+               f"{row['micro_max_rel_err']:.2e}), forward kernel vs plain "
+               f"rel err {row['micro_forward']['max_rel_err']:.2e} (limit "
+               f"{BF16_RTOL if bf16 else KERNEL_RTOL})"
                + f", bound {row['micro_bound_ms']:.4f} ms, map "
                f"{row['micro_map']['map_mbytes']:.1f} MB, transposed columns "
                f"{row['micro_transpose_mbytes']:.1f} MB"))
@@ -1462,12 +1544,13 @@ def main(argv=None) -> int:
 
     # 3. float32 kernel vs plain at every distinct node shape
     t0 = time.perf_counter()
-    rows = check_kernel(shapes, det.device, timed=not rehearsal)
+    rows = check_forward(shapes, det.device, not rehearsal, bf16=False)
     log(f"phase kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # 4. bf16 kernel vs plain at every distinct node shape
     t0 = time.perf_counter()
-    rows16 = check_kernel_bf16(shapes, det.device, not rehearsal, rows)
+    rows16 = check_forward(shapes, det.device, not rehearsal, bf16=True,
+                           fp32_rows=rows)
     log(f"phase bf16-kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
 
     # 5. the float32 main path through the entry point, counted
@@ -1613,47 +1696,13 @@ def main(argv=None) -> int:
     if rehearsal:
         print(json.dumps({"ok": True, "rehearsal": "cpu"}), flush=True)
         return 0
-    kernel = {
-        "name": "dcn_fwd", "route": "cuda",
-        "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_fwd.cu",
-        "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:117",
-        "also_replaces": ["centerfusiondetect3d_tpu/ops/pallas_dcn.py:240"],
-        "launches": serving_launches,
-        "training_launches": train["launches"]["dcn_fwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # per forward of the main path: the sum over its DCN node launches
-        "ms": sum(r["ms"] * r["nodes"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] * r["nodes"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] * r["nodes"] for r in rows),
-        "bound_by": "operations" if all(
-            r["bound_by"] == "operations" for r in rows) else "bytes",
-        "library_ms": None,
-        "per_node_shape": rows,
-    }
-    ptxas16 = built[dcn.BF16_SOURCE].ptxas
-    kernels = [kernel, {
-        "name": "dcn_fwd_bf16", "route": "cuda",
-        "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_fwd_bf16.cu",
-        "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:117",
-        "also_replaces": ["centerfusiondetect3d_tpu/ops/pallas_dcn.py:240",
-                          "scripts/probe_dcn_select.py:48",
-                          "scripts/probe_dcn_select.py:83",
-                          "scripts/probe_dcn_bisect.py:132",
-                          "scripts/probe_mosaic.py:150"],
-        "launches": launches16,
-        "training_launches": train16["launches"]["dcn_fwd_bf16"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows16),
-        # per bf16 forward of the main path: the sum over its DCN nodes
-        "ms": sum(r["ms"] * r["nodes"] for r in rows16),
-        "plain_ms": sum(r["plain_ms"] * r["nodes"] for r in rows16),
-        "bound_ms": sum(r["bound_ms"] * r["nodes"] for r in rows16),
-        "bound_by": "operations" if all(
-            r["bound_by"] == "operations" for r in rows16) else "bytes",
-        "library_ms": None,
-        "fp32_ms": sum(r["fp32_ms"] * r["nodes"] for r in rows16),
-        "ptxas": ptxas16,
-        "per_node_shape": rows16,
-    }]
+    kernels = [
+        forward_entry(rows, "dcn_fwd", False, serving_launches,
+                      train["launches"]["dcn_fwd"],
+                      built[dcn.KERNEL_SOURCE].ptxas, bwd_rows, micro),
+        forward_entry(rows16, "dcn_fwd_bf16", True, launches16,
+                      train16["launches"]["dcn_fwd_bf16"],
+                      built[dcn.BF16_SOURCE].ptxas, bwd_rows16, micro)]
     for names, rows_b, run in ((BWD_KERNELS, bwd_rows, train),
                                (BWD_KERNELS_BF16, bwd_rows16, train16)):
         for name in names:

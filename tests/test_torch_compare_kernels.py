@@ -28,6 +28,53 @@ def test_refuses_an_unknown_kernel():
         ck.main(["--other", ck.ROOT, "--kernel", "round_to_bf16"])
 
 
+@pytest.mark.parametrize("batch", ["0", "-3", "six"])
+def test_refuses_a_batch_that_is_not_a_positive_count(batch):
+    with pytest.raises(SystemExit):
+        ck.main(["--other", os.path.join(ck.ROOT, "_compare", "parent"),
+                 "--kernel", "dcn_fwd", "--batch", batch])
+
+
+@pytest.mark.parametrize("kernels", [["dcn_col2im"],
+                                     ["dcn_fwd", "dcn_im2col_bf16"]])
+def test_overlap_takes_only_the_forward_kernels(kernels):
+    with pytest.raises(SystemExit, match="only the forward"):
+        ck.main(["--overlap"] + [a for k in kernels for a in ("--kernel", k)])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--overlap", "--other", ck.ROOT, "--kernel", "dcn_fwd"],
+    ["--kernel", "dcn_fwd"]])
+def test_overlap_stands_in_place_of_another_tree(argv):
+    """One of ``--other`` and ``--overlap``, not both, not neither."""
+    with pytest.raises(SystemExit):
+        ck.main(argv)
+
+
+def test_overlap_call_sets_the_variant_for_its_call_alone():
+    seen = []
+    ck.overlap_call(lambda: seen.append(dcn.FWD_OVERLAP))()
+    assert seen == [True] and dcn.FWD_OVERLAP is False
+
+    def fails():
+        raise ValueError("inside the call")
+
+    with pytest.raises(ValueError):
+        ck.overlap_call(fails)()
+    assert dcn.FWD_OVERLAP is False
+
+
+def test_batch_replaces_the_microbatch_of_every_node_shape():
+    """``--batch 6`` runs the training node shapes at serving's batch;
+    without it they stay at the microbatch."""
+    shapes = [(13, 64, 112, 200, 64), (13, 512, 14, 25, 256),
+              (13, 64, 112, 200, 64)]
+    assert ck.at_batch(shapes) == shapes
+    assert ck.at_batch(shapes, 6) == [(6, 64, 112, 200, 64),
+                                      (6, 512, 14, 25, 256),
+                                      (6, 64, 112, 200, 64)]
+
+
 @pytest.mark.parametrize("name", ck.KERNELS)
 def test_kernel_call_runs_each_kernel_in_its_dtype(name):
     """On CPU tensors each wrapper runs its plain version: the call gives the
