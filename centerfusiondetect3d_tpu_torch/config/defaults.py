@@ -6,9 +6,9 @@ YAML under ``configs/`` and every dotted override loads unchanged.
 ``MIXED_PRECISION`` (default true, as in every shipped config) is honoured as
 the JAX package honours it: ``models/detector.py:build_model`` makes a model
 that computes in bfloat16 with float32 parameters, BatchNorm statistics and
-head outputs, and serves through the bf16 DCN kernel. ``runtime/fit.py``'s
-Trainer raises on it until the bf16 DCN backward is ported; set it false to
-train (or to serve) in float32.
+head outputs, serves through the bf16 DCN forward kernel and, in
+``runtime/fit.py``'s Trainer, trains through the bf16 DCN backward kernels;
+set it false to train (or to serve) in float32.
 
 The port always computes the exact ops, so the keys that select a TPU
 approximation or a TPU runtime setting are accepted and ignored:

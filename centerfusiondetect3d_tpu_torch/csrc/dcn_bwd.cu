@@ -1,16 +1,17 @@
-// Modulated 3x3 stride-1 deformable convolution (DCNv2) backward, NCHW, in
-// fp32 and in bf16 (the mixed-precision model).
+// Modulated 3x3 stride-1 deformable convolution (DCNv2) backward, in fp32
+// and in bf16 (the mixed-precision model).
 //
 // Replaces the backward of the TPU kernel deform_conv2d_fast
 // (centerfusiondetect3d_tpu/ops/pallas_dcn.py:409, _fast_bwd), which is the
 // VJP of the exact gather formulation centerfusiondetect3d_tpu/ops/dcn.py:29
 // with the offset clamp inside the differentiated function, in the dtype of
 // the activations. The backward of a node is, with cols the modulated
-// sampled columns of the forward,
+// sampled columns of the forward, pixel-major,
 //
-//   cols[b, c*9+k, p] = mask[b,k,p] * bilinear(x[b,c], p + t_k + off_k(p))
-//   dweight = sum_b g_b . cols_b^T      (O, 9C), one plain GEMM over B*HW
-//   dcols   = W^T . g                   (9C, B*HW), one plain GEMM
+//   cols[pix, k, c] = mask[pix, k] * bilinear(x[., c], pix + t_k + off_k)
+//   dweight = g . cols           (O, 9C) in (k, c) order, one plain GEMM
+//   dcols   = g^T . W_kc         (B*HW, 9C), one plain GEMM (W_kc: the
+//                                weight as (O, 9C) in (k, c) order)
 //   dx      = the transpose of the sampling, applied to dcols  (dcn_col2im)
 //   doffset, dmask = reductions over C of dcols           (dcn_col2im_coord)
 //
@@ -18,21 +19,28 @@
 // the storage type T of x, cols and dcols (float or __nv_bfloat16); every
 // sum and product is f32 in both:
 //
-// dcn_im2col: cols from the saved x, offset and mask (the forward stays fused
-//   and never writes them). One thread per (b, k, pixel) and 16 channels:
-//   the tap's corner indices and mask-folded weights are computed once and
-//   reused for the 16 gathers; the writes are coalesced along the pixel. In
-//   bf16 each f32 column value is rounded once, as dcn_fwd_bf16.cu rounds the
-//   taps it contracts (the same products in the same order).
+// dcn_im2col: cols from the saved channels-last x, offset and mask (the
+//   forward stays fused and never writes them). A group of lanes owns a
+//   pixel and its 9 taps (the front end below): each tap's geometry is
+//   computed once for all C, its 4 corners are gathered as 16-byte vectors
+//   and blended in f32, and each lane writes one 16-byte vector of the
+//   tap's contiguous span of C channels. In bf16 each f32 column value is
+//   rounded once, as dcn_fwd_bf16.cu rounds the taps it contracts (the same
+//   products in the same order).
+// dcn_col2im_coord: doffset (18 per pixel) and dmask (9 per pixel), f32 in
+//   both dtypes (offset and mask are f32), on the same front end: the group
+//   reads the pixel's dcols row (9C contiguous values) and the corner
+//   vectors, sums the 4 corner products over C, reduces them across its
+//   lanes in a fixed shuffle order (no atomics: reproducible) and makes the
+//   tap's sample and its two derivatives from the 4 sums; the 27 outputs of
+//   a block's pixels leave through shared memory, coalesced.
 // dcn_col2im: dx, as a gather through an inverse sampling map. This DCN has
 //   one deformable group: offset and mask are shared by all C channels, so
-//   where column element (c*9+k, p) lands in dx, and with what weight
+//   where column element (pix, k, c) lands in dx, and with what weight
 //   mask * wy * wx, does not depend on c. The map has one entry per
 //   (b, k, p, corner) that lands in the image with a non-zero weight, at
-//   most 36*B*HW entries, C times fewer than the scatter of one f32 atomic
-//   per (channel, entry) that this kernel replaced (671 M atomics at the
-//   largest node at the training microbatch, bound by the L2's atomic
-//   rate). Four steps build it:
+//   most 36*B*HW entries, C times fewer than a scatter of one f32 atomic
+//   per (channel, entry). Four steps build it:
 //   1. count (dcn_col2im_zero_kernel, then dcn_col2im_map_kernel<false>,
 //      one thread per (b, k, p)): an integer atomicAdd on count[b*HW + q]
 //      for each corner that lands on q;
@@ -43,7 +51,7 @@
 //   3. fill (dcn_col2im_map_kernel<true>): each landing corner takes a slot
 //      with an integer atomicSub on its count (which ends at 0) and writes
 //      its entry there, one 8-byte store: the key p*9 + k (the sample's row
-//      in the transposed columns below, so the gather does no division)
+//      in the pixel-major column gradients, so the gather does no division)
 //      and the weight, which the fill has at hand;
 //   4. sort (dcn_col2im_sort_kernel, one warp per segment): the slots were
 //      taken in the order the atomics arrived, so each segment is sorted by
@@ -55,18 +63,16 @@
 //      block: the keys set bits of a bitmap over the 9*HW keys, and the set
 //      bits, counted with a block scan, are written back in order, each
 //      with its weight taken again from offset and mask.
-//   Then the gather reads dcols by entry, and an entry's p is data
-//   dependent: in dcols' layout neighbouring pixels q read scattered p, one
-//   32-byte sector for each 4 bytes used. So
-//   dcn_col2im_transpose_kernel first copies dcols to a (B, HW, 9, Cp)
-//   scratch (Cp = C rounded up to 32) through shared-memory tiles,
-//   coalesced on both sides, and dcn_col2im_gather_kernel<T> gives a group
-//   of 8 lanes to each (q, 32 channels), 4 channels a lane: the group takes
-//   8 entries of the segment at once, then each entry is one vector load a
-//   lane (a coalesced read of the 32 channels), 8 in flight, summed in key
-//   order in f32 registers; a warp walks 4 pixels at once, so that 4 of the
-//   dependent chains (segment end, entries, channels) are in flight. A
-//   segment longer than kShortSeg is summed by
+//   Then dcn_col2im_gather_kernel<T> reads the pixel-major dcols by entry
+//   (row key of image b: the C channels of one (p, k) contiguous, so the
+//   GEMM's output is read as it lies, with no copy, where C is a multiple
+//   of 32; the wrapper pads other C to Cp, C rounded up to 32) and gives a
+//   group of 8 lanes to each (q, 32 channels), 4 channels a lane: the group
+//   takes 8 entries of the segment at once, then each entry is one vector
+//   load a lane (a coalesced read of the 32 channels), 8 in flight, summed
+//   in key order in f32 registers; a warp walks 4 pixels at once, so that
+//   4 of the dependent chains (segment end, entries, channels) are in
+//   flight. A segment longer than kShortSeg is summed by
 //   dcn_col2im_gather_long_kernel<T> instead, so that a pixel on which
 //   many samples converge does not hold one group for 9*HW entries: a block
 //   per (segment, slab), whose 32 groups take the segment's chunks of 8 in
@@ -78,12 +84,6 @@
 //   order of its segment (a long one: a fixed split over the groups, then
 //   the groups in order), so dx is bitwise reproducible for the same inputs
 //   on the same build.
-// dcn_col2im_coord: doffset (18 per pixel) and dmask (9 per pixel), f32 in
-//   both dtypes (offset and mask are f32). A block owns 32 pixels of one
-//   (b, k) and splits C over 8 lanes of 32 threads; each thread sums dcols
-//   times the unmasked sampled value (dmask) and times the derivatives of the
-//   bilinear weights (doffset, which carries the mask), then the lanes are
-//   reduced in shared memory: no atomics.
 //
 // Gradient conventions are those of autograd on the plain version
 // (ops/dcn.py:deform_conv2d_plain), of jax.grad of the JAX formulation and of
@@ -96,54 +96,47 @@
 // max_offset < 0 means no clamp.
 //
 // What bounds them: all of them do a few flops per element they move
-// (im2col ~8 per column written, col2im ~8 per column read, coord ~14 per
+// (im2col ~8 per column written, col2im ~8 per column read, coord ~9 per
 // column read) against the card's fp32 balance of 20 flops per byte, so they
-// are bound by bytes: the 9C x HW columns written once by im2col and read
+// are bound by bytes: the 9C x B*HW columns written once by im2col and read
 // once by each of col2im and coord dominate (half the bytes in bf16), with
-// the gathers of x served from L1/L2. col2im's own bytes are dcols read
-// once, dx written once and offset and mask read once; its design adds
-// traffic beside them: the transpose writes and the gather reads the
-// columns once more (each entry's 32 channels are read once per entry,
-// about 4 times per column element, mostly from L2), and the map takes
-// 8 bytes per entry written by the fill, read and written by the sort and
-// read by the gather (about 36 entries per pixel, against 9C column
-// elements per pixel: 8/C of the columns' f32 bytes) and a count and a
-// segment end per pixel. The design
-// keeps every access to the columns coalesced and pays the tap geometry
-// once per 16 channels (im2col), per 32 channels and entry (col2im's
-// gather) or per pixel (coord). The GEMMs go through torch.matmul
-// (fp32 with TF32 off, or bf16 on the tensor cores); fusing them with these
-// kernels so that the columns never reach device memory, wgmma and TMA are
-// the next steps.
+// the corner gathers of x served from L1/L2 (x is C x B*HW, 9 times
+// smaller than the columns). im2col and coord move those bytes as 16-byte
+// vectors, every warp access to the columns a whole span, so their design
+// traffic is the function's own; col2im's design adds the map (8 bytes per
+// entry written by the fill, read and written by the sort and read by the
+// gather, about 36 entries per pixel) and the gather's reads of each
+// entry's 32 channels (about 4 times per column element, mostly from L2).
+// Resources (nvcc -Xptxas -v, printed by chip_smoke.py): im2col and coord
+// take 256 threads and 256 / G pixels a block, at most 64 registers a
+// thread (__launch_bounds__: 4 blocks, 32 warps, per SM; no spills in
+// either dtype), coord at most 3.5 KB of shared memory (its output tile),
+// im2col none. The GEMMs go through torch.matmul (fp32 with TF32
+// off, or bf16 on the tensor cores); fusing them with these kernels so
+// that the columns never reach device memory, wgmma and TMA are the next
+// steps.
 //
-// Layouts: x (B, C, H, W); offset (B, 18, H, W) f32 with offset[2k] = dy_k
-// and offset[2k+1] = dx_k, taps k = 3i + j in row-major order; mask
-// (B, 9, H, W) f32, already sigmoided; cols and dcols hold row c*9 + k (the
-// row order of weight.reshape(O, 9C)) of image b at pixel p at
-// b * stride_b + row * stride_row + p: the entry points take the two strides,
-// the pixels are contiguous. The wrappers (ops/dcn.py) write the columns
-// (9C, B, HW), so that each GEMM is one product over the B*HW axis; dx
-// (B, C, H, W), every element written by col2im; doffset (B, 18, H, W) f32;
-// dmask (B, 9, H, W) f32. col2im's scratch, allocated by the wrapper: the
-// transposed columns dcols_t (B, HW, 9, Cp) in T, and the map, int32:
-// count (B*HW + 1, zeroed; the last element counts the long segments),
-// ends (B*HW), entries (36*B*HW pairs {key, f32 weight bits}, the first
-// ends[B*HW-1] used), long_q (B*HW) and bits (long_blocks * ceil(9*HW /
-// 32)). Every other tensor is contiguous in that layout, all on one
-// device.
+// Layouts: x (B, H, W, C) channels-last (im2col, coord); offset
+// (B, 18, H, W) f32 with offset[2k] = dy_k and offset[2k+1] = dx_k, taps
+// k = 3i + j in row-major order; mask (B, 9, H, W) f32, already sigmoided;
+// cols and dcols (B*HW, 9, C): row pix*9 + k holds the C channels of tap k
+// of pixel pix = b*HW + p (col2im: (B*HW, 9, Cp)); dx (B, C, H, W), every
+// element written by col2im; doffset (B, 18, H, W) f32; dmask (B, 9, H, W)
+// f32. col2im's map, int32, allocated by the wrapper: count (B*HW + 1,
+// zeroed; the last element counts the long segments), ends (B*HW), entries
+// (36*B*HW pairs {key, f32 weight bits}, the first ends[B*HW-1] used),
+// long_q (B*HW) and bits (long_blocks * ceil(9*HW / 32)). Every tensor is
+// contiguous in that layout, all on one device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "dcn_fwd_common.cuh"  // the 16-byte vector helpers
+
 namespace {
 
-constexpr int kPix = 128;         // pixels per block (im2col, the map)
-constexpr int kChanPerThread = 16;  // channels per thread (im2col)
-constexpr int kCoordPix = 32;     // pixels per block (coord)
-constexpr int kCoordLanes = 8;    // channel lanes per block (coord)
-constexpr int kTile = 32;         // channels and pixels per tile (transpose)
-constexpr int kTileRows = 8;      // rows of threads per tile (transpose)
+constexpr int kPix = 128;         // pixels per block (the map)
 constexpr int kGroup = 8;         // lanes per pixel (gather)
 constexpr int kGatherWarps = 8;   // warps per block (gather)
 constexpr int kGatherPix = kGatherWarps * 32 / kGroup;  // pixels per block
@@ -155,23 +148,10 @@ constexpr int kScanThreads = 1024;  // threads per block (scan)
 constexpr int kScanItems = 4;       // counts per thread (scan)
 constexpr int kScanTile = kScanThreads * kScanItems;  // counts per block
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
-
-// Where row c*9 + k of image b starts in cols or dcols (see Layouts).
-struct Columns {
-  size_t stride_b;
-  size_t stride_row;
-  __device__ __forceinline__ size_t at(int b, int row, int p) const {
-    return (size_t)b * stride_b + (size_t)row * stride_row + p;
-  }
-};
 
 // Where tap k of output pixel p samples: its upper-left corner and the
 // fractional parts.
@@ -252,28 +232,284 @@ __device__ __forceinline__ void corner_weights(const Tap& t, float scale,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kPix)
-dcn_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
-                  const float* __restrict__ mask, T* __restrict__ cols,
-                  Columns layout, int C, int H, int W, float max_offset) {
+// im2col and coord: one sampling front end on pixel-major columns.
+//
+// A group of G lanes (C / V vectors rounded up to 8, 16 or 32 lanes; V =
+// 16 / sizeof(T) channels a 16-byte vector) owns one pixel and all 9 of
+// its taps; a block of kBwdThreads lanes owns kBwdThreads / G consecutive
+// pixels of the flattened B*H*W. Lane j computes the geometry of taps j and
+// j + G (make_geo, once per (pixel, tap)), and each tap's geometry reaches
+// the group's lanes by __shfl_sync. The taps are walked one at a time: a
+// lane takes the vectors v = j, j + G, ... of the C channels and issues the
+// loads of the tap (the 4 corners of x, and in coord the pixel's dcols
+// row) before it uses the first. Few registers (kBwdBlocks blocks per SM)
+// hide the loads' latency better than more loads in flight a thread: one
+// tap at 4 blocks per SM beat three taps at 2 (1 for coord) and at 3
+// blocks per SM, in turns on the H100 (PERF.md, PR 11).
+
+constexpr int kBwdThreads = 256;  // threads per block (im2col, coord)
+constexpr int kBwdBlocks = 4;     // blocks per SM: at most 64 registers
+
+// Where tap k of one pixel samples: row, the channels-last row of x of
+// corner (0, 0) (b * HW + y0 * W + x0; the others lie 1, W and W + 1 rows
+// on); ly, lx the fractional parts; m the mask; flags bit c for corner
+// c = 2 * cy + cx inside the image, kPassY / kPassX for an offset inside the
+// clamp range.
+struct Geo {
+  int row;
+  float ly, lx, m;
+  int flags;
+};
+constexpr int kPassY = 16;
+constexpr int kPassX = 32;
+
+__device__ __forceinline__ Geo make_geo(const float* __restrict__ offset,
+                                        const float* __restrict__ mask,
+                                        int pix, int k, int H, int W,
+                                        float max_offset) {
   const int hw = H * W;
-  const int p = blockIdx.x * kPix + threadIdx.x;
-  const int k = blockIdx.y % 9;
-  const int c0 = (blockIdx.y / 9) * kChanPerThread;
-  const int b = blockIdx.z;
-  if (p >= hw) return;
-  const Tap t = make_tap(offset, b, k, p, H, W, max_offset);
-  float wgt[4];
-  corner_weights(t, mask[((size_t)b * 9 + k) * hw + p], wgt);
-  const int c1 = min(c0 + kChanPerThread, C);
-  for (int c = c0; c < c1; ++c) {
-    const T* xc = x + ((size_t)b * C + c) * hw;
-    const float v = wgt[0] * load_f32(xc + t.idx[0]) +
-                    wgt[1] * load_f32(xc + t.idx[1]) +
-                    wgt[2] * load_f32(xc + t.idx[2]) +
-                    wgt[3] * load_f32(xc + t.idx[3]);
-    store_f32(cols + layout.at(b, c * 9 + k, p), v);
+  const int b = pix / hw;
+  const int q = pix - b * hw;
+  const Sample s = make_sample(offset, b, k, q, H, W, max_offset);
+  Geo g;
+  g.row = b * hw + s.y0 * W + s.x0;
+  g.ly = s.ly;
+  g.lx = s.lx;
+  g.m = mask[((size_t)b * 9 + k) * hw + q];
+  g.flags = (s.pass_y ? kPassY : 0) | (s.pass_x ? kPassX : 0);
+#pragma unroll
+  for (int corner = 0; corner < 4; ++corner) {
+    const int yy = s.y0 + (corner >> 1);
+    const int xx = s.x0 + (corner & 1);
+    if (yy >= 0 && yy < H && xx >= 0 && xx < W) g.flags |= 1 << corner;
+  }
+  return g;
+}
+
+// The geometry of this lane's taps (sub, sub + G) of pixel pix; zeros past
+// the last pixel.
+template <int G, int kSlots>
+__device__ __forceinline__ void lane_geo(Geo (&mine)[kSlots],
+                                         const float* __restrict__ offset,
+                                         const float* __restrict__ mask,
+                                         int pix, int sub, int npix, int H,
+                                         int W, float max_offset) {
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t) {
+    const int k = sub + t * G;
+    mine[t] = (k < 9 && pix < npix)
+                  ? make_geo(offset, mask, pix, k, H, W, max_offset)
+                  : Geo{0, 0.f, 0.f, 0.f, 0};
+  }
+}
+
+// Tap k's geometry from the lane of the group (G lanes) that computed it:
+// lane k % G, its slot k / G. Every lane of the warp calls it.
+template <int G, int kSlots>
+__device__ __forceinline__ Geo share_geo(const Geo (&mine)[kSlots], int k) {
+  const Geo& src = mine[k / G];
+  Geo g;
+  g.row = __shfl_sync(0xffffffffu, src.row, k % G, G);
+  g.ly = __shfl_sync(0xffffffffu, src.ly, k % G, G);
+  g.lx = __shfl_sync(0xffffffffu, src.lx, k % G, G);
+  g.m = __shfl_sync(0xffffffffu, src.m, k % G, G);
+  g.flags = __shfl_sync(0xffffffffu, src.flags, k % G, G);
+  return g;
+}
+
+template <typename T>
+struct SampleParams {
+  const T* x;           // (B, H, W, C) channels-last
+  const float* offset;  // (B, 18, H, W)
+  const float* mask;    // (B, 9, H, W)
+  int C, H, W, npix, nvec;
+  int vec;  // C a multiple of V and every pointer 16-byte aligned
+  float max_offset;
+};
+
+// V channels from c0 of row `row` of a (rows, C) array of T as one 16-byte
+// vector, zero past C: one load where `vec`, else element by element.
+// kStream: read once and kept out of L1 (dcols); else through L1 (x, whose
+// corners neighbouring pixels share).
+template <typename T, bool kStream>
+__device__ __forceinline__ uint4 load_vec(const T* __restrict__ base,
+                                          size_t row, int c0, int C,
+                                          int vec) {
+  constexpr int V = 16 / sizeof(T);
+  const T* src = base + row * C + c0;
+  if (vec)
+    return kStream ? __ldcs(reinterpret_cast<const uint4*>(src))
+                   : __ldg(reinterpret_cast<const uint4*>(src));
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (c0 + j < C)
+      w[j * 4 / V] |= dcn_fwd::bits(src[j]) << (V == 8 ? 16 * (j & 1) : 0);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The vector from c0 of x at corner `corner` of a tap whose corner (0, 0)
+// is `row`, the row clamped into x (a corner outside the image has weight
+// 0).
+template <typename T>
+__device__ __forceinline__ uint4 load_corner(const SampleParams<T>& p,
+                                             int row, int corner, int c0) {
+  const int r = row + (corner >> 1) * p.W + (corner & 1);
+  return load_vec<T, false>(p.x, (size_t)min(max(r, 0), p.npix - 1), c0,
+                            p.C, p.vec);
+}
+
+// Stores V values from c0 of row `row` of a (rows, C) array of T, each
+// rounded once to T, none past C.
+template <typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ base, size_t row,
+                                          int c0, int C, int vec,
+                                          const float (&v)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  T* dst = base + row * C + c0;
+  if (vec) {
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      w[j * 4 / V] |= dcn_fwd::bits(dcn_fwd::from_f32<T>(v[j]))
+                      << (V == 8 ? 16 * (j & 1) : 0);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (c0 + j < C) dst[j] = dcn_fwd::from_f32<T>(v[j]);
+}
+
+// cols[pix, k, c] = mask * bilinear(x, pixel + tap k + offset) for every
+// (pixel, tap, channel): the group of pixel pix gathers each tap's 4
+// corner vectors, blends them with the mask-folded weights in f32
+// (corner_weights' products, summed in corner order) and writes one
+// 16-byte vector a lane, rounded once to T: a tap's C channels are one
+// contiguous span of cols, written by the group's lanes side by side.
+template <typename T, int G>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
+dcn_im2col_kernel(const SampleParams<T> p, T* __restrict__ cols) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kSlots = (9 + G - 1) / G;
+  const int sub = threadIdx.x % G;
+  const int pix = blockIdx.x * (kBwdThreads / G) + threadIdx.x / G;
+  Geo mine[kSlots];
+  lane_geo<G>(mine, p.offset, p.mask, pix, sub, p.npix, p.H, p.W,
+              p.max_offset);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const Geo geo = share_geo<G>(mine, k);
+    float wgt[4];
+#pragma unroll
+    for (int corner = 0; corner < 4; ++corner) {
+      const float wy = (corner >> 1) ? geo.ly : 1.f - geo.ly;
+      const float wx = (corner & 1) ? geo.lx : 1.f - geo.lx;
+      wgt[corner] = geo.m * wy * wx * (float)((geo.flags >> corner) & 1);
+    }
+    if (pix >= p.npix) continue;
+    for (int v = sub; v < p.nvec; v += G) {
+      uint4 raw[4];
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner)
+        raw[corner] = load_corner(p, geo.row, corner, v * V);
+      float out[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        out[j] = wgt[0] * dcn_fwd::lane_f32<T>(raw[0], j) +
+                 wgt[1] * dcn_fwd::lane_f32<T>(raw[1], j) +
+                 wgt[2] * dcn_fwd::lane_f32<T>(raw[2], j) +
+                 wgt[3] * dcn_fwd::lane_f32<T>(raw[3], j);
+      store_vec(cols, (size_t)pix * 9 + k, v * V, p.C, p.vec, out);
+    }
+  }
+}
+
+// doffset and dmask of every (pixel, tap): the group of pixel pix reads
+// the pixel's dcols rows and each tap's 4 corner vectors of x, and each
+// lane sums over its channels the products dcols * x of the tap's 4
+// corners (D_c, f32). The group sums them over its lanes in a fixed
+// __shfl_xor_sync butterfly (every lane gets the same bits; no atomics, so
+// the outputs are reproducible), and lane k % G makes tap k's outputs from
+// its 4 sums: dmask, the unmasked sample, and doffset, its y and x
+// derivatives times the mask (0 for an offset outside the clamp range),
+//   val  = (1-ly)((1-lx) D00 + lx D01) + ly((1-lx) D10 + lx D11)
+//   d/dy = (1-lx)(D10 - D00) + lx(D11 - D01)
+//   d/dx = (1-ly)(D01 - D00) + ly(D11 - D10)
+// with D_c = 0 for a corner outside the image: the sums over C of the
+// per-channel forms, floor()'s corner pair (one-sided at an integer
+// coordinate). The 27 outputs of the block's pixels go out through shared
+// memory, coalesced along the pixels.
+template <typename T, int G>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
+dcn_col2im_coord_kernel(const SampleParams<T> p, const T* __restrict__ dcols,
+                        float* __restrict__ doffset,
+                        float* __restrict__ dmask) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kP = kBwdThreads / G;  // pixels per block
+  constexpr int kSlots = (9 + G - 1) / G;
+  __shared__ float s_out[27][kP + 1];  // dmask k, then doffset 2k, 2k+1
+  const int sub = threadIdx.x % G;
+  const int j = threadIdx.x / G;  // the pixel's place in the block
+  const int p0 = blockIdx.x * kP;
+  const int pix = p0 + j;
+  Geo mine[kSlots];
+  lane_geo<G>(mine, p.offset, p.mask, pix, sub, p.npix, p.H, p.W,
+              p.max_offset);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const Geo geo = share_geo<G>(mine, k);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (pix < p.npix) {
+      for (int v = sub; v < p.nvec; v += G) {
+        const uint4 g =
+            load_vec<T, true>(dcols, (size_t)pix * 9 + k, v * V, p.C, p.vec);
+        uint4 raw[4];
+#pragma unroll
+        for (int corner = 0; corner < 4; ++corner)
+          raw[corner] = load_corner(p, geo.row, corner, v * V);
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const float gc = dcn_fwd::lane_f32<T>(g, c);
+#pragma unroll
+          for (int corner = 0; corner < 4; ++corner)
+            acc[corner] = fmaf(gc, dcn_fwd::lane_f32<T>(raw[corner], c),
+                               acc[corner]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner)
+        acc[corner] += __shfl_xor_sync(0xffffffffu, acc[corner], off);
+    if (sub == k % G) {
+      float d[4];
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner)
+        d[corner] = (geo.flags >> corner) & 1 ? acc[corner] : 0.f;
+      const float ly = geo.ly, lx = geo.lx;
+      const float val = (1.f - ly) * ((1.f - lx) * d[0] + lx * d[1]) +
+                        ly * ((1.f - lx) * d[2] + lx * d[3]);
+      const float d_y = (1.f - lx) * (d[2] - d[0]) + lx * (d[3] - d[1]);
+      const float d_x = (1.f - ly) * (d[1] - d[0]) + ly * (d[3] - d[2]);
+      s_out[k][j] = val;
+      s_out[9 + 2 * k][j] = geo.flags & kPassY ? geo.m * d_y : 0.f;
+      s_out[10 + 2 * k][j] = geo.flags & kPassX ? geo.m * d_x : 0.f;
+    }
+  }
+  __syncthreads();
+  const int hw = p.H * p.W;
+  for (int t = threadIdx.x; t < 27 * kP; t += kBwdThreads) {
+    const int r = t / kP;
+    const int q_pix = p0 + t % kP;
+    if (q_pix >= p.npix) continue;
+    const int b = q_pix / hw;
+    const int q = q_pix - b * hw;
+    if (r < 9)
+      dmask[((size_t)b * 9 + r) * hw + q] = s_out[r][t % kP];
+    else
+      doffset[((size_t)b * 18 + r - 9) * hw + q] = s_out[r][t % kP];
   }
 }
 
@@ -505,38 +741,6 @@ dcn_col2im_sort_long_kernel(const float* __restrict__ offset,
   }
 }
 
-// dcols (row c*9 + k of image b at pixel p, see Layouts) to dcols_t
-// (B, HW, 9, Cp): the channels of one (b, p, k) contiguous, for the gather,
-// Cp = C rounded up to 32 (the padding is never written, and the gather's
-// sums over it are never stored).
-// A block moves a tile of kTile channels x kTile pixels of one (b, k)
-// through shared memory: reads coalesced along p, writes along c. Bits is a
-// type of T's size: the transpose moves values without arithmetic.
-template <typename Bits>
-__global__ void __launch_bounds__(kTile * kTileRows)
-dcn_col2im_transpose_kernel(const Bits* __restrict__ dcols,
-                            Bits* __restrict__ dcols_t, Columns layout,
-                            int C, int Cp, int hw) {
-  __shared__ Bits tile[kTile][kTile + 1];
-  const int tx = threadIdx.x;
-  const int p0 = blockIdx.x * kTile;
-  const int k = blockIdx.y % 9;
-  const int c0 = (blockIdx.y / 9) * kTile;
-  const int b = blockIdx.z;
-  for (int r = threadIdx.y; r < kTile; r += kTileRows) {
-    const int c = c0 + r;
-    const int p = p0 + tx;
-    if (c < C && p < hw) tile[r][tx] = dcols[layout.at(b, c * 9 + k, p)];
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < kTile; r += kTileRows) {
-    const int p = p0 + r;
-    const int c = c0 + tx;
-    if (c < C && p < hw)
-      dcols_t[(((size_t)b * hw + p) * 9 + k) * Cp + c] = tile[tx][r];
-  }
-}
-
 // 4 consecutive channels, one vector load: 16 bytes of float, 8 of bf16.
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 x = __ldg(reinterpret_cast<const float4*>(p));
@@ -587,14 +791,14 @@ __device__ __forceinline__ void gather_entries(
 // pixels at once. The group's lanes take kGroup entries {key, weight} of
 // the segment at once, then each entry is one vector load a lane, a
 // coalesced read of the slab's 32 channels of row key = p*9 + k of
-// dcols_t, all kGroup in flight together, summed in key order in f32
+// dcols, all kGroup in flight together, summed in key order in f32
 // registers. The block writes its 32 x kGatherPix tile of dx through
 // shared memory, coalesced along q, each element once, in T; a pixel whose
 // segment is longer than kShortSeg is left to
 // dcn_col2im_gather_long_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kGatherWarps * 32)
-dcn_col2im_gather_kernel(const T* __restrict__ dcols_t,
+dcn_col2im_gather_kernel(const T* __restrict__ dcols,
                          const int* __restrict__ ends,
                          const int2* __restrict__ entries, T* __restrict__ dx,
                          int C, int Cp, int hw) {
@@ -605,7 +809,7 @@ dcn_col2im_gather_kernel(const T* __restrict__ dcols_t,
   const int q = blockIdx.x * kGatherPix + j;
   const int b = blockIdx.z;
   const T* image =
-      dcols_t + (size_t)b * hw * 9 * Cp + blockIdx.y * 32 + 4 * sub;
+      dcols + (size_t)b * hw * 9 * Cp + blockIdx.y * 32 + 4 * sub;
   int start = 0;
   int n = 0;
   if (q < hw) {
@@ -639,7 +843,7 @@ dcn_col2im_gather_kernel(const T* __restrict__ dcols_t,
 // entries in turn, and their sums are added in group order.
 template <typename T>
 __global__ void __launch_bounds__(kGatherWarps * 32)
-dcn_col2im_gather_long_kernel(const T* __restrict__ dcols_t,
+dcn_col2im_gather_long_kernel(const T* __restrict__ dcols,
                               const int* __restrict__ ends,
                               const int2* __restrict__ entries,
                               const int* __restrict__ long_q,
@@ -660,7 +864,7 @@ dcn_col2im_gather_long_kernel(const T* __restrict__ dcols_t,
     // the groups of a warp take consecutive chunks of each stride
     constexpr int kPerWarp = 32 / kGroup;
     gather_entries(
-        dcols_t + (size_t)b * hw * 9 * Cp + blockIdx.y * 32 + 4 * sub,
+        dcols + (size_t)b * hw * 9 * Cp + blockIdx.y * 32 + 4 * sub,
         entries + start, n, n, (g - g % kPerWarp) * kGroup,
         (g % kPerWarp) * kGroup, kGroups * kGroup, Cp, sub, acc);
 #pragma unroll
@@ -676,60 +880,6 @@ dcn_col2im_gather_long_kernel(const T* __restrict__ dcols_t,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kCoordPix * kCoordLanes)
-dcn_col2im_coord_kernel(const T* __restrict__ dcols, const T* __restrict__ x,
-                        const float* __restrict__ offset,
-                        const float* __restrict__ mask,
-                        float* __restrict__ doffset,
-                        float* __restrict__ dmask, Columns layout, int C,
-                        int H, int W, float max_offset) {
-  __shared__ float s_red[3][kCoordLanes][kCoordPix];
-  const int hw = H * W;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int p = blockIdx.x * kCoordPix + tx;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  float acc_m = 0.f, acc_y = 0.f, acc_x = 0.f;
-  Tap t = {};
-  if (p < hw) {
-    t = make_tap(offset, b, k, p, H, W, max_offset);
-    const float ly = t.ly, lx = t.lx;
-    for (int c = ty; c < C; c += kCoordLanes) {
-      const float g = load_f32(dcols + layout.at(b, c * 9 + k, p));
-      const T* xc = x + ((size_t)b * C + c) * hw;
-      const float v00 = t.valid[0] * load_f32(xc + t.idx[0]);
-      const float v01 = t.valid[1] * load_f32(xc + t.idx[1]);
-      const float v10 = t.valid[2] * load_f32(xc + t.idx[2]);
-      const float v11 = t.valid[3] * load_f32(xc + t.idx[3]);
-      const float val = (1.f - ly) * ((1.f - lx) * v00 + lx * v01) +
-                        ly * ((1.f - lx) * v10 + lx * v11);
-      const float d_y = (1.f - lx) * (v10 - v00) + lx * (v11 - v01);
-      const float d_x = (1.f - ly) * (v01 - v00) + ly * (v11 - v10);
-      acc_m = fmaf(g, val, acc_m);
-      acc_y = fmaf(g, d_y, acc_y);
-      acc_x = fmaf(g, d_x, acc_x);
-    }
-  }
-  s_red[0][ty][tx] = acc_m;
-  s_red[1][ty][tx] = acc_y;
-  s_red[2][ty][tx] = acc_x;
-  __syncthreads();
-  if (ty != 0 || p >= hw) return;
-  float sm = 0.f, sy = 0.f, sx = 0.f;
-#pragma unroll
-  for (int lane = 0; lane < kCoordLanes; ++lane) {
-    sm += s_red[0][lane][tx];
-    sy += s_red[1][lane][tx];
-    sx += s_red[2][lane][tx];
-  }
-  const float m = mask[((size_t)b * 9 + k) * hw + p];
-  dmask[((size_t)b * 9 + k) * hw + p] = sm;
-  doffset[((size_t)b * 18 + 2 * k) * hw + p] = t.pass_y ? m * sy : 0.f;
-  doffset[((size_t)b * 18 + 2 * k + 1) * hw + p] = t.pass_x ? m * sx : 0.f;
-}
-
 bool bad_shape(int B, int C, int H, int W) {
   return B <= 0 || C <= 0 || H <= 0 || W <= 0 || B > 65535;
 }
@@ -740,67 +890,97 @@ bool bad_map(int B, int H, int W) {
          (long long)kMaxEntriesPerPixel * B * H * W >= (1LL << 31);
 }
 
-dim3 column_grid(int B, int C, int H, int W) {
-  return dim3((H * W + kPix - 1) / kPix,
-              9 * ((C + kChanPerThread - 1) / kChanPerThread), B);
+// B*H*W pixels index x's rows and 9 column rows each as int
+bool bad_pixels(int B, int C, int H, int W) {
+  return bad_shape(B, C, H, W) || (long long)9 * B * H * W >= (1LL << 31);
+}
+
+template <typename T>
+SampleParams<T> sample_params(const T* x, const float* offset,
+                              const float* mask, int B, int C, int H, int W,
+                              int vec, float max_offset) {
+  constexpr int V = 16 / sizeof(T);
+  return {x, offset, mask, C, H, W, B * H * W, (C + V - 1) / V, vec,
+          max_offset};
+}
+
+// The group of lanes a pixel gets: C / V vectors rounded up to 8, 16 or 32.
+template <typename T>
+int group_lanes(int C) {
+  constexpr int V = 16 / sizeof(T);
+  const int nvec = (C + V - 1) / V;
+  return nvec <= 8 ? 8 : nvec <= 16 ? 16 : 32;
+}
+
+// Blocks of im2col and coord for npix pixels, one a group of G lanes.
+unsigned bwd_grid(int npix, int G) {
+  const int per_block = kBwdThreads / G;
+  return (unsigned)((npix + per_block - 1) / per_block);
 }
 
 template <typename T>
 int im2col(const T* x, const float* offset, const float* mask, T* cols,
-           Columns layout, int B, int C, int H, int W, float max_offset,
+           int B, int C, int H, int W, int vec, float max_offset,
            void* stream) {
-  if (bad_shape(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  dcn_im2col_kernel<T><<<column_grid(B, C, H, W), kPix, 0,
-                         (cudaStream_t)stream>>>(
-      x, offset, mask, cols, layout, C, H, W, max_offset);
-  return (int)cudaGetLastError();
-}
-
-// Bits of T's size, for the transpose.
-template <typename T> struct BitsOf { using type = unsigned int; };
-template <> struct BitsOf<__nv_bfloat16> { using type = unsigned short; };
-
-template <typename T>
-int col2im(const T* dcols, const int* count, const int* ends,
-           const int2* entries, const int* long_q, T* dcols_t, T* dx,
-           Columns layout, int B, int C, int H, int W, int long_blocks,
-           void* stream) {
-  if (bad_shape(B, C, H, W) || bad_map(B, H, W) || long_blocks <= 0)
-    return (int)cudaErrorInvalidValue;
-  using Bits = typename BitsOf<T>::type;
-  static_assert(sizeof(Bits) == sizeof(T), "transpose bits");
+  if (bad_pixels(B, C, H, W)) return (int)cudaErrorInvalidValue;
+  const SampleParams<T> p =
+      sample_params(x, offset, mask, B, C, H, W, vec, max_offset);
   const cudaStream_t s = (cudaStream_t)stream;
-  const int hw = H * W;
-  const int cp = (C + 31) / 32 * 32;
-  dcn_col2im_transpose_kernel<Bits>
-      <<<dim3((hw + kTile - 1) / kTile, 9 * ((C + kTile - 1) / kTile), B),
-         dim3(kTile, kTileRows), 0, s>>>(
-          reinterpret_cast<const Bits*>(dcols),
-          reinterpret_cast<Bits*>(dcols_t), layout, C, cp, hw);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  dcn_col2im_gather_kernel<T>
-      <<<dim3((hw + kGatherPix - 1) / kGatherPix, cp / 32, B),
-         kGatherWarps * 32, 0, s>>>(dcols_t, ends, entries, dx, C, cp, hw);
-  const int err2 = (int)cudaGetLastError();
-  if (err2 != 0) return err2;
-  dcn_col2im_gather_long_kernel<T>
-      <<<dim3(long_blocks, cp / 32), kGatherWarps * 32, 0, s>>>(
-          dcols_t, ends, entries, long_q, count + (size_t)B * hw, dx, C, cp,
-          hw);
+  switch (group_lanes<T>(C)) {
+    case 8: dcn_im2col_kernel<T, 8>
+        <<<bwd_grid(p.npix, 8), kBwdThreads, 0, s>>>(p, cols);
+      break;
+    case 16: dcn_im2col_kernel<T, 16>
+        <<<bwd_grid(p.npix, 16), kBwdThreads, 0, s>>>(p, cols);
+      break;
+    default: dcn_im2col_kernel<T, 32>
+        <<<bwd_grid(p.npix, 32), kBwdThreads, 0, s>>>(p, cols);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int col2im_coord(const T* dcols, const T* x, const float* offset,
-                 const float* mask, float* doffset, float* dmask,
-                 Columns layout, int B, int C, int H, int W,
-                 float max_offset, void* stream) {
-  if (bad_shape(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((H * W + kCoordPix - 1) / kCoordPix, 9, B);
-  const dim3 block(kCoordPix, kCoordLanes);
-  dcn_col2im_coord_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      dcols, x, offset, mask, doffset, dmask, layout, C, H, W, max_offset);
+                 const float* mask, float* doffset, float* dmask, int B,
+                 int C, int H, int W, int vec, float max_offset,
+                 void* stream) {
+  if (bad_pixels(B, C, H, W)) return (int)cudaErrorInvalidValue;
+  const SampleParams<T> p =
+      sample_params(x, offset, mask, B, C, H, W, vec, max_offset);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (group_lanes<T>(C)) {
+    case 8: dcn_col2im_coord_kernel<T, 8>
+        <<<bwd_grid(p.npix, 8), kBwdThreads, 0, s>>>(p, dcols, doffset, dmask);
+      break;
+    case 16: dcn_col2im_coord_kernel<T, 16>
+        <<<bwd_grid(p.npix, 16), kBwdThreads, 0, s>>>(p, dcols, doffset,
+                                                      dmask);
+      break;
+    default: dcn_col2im_coord_kernel<T, 32>
+        <<<bwd_grid(p.npix, 32), kBwdThreads, 0, s>>>(p, dcols, doffset,
+                                                      dmask);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int col2im(const T* dcols, const int* count, const int* ends,
+           const int2* entries, const int* long_q, T* dx, int B, int C,
+           int H, int W, int long_blocks, void* stream) {
+  if (bad_shape(B, C, H, W) || bad_map(B, H, W) || long_blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int hw = H * W;
+  const int cp = (C + 31) / 32 * 32;
+  dcn_col2im_gather_kernel<T>
+      <<<dim3((hw + kGatherPix - 1) / kGatherPix, cp / 32, B),
+         kGatherWarps * 32, 0, s>>>(dcols, ends, entries, dx, C, cp, hw);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  dcn_col2im_gather_long_kernel<T>
+      <<<dim3(long_blocks, cp / 32), kGatherWarps * 32, 0, s>>>(
+          dcols, ends, entries, long_q, count + (size_t)B * hw, dx, C, cp,
+          hw);
   return (int)cudaGetLastError();
 }
 
@@ -812,16 +992,15 @@ const __nv_bfloat16* bf16(const void* p) {
 
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
 // success) after each of its launches. The bf16 ones take bf16 x, cols,
-// dcols and dx as void pointers. stride_b and stride_row place the rows of
-// cols or dcols (see Layouts).
+// dcols and dx as void pointers. x is channels-last (B, H, W, C); cols and
+// dcols are (B*H*W, 9, C); vec = 1 where C is a multiple of the 16-byte
+// vector (4 float32, 8 bf16) and x, cols and dcols are 16-byte aligned.
 
 extern "C" int cfd_dcn_im2col(const float* x, const float* offset,
                               const float* mask, float* cols, int B, int C,
-                              int H, int W, long long stride_b,
-                              long long stride_row, float max_offset,
+                              int H, int W, int vec, float max_offset,
                               void* stream) {
-  return im2col(x, offset, mask, cols, {(size_t)stride_b, (size_t)stride_row},
-                B, C, H, W, max_offset, stream);
+  return im2col(x, offset, mask, cols, B, C, H, W, vec, max_offset, stream);
 }
 
 // col2im's map, steps 1 and 2: count (B*HW + 1 int32) gets the number of
@@ -886,62 +1065,50 @@ extern "C" int cfd_dcn_col2im_fill(const float* offset, const float* mask,
   return (int)cudaGetLastError();
 }
 
-// The transpose and the gathers, after the map: dcols_t (B, HW, 9, Cp),
-// Cp = C rounded up to 32, is their scratch, dx (B, C, H, W) gets every
+// The gathers, after the map: dcols (B, HW, 9, Cp), Cp = C rounded up to
+// 32 (the padding is read and never stored), dx (B, C, H, W) gets every
 // element written.
 extern "C" int cfd_dcn_col2im(const float* dcols, const int* count,
                               const int* ends, const int2* entries,
-                              const int* long_q, float* dcols_t, float* dx,
-                              int B, int C, int H, int W, int long_blocks,
-                              long long stride_b, long long stride_row,
-                              void* stream) {
-  return col2im(dcols, count, ends, entries, long_q, dcols_t, dx,
-                {(size_t)stride_b, (size_t)stride_row}, B, C, H, W,
+                              const int* long_q, float* dx, int B, int C,
+                              int H, int W, int long_blocks, void* stream) {
+  return col2im(dcols, count, ends, entries, long_q, dx, B, C, H, W,
                 long_blocks, stream);
 }
 
 extern "C" int cfd_dcn_col2im_coord(const float* dcols, const float* x,
                                     const float* offset, const float* mask,
                                     float* doffset, float* dmask, int B,
-                                    int C, int H, int W, long long stride_b,
-                                    long long stride_row, float max_offset,
-                                    void* stream) {
-  return col2im_coord(dcols, x, offset, mask, doffset, dmask,
-                      {(size_t)stride_b, (size_t)stride_row}, B, C, H, W,
-                      max_offset, stream);
+                                    int C, int H, int W, int vec,
+                                    float max_offset, void* stream) {
+  return col2im_coord(dcols, x, offset, mask, doffset, dmask, B, C, H, W,
+                      vec, max_offset, stream);
 }
 
 extern "C" int cfd_dcn_im2col_bf16(const void* x, const float* offset,
                                    const float* mask, void* cols, int B,
-                                   int C, int H, int W, long long stride_b,
-                                   long long stride_row, float max_offset,
-                                   void* stream) {
-  return im2col(bf16(x), offset, mask, static_cast<__nv_bfloat16*>(cols),
-                {(size_t)stride_b, (size_t)stride_row}, B, C, H, W,
-                max_offset, stream);
+                                   int C, int H, int W, int vec,
+                                   float max_offset, void* stream) {
+  return im2col(bf16(x), offset, mask, static_cast<__nv_bfloat16*>(cols), B,
+                C, H, W, vec, max_offset, stream);
 }
 
 extern "C" int cfd_dcn_col2im_bf16(const void* dcols, const int* count,
                                    const int* ends, const int2* entries,
-                                   const int* long_q, void* dcols_t, void* dx,
-                                   int B, int C, int H, int W,
-                                   int long_blocks, long long stride_b,
-                                   long long stride_row, void* stream) {
+                                   const int* long_q, void* dx, int B, int C,
+                                   int H, int W, int long_blocks,
+                                   void* stream) {
   return col2im(bf16(dcols), count, ends, entries, long_q,
-                static_cast<__nv_bfloat16*>(dcols_t),
-                static_cast<__nv_bfloat16*>(dx),
-                {(size_t)stride_b, (size_t)stride_row}, B, C, H, W,
-                long_blocks, stream);
+                static_cast<__nv_bfloat16*>(dx), B, C, H, W, long_blocks,
+                stream);
 }
 
 extern "C" int cfd_dcn_col2im_coord_bf16(const void* dcols, const void* x,
                                          const float* offset,
                                          const float* mask, float* doffset,
                                          float* dmask, int B, int C, int H,
-                                         int W, long long stride_b,
-                                         long long stride_row,
-                                         float max_offset, void* stream) {
-  return col2im_coord(bf16(dcols), bf16(x), offset, mask, doffset, dmask,
-                      {(size_t)stride_b, (size_t)stride_row}, B, C, H, W,
-                      max_offset, stream);
+                                         int W, int vec, float max_offset,
+                                         void* stream) {
+  return col2im_coord(bf16(dcols), bf16(x), offset, mask, doffset, dmask, B,
+                      C, H, W, vec, max_offset, stream);
 }

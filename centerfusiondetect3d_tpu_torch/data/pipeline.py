@@ -1,16 +1,17 @@
 """Host data pipeline: batching, shuffling, host-to-device transfer.
 
 The port of ``centerfusiondetect3d_tpu/data/pipeline.py`` without its thread
-pool, prefetch queue, sharding and augmentation seeds: ``Loader`` builds
-each batch on the calling thread from any dataset with ``__len__`` and
-``get_item(index, rng)``, in the JAX package's index order, and
+pool, prefetch queue and sharding: ``Loader`` builds each batch on the
+calling thread from any dataset with ``__len__`` and ``get_item(index,
+rng)``, in the JAX package's index order and with its per-item
+augmentation seeds, and
 ``to_device`` moves a stacked batch to the card from pinned memory, laying
 the NHWC maps of the items out NCHW.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -34,16 +35,19 @@ def stack_items(items) -> Dict[str, np.ndarray]:
 class Loader:
     """Iterable over stacked batches of ``batch_size`` items (the last,
     partial batch is dropped), shuffled per epoch from ``seed + epoch`` as
-    the JAX package's loader does. Items are built without augmentation
-    (``get_item(index, None)``). Iterating ends the epoch: ``epoch``
-    advances by one.
+    the JAX package's loader does. ``augment`` (default ``shuffle``, as
+    there) builds item ``i`` of epoch ``e`` with ``get_item(i,
+    np.random.RandomState((seed + e) * 1_000_003 + i))``, the JAX loader's
+    per-item seed; without it ``get_item(i, None)``. Iterating ends the
+    epoch: ``epoch`` advances by one.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, augment: Optional[bool] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
+        self.augment = shuffle if augment is None else bool(augment)
         self.seed = seed
         self.epoch = 0
 
@@ -54,10 +58,12 @@ class Loader:
         indices = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(indices)
+        base = (self.seed + self.epoch) * 1_000_003
         for b in range(len(self)):
             chunk = indices[b * self.batch_size:(b + 1) * self.batch_size]
-            yield stack_items([self.dataset.get_item(int(i), None)
-                               for i in chunk])
+            yield stack_items([self.dataset.get_item(
+                int(i), np.random.RandomState(base + int(i))
+                if self.augment else None) for i in chunk])
         self.epoch += 1
 
 

@@ -12,8 +12,9 @@ are few, modelled in plain PyTorch by :func:`deform_conv2d_tiled_plain`)
 and whose backward launches
 the kernels of ``csrc/dcn_bwd.cu`` (which replace the backward of
 ``deform_conv2d_fast``, ``pallas_dcn.py:409``) around two plain matrix
-products. On the card a kernel launches or the call raises: nothing falls
-back to the plain version.
+products, on pixel-major (B, H*W, 9, C) columns and the channels-last copy
+of x that the forward made. On the card a kernel launches or the call
+raises: nothing falls back to the plain version.
 
 A bfloat16 ``x`` (the mixed-precision model) takes the bf16 kernels: the
 forward :func:`dcn_fwd_bf16` (the tensor-core kernel ``csrc/dcn_fwd_bf16.cu``)
@@ -51,6 +52,10 @@ KERNEL_SOURCE = "dcn_fwd.cu"
 BACKWARD_SOURCE = "dcn_bwd.cu"
 BF16_SOURCE = "dcn_fwd_bf16.cu"
 KERNEL_SOURCES = (KERNEL_SOURCE, BACKWARD_SOURCE, BF16_SOURCE)
+# the backward kernels read x channels-last (the copy the forward made),
+# their columns pixel-major; tools/compare_kernels.py lays each tree's
+# inputs out as that tree's kernels read them
+BACKWARD_X_CHANNELS_LAST = True
 
 
 def _plain_taps(x, offset, mask, max_offset):
@@ -143,7 +148,7 @@ _FWD_TARGET_BLOCKS = 264
 # (dcn_fwd_common.cuh: Overlapped) where it fits (not the bf16 256-channel
 # tile), for tools/compare_kernels.py --overlap; the bitwise same output
 FWD_OVERLAP = False
-_FWD_VECTOR = {torch.bfloat16: 8, torch.float32: 4}  # channels per 16 bytes
+_VECTOR = {torch.bfloat16: 8, torch.float32: 4}  # channels per 16 bytes
 
 
 class FwdPlan(NamedTuple):
@@ -237,18 +242,19 @@ def deform_conv2d_tiled_plain(x, offset, mask, weight, bias=None,
 
 def dcn_im2col_plain(x, offset, mask, max_offset: Optional[float] = None):
     """Plain version of the ``dcn_im2col`` kernel: the modulated sampled
-    columns (B, 9C, H*W), row ``c*9 + k``, the row order of
-    ``weight.reshape(O, 9C)``."""
-    b, c, h, w = x.shape
+    columns, pixel-major (B, H*W, 9, C): ``cols[b, p, k, c]`` is tap k of
+    channel c at pixel p, so that a pixel's 9*C values (tap-major, channels
+    fastest) are one row of the (B*H*W, 9C) GEMM operand."""
     taps = [tap for _, _, tap in _plain_taps(x, offset, mask, max_offset)]
-    return torch.stack(taps, dim=2).reshape(b, 9 * c, h * w)
+    return torch.stack(taps, dim=1).permute(0, 3, 1, 2).contiguous()
 
 
 def dcn_col2im_plain(dcols, x, offset, mask,
                      max_offset: Optional[float] = None):
-    """Plain version of the ``dcn_col2im`` kernel: dx, the gradient of
-    :func:`dcn_im2col_plain` with respect to x for column gradients
-    ``dcols`` (x only gives the shape: the columns are linear in it)."""
+    """Plain version of the ``dcn_col2im`` kernel: dx (B, C, H, W), the
+    gradient of :func:`dcn_im2col_plain` with respect to x for column
+    gradients ``dcols`` (B, H*W, 9, C) (x only gives the shape: the columns
+    are linear in it)."""
     with torch.enable_grad():
         xs = torch.zeros_like(x).requires_grad_(True)
         cols = dcn_im2col_plain(xs, offset.detach(), mask.detach(),
@@ -302,7 +308,7 @@ def dcn_inverse_map_plain(offset, mask, h: int, w: int,
     ``[ends[bq-1], ends[bq])`` (from 0 for bq = 0), one per tap k and output
     pixel p whose sample has a corner on q inside the image with a non-zero
     weight ``mask * wy * wx``: the key ``p*9 + k`` (the row of the sample's
-    channels in the kernels' transposed columns) in increasing order, and
+    channels in the pixel-major column gradients) in increasing order, and
     the weight.
     """
     b = offset.shape[0]
@@ -323,10 +329,10 @@ def dcn_col2im_gather_plain(dcols, offset, mask, h: int, w: int,
                             max_offset: Optional[float] = None):
     """Plain model of the ``dcn_col2im`` kernels' gather: dx (B, C, H, W)
     as the segment sums over :func:`dcn_inverse_map_plain`'s map of
-    ``weight * dcols[b, c*9+k, p]``. Sums in float32 (float64 for float64
-    column gradients), one rounding to dcols' dtype."""
-    b, rows, hw = dcols.shape
-    c = rows // 9
+    ``weight * dcols[b, p, k, c]`` (dcols (B, H*W, 9, C)). Sums in float32
+    (float64 for float64 column gradients), one rounding to dcols'
+    dtype."""
+    b, hw, _, c = dcols.shape
     acc = torch.float64 if dcols.dtype == torch.float64 else torch.float32
     ends, keys, weights = dcn_inverse_map_plain(offset, mask, h, w,
                                                 max_offset)
@@ -337,7 +343,7 @@ def dcn_col2im_gather_plain(dcols, offset, mask, h: int, w: int,
     bi = torch.div(seg, hw, rounding_mode="floor")
     p = torch.div(keys, 9, rounding_mode="floor")
     k = keys - 9 * p
-    g = dcols.to(acc).reshape(b, c, 9, hw)[bi, :, k, p]  # (entries, C)
+    g = dcols.to(acc)[bi, p, k]  # (entries, C)
     dx = torch.zeros((b * hw, c), dtype=acc, device=dcols.device)
     dx.index_add_(0, seg, weights.to(acc)[:, None] * g)
     return dx.view(b, h, w, c).permute(0, 3, 1, 2).contiguous().to(
@@ -348,7 +354,7 @@ def dcn_col2im_coord_plain(dcols, x, offset, mask,
                            max_offset: Optional[float] = None):
     """Plain version of the ``dcn_col2im_coord`` kernel: (doffset, dmask),
     the gradients of :func:`dcn_im2col_plain` with respect to offset and
-    mask for column gradients ``dcols``."""
+    mask for column gradients ``dcols`` (B, H*W, 9, C)."""
     with torch.enable_grad():
         leaves = [offset.detach().requires_grad_(True),
                   mask.detach().requires_grad_(True)]
@@ -407,14 +413,10 @@ def deform_conv2d_bf16_backward_plain(x, offset, mask, weight, bias,
     which run in float32 on the widened bf16 values (a product of two bf16
     values is exact in float32) and are rounded where the card's bf16
     products round: dweight and the column gradients once each."""
-    b, c, h, w = x.shape
-    o = weight.shape[0]
-    g = grad_out.float().reshape(b, o, h * w)
+    g = grad_out.float()
     cols = dcn_im2col_bf16_plain(x, offset, mask, max_offset).float()
-    dweight = torch.matmul(g, cols.transpose(1, 2)).sum(0)
-    dweight = dweight.view(o, c, 3, 3).to(torch.bfloat16)
-    dcols = torch.matmul(weight.float().reshape(o, 9 * c).t(),
-                         g).to(torch.bfloat16)
+    dweight = weight_gradient(g, cols).to(torch.bfloat16)
+    dcols = column_gradients(weight.float(), g).to(torch.bfloat16)
     dx = dcn_col2im_bf16_plain(dcols, x, offset, mask, max_offset)
     doffset, dmask = dcn_col2im_coord_bf16_plain(dcols, x, offset, mask,
                                                  max_offset)
@@ -461,14 +463,20 @@ deform_conv2d.launches = 0
 class DeformConv2dFunction(torch.autograd.Function):
     """The forward kernel of x's dtype (``dcn_fwd`` or ``dcn_fwd_bf16``);
     backward = the ``dcn_bwd.cu`` kernels of that dtype around two plain
-    GEMMs, recomputing the columns from the saved inputs."""
+    GEMMs, recomputing the columns from the saved inputs.
+
+    The forward reads x channels-last: x itself where it is
+    ``torch.channels_last``, else the copy :func:`dcn_fwd_nhwc` makes. The
+    Function saves that tensor and the backward kernels read it, so a node
+    makes at most one channels-last copy of x for its forward and backward
+    together."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_offset):
         forward = dcn_fwd_bf16 if x.dtype == torch.bfloat16 else _launch
-        out = forward(x, offset, mask, weight, bias, max_offset)
-        # the backward kernels read an NCHW x
-        ctx.save_for_backward(x.contiguous(), offset, mask, weight)
+        xh = dcn_fwd_nhwc(x)
+        out = forward(xh, offset, mask, weight, bias, max_offset)
+        ctx.save_for_backward(xh, offset, mask, weight)
         ctx.has_bias = bias is not None
         ctx.max_offset = max_offset
         return out
@@ -494,15 +502,20 @@ def deform_conv2d_backward(x, offset, mask, weight, grad_out,
     costs nothing (dweight alone needs no ``dcn_col2im``/``dcn_col2im_coord``,
     dx alone no ``dcn_im2col``).
 
-    dweight = sum_b g_b . cols_b^T and dcols = W^T . g are plain matrix
-    products (``torch.matmul``), as the JAX package leaves them to XLA; the
-    rest are the hand-written kernels, those of x's dtype. The columns lie
-    (9C, B, HW), so that each product is one GEMM over the B*HW axis,
-    accumulated in float32; in bf16 each is rounded once: dweight and dbias
-    come back bf16 (the dtypes of the bf16 weight and bias), dx bf16,
-    doffset and dmask float32.
+    x (B, C, H, W) is read channels-last: ``DeformConv2dFunction`` passes
+    the ``torch.channels_last`` copy its forward made; an NCHW x on the card
+    gets its copy here, once. dweight = g . cols and dcols = g^T . W are
+    plain matrix products (``torch.matmul``), as the JAX package leaves
+    them to XLA; the rest are the hand-written kernels, those of x's dtype.
+    The columns and column gradients are pixel-major (B, H*W, 9, C), so
+    that each product is one GEMM over the B*HW axis, accumulated in
+    float32, and col2im and coord read dcols as the GEMM lays it out; in
+    bf16 each product is rounded once: dweight and dbias come back bf16
+    (the dtypes of the bf16 weight and bias), dx bf16, doffset and dmask
+    float32.
     """
-    o, c = weight.shape[:2]
+    if x.device.type == "cuda" and (need_weight or need_offset or need_mask):
+        x = dcn_fwd_nhwc(x)
     if x.dtype == torch.bfloat16:
         im2col, col2im, coord = (dcn_im2col_bf16, dcn_col2im_bf16,
                                  dcn_col2im_coord_bf16)
@@ -511,7 +524,7 @@ def deform_conv2d_backward(x, offset, mask, weight, grad_out,
     dx = doffset = dmask = dweight = dbias = None
     if need_weight:
         cols = im2col(x, offset, mask, max_offset)
-        dweight = weight_gradient(grad_out, cols).view(o, c, 3, 3)
+        dweight = weight_gradient(grad_out, cols)
         del cols
     if need_x or need_offset or need_mask:
         dcols = column_gradients(weight, grad_out)
@@ -528,22 +541,26 @@ def deform_conv2d_backward(x, offset, mask, weight, grad_out,
 
 
 def weight_gradient(grad_out, cols):
-    """dweight = sum_b g_b . cols_b^T, (O, 9C), from the output gradient
-    (B, O, H, W) and the columns (B, 9C, H*W): one GEMM over the B*HW axis
-    (a view of the kernels' columns, which lie (9C, B, H*W) in memory)."""
+    """dweight (O, C, 3, 3) from the output gradient (B, O, H, W) and the
+    pixel-major columns (B, H*W, 9, C): g . cols, one GEMM over the B*HW
+    axis giving (O, 9C) in (k, c) order, laid out as the weight."""
     b, o, h, w = grad_out.shape
-    return torch.matmul(_batch_inner_grad(grad_out),
-                        cols.transpose(0, 1).reshape(-1, b * h * w).t())
+    c = cols.shape[-1]
+    dw = torch.matmul(_batch_inner_grad(grad_out),
+                      cols.reshape(b * h * w, 9 * c))
+    return dw.view(o, 3, 3, c).permute(0, 3, 1, 2).contiguous()
 
 
 def column_gradients(weight, grad_out):
-    """dcols = W^T . g, the column gradients (B, 9C, H*W) of a node with
-    weight (O, C, 3, 3) and output gradient (B, O, H, W): one GEMM over the
-    B*HW axis, lying (9C, B, H*W) in memory."""
+    """dcols (B, H*W, 9, C), pixel-major, of a node with weight
+    (O, C, 3, 3) and output gradient (B, O, H, W): g^T . W_kc, one GEMM
+    over the B*HW axis that writes the layout directly (W_kc, the weight as
+    (O, 9C) in (k, c) order, is a copy of 9*C*O values)."""
     b, o, h, w = grad_out.shape
-    dcols = torch.matmul(weight.reshape(o, -1).t(),
-                         _batch_inner_grad(grad_out))
-    return dcols.view(-1, b, h * w).transpose(0, 1)
+    c = weight.shape[1]
+    w_kc = weight.permute(0, 2, 3, 1).reshape(o, 9 * c)
+    return torch.matmul(_batch_inner_grad(grad_out).t(), w_kc).view(
+        b, h * w, 9, c)
 
 
 def _batch_inner_grad(grad_out):
@@ -553,9 +570,11 @@ def _batch_inner_grad(grad_out):
 
 
 def dcn_im2col(x, offset, mask, max_offset: Optional[float] = None):
-    """The ``dcn_im2col`` kernel: (B, 9C, H*W) columns lying (9C, B, H*W)
-    in memory, as :func:`dcn_im2col_plain` (which runs instead on CPU
-    tensors). ``dcn_im2col.launches`` counts launches."""
+    """The ``dcn_im2col`` kernel: pixel-major (B, H*W, 9, C) columns, as
+    :func:`dcn_im2col_plain` (which runs instead on CPU tensors). The
+    kernel reads x channels-last: a ``torch.channels_last`` x as it is, an
+    NCHW one through its copy (:func:`dcn_fwd_nhwc`).
+    ``dcn_im2col.launches`` counts launches."""
     if x.device.type == "cpu":
         return dcn_im2col_plain(x, offset, mask, max_offset)
     cols = _im2col("cfd_dcn_im2col", torch.float32, x, offset, mask,
@@ -566,7 +585,7 @@ def dcn_im2col(x, offset, mask, max_offset: Optional[float] = None):
 
 def dcn_col2im(dcols, offset, mask, max_offset: Optional[float] = None):
     """The ``dcn_col2im`` kernels: dx (B, C, H, W) from the column gradients
-    (B, 9C, H*W), a gather through the inverse sampling map
+    (B, H*W, 9, C), a gather through the inverse sampling map
     (:func:`dcn_inverse_map`), as :func:`dcn_col2im_plain` (which runs
     instead on CPU tensors). ``dcn_col2im.launches`` counts calls."""
     if dcols.device.type == "cpu":
@@ -602,7 +621,8 @@ dcn_inverse_map.launches = 0
 def dcn_col2im_coord(dcols, x, offset, mask,
                      max_offset: Optional[float] = None):
     """The ``dcn_col2im_coord`` kernel: (doffset (B, 18, H, W), dmask
-    (B, 9, H, W)) from the column gradients and the saved inputs, as
+    (B, 9, H, W)) from the column gradients (B, H*W, 9, C) and the saved
+    inputs, x read channels-last as :func:`dcn_im2col` reads it; as
     :func:`dcn_col2im_coord_plain` (which runs instead on CPU tensors).
     ``dcn_col2im_coord.launches`` counts launches."""
     if x.device.type == "cpu":
@@ -635,7 +655,7 @@ def dcn_im2col_bf16(x, offset, mask, max_offset: Optional[float] = None):
 
 def dcn_col2im_bf16(dcols, offset, mask, max_offset: Optional[float] = None):
     """The ``dcn_col2im_bf16`` kernels: bf16 dx (B, C, H, W) from bf16
-    column gradients (B, 9C, H*W), the gather of :func:`dcn_col2im` summed
+    column gradients (B, H*W, 9, C), the gather of :func:`dcn_col2im` summed
     in float32 registers and rounded once; as :func:`dcn_col2im_bf16_plain`
     (which runs instead on CPU tensors). ``dcn_col2im_bf16.launches``
     counts calls."""
@@ -672,15 +692,24 @@ BACKWARD_KERNELS_BF16 = {"dcn_im2col_bf16": dcn_im2col_bf16,
 
 
 def _im2col(name, dtype, x, offset, mask, max_offset):
-    """Launches im2col kernel ``name`` on an x of ``dtype``: columns
-    (B, 9C, H*W) of ``dtype``, lying (9C, B, H*W) in memory."""
+    """Launches im2col kernel ``name`` on an x of ``dtype`` (read
+    channels-last): columns (B, H*W, 9, C) of ``dtype``."""
     _require_cuda(x)
-    b, c, h, w = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype)
-    cols = torch.empty((9 * c, b, h * w), device=x.device,
-                       dtype=dtype).transpose(0, 1)
-    _run(x, name, x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-         cols.data_ptr(), b, c, h, w, *cols.stride()[:2], _clamp(max_offset))
+    b, c, h, w = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype,
+                                 channels_last=True)
+    xh = dcn_fwd_nhwc(x)
+    cols = torch.empty((b, h * w, 9, c), device=x.device, dtype=dtype)
+    _run(x, name, xh.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+         cols.data_ptr(), b, c, h, w, _vec(c, xh, cols), _clamp(max_offset))
     return cols
+
+
+def _vec(c: int, *tensors) -> int:
+    """1 where the kernels may move C channels as 16-byte vectors: C a
+    multiple of the vector and every tensor 16-byte aligned; else 0 (the
+    element-wise path)."""
+    return int(c % _VECTOR[tensors[0].dtype] == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 # blocks of the kernels that sort and sum the long segments of col2im's map
@@ -740,43 +769,48 @@ def _inverse_map(offset, mask, max_offset):
 
 
 def _col2im(name, dtype, dcols, offset, mask, max_offset):
-    """Builds the map and launches col2im ``name`` (the transpose of the
-    column gradients into a (B, H*W, 9, C rounded up to 32) scratch, then
-    the gather) on column gradients of ``dtype``: dx (B, C, H, W) of
-    ``dtype``."""
+    """Builds the map and launches col2im ``name`` (the gathers) on column
+    gradients of ``dtype``: dx (B, C, H, W) of ``dtype``. The gather reads
+    rows of C rounded up to 32 channels, 16-byte aligned: dcols as the GEMM
+    wrote it where C is a multiple of 32 (every model node), else a padded
+    copy."""
     _require_cuda(dcols)
     b, c, h, w = _check_columns(dcols, offset, mask, max_offset, dtype)
     count, ends, entries, long_q = _inverse_map(offset, mask, max_offset)
-    dcols_t = torch.empty((b, h * w, 9, -(-c // 32) * 32),
-                          device=dcols.device, dtype=dtype)
+    if c % 32 or dcols.data_ptr() % 16:
+        padded = dcols.new_zeros((b, h * w, 9, -(-c // 32) * 32))
+        padded[..., :c] = dcols
+        dcols = padded
     dx = torch.empty((b, c, h, w), device=dcols.device, dtype=dtype)
     _run(dcols, name, dcols.data_ptr(), count.data_ptr(), ends.data_ptr(),
-         entries.data_ptr(), long_q.data_ptr(), dcols_t.data_ptr(),
-         dx.data_ptr(), b, c, h, w, _LONG_BLOCKS, *dcols.stride()[:2])
+         entries.data_ptr(), long_q.data_ptr(), dx.data_ptr(), b, c, h, w,
+         _LONG_BLOCKS)
     return dx
 
 
 def _coord(name, dtype, dcols, x, offset, mask, max_offset):
     """Launches col2im_coord kernel ``name`` on column gradients and x of
-    ``dtype``: float32 (doffset, dmask)."""
+    ``dtype`` (x read channels-last): float32 (doffset, dmask)."""
     _require_cuda(x)
-    b, c, h, w = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype)
+    b, c, h, w = _check_sampling(x, offset, mask, max_offset, x_dtype=dtype,
+                                 channels_last=True)
     if _check_columns(dcols, offset, mask, max_offset, dtype) != (b, c, h, w):
-        raise ValueError(f"dcols must be ({b}, {9 * c}, {h * w}), got "
+        raise ValueError(f"dcols must be ({b}, {h * w}, 9, {c}), got "
                          f"{tuple(dcols.shape)}")
+    xh = dcn_fwd_nhwc(x)
     doffset = torch.empty_like(offset)
     dmask = torch.empty_like(mask)
-    _run(x, name, dcols.data_ptr(), x.data_ptr(), offset.data_ptr(),
+    _run(x, name, dcols.data_ptr(), xh.data_ptr(), offset.data_ptr(),
          mask.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), b, c, h, w,
-         *dcols.stride()[:2], _clamp(max_offset))
+         _vec(c, xh, dcols), _clamp(max_offset))
     return doffset, dmask
 
 
 def _like_x(dcols, offset):
     """An empty x (B, C, H, W) for the plain col2im, which takes only its
     shape."""
-    b, rows, _ = dcols.shape
-    return dcols.new_empty((b, rows // 9) + tuple(offset.shape[2:]))
+    return dcols.new_empty((dcols.shape[0], dcols.shape[3])
+                           + tuple(offset.shape[2:]))
 
 
 def dcn_fwd_bf16(x, offset, mask, weight, bias=None,
@@ -885,9 +919,7 @@ def _forward(name, x, offset, mask, weight, bias, o, max_offset):
     partial = (torch.empty((plan.splits, o, b * h * w), device=x.device,
                            dtype=torch.float32)
                if plan.splits > 1 else None)
-    vec = int(c % _FWD_VECTOR[x.dtype] == 0
-              and (x if xh is None else xh).data_ptr() % 16 == 0
-              and weight.data_ptr() % 16 == 0)
+    vec = _vec(c, x if xh is None else xh, weight)
     overlap = int(FWD_OVERLAP and (x.dtype != torch.bfloat16
                                    or plan.tile_o <= 128))
     _run(x, name, x.data_ptr(), xh.data_ptr() if xh is not None else None,
@@ -929,27 +961,26 @@ def _check_sampling(x, offset, mask, max_offset, x_dtype=torch.float32,
 
 
 def _check_columns(dcols, offset, mask, max_offset, dtype=torch.float32):
-    """Checks (B, 9C, H*W) column gradients of ``dtype`` against offset and
-    mask (:func:`_check_offset_mask`): any strides over B and the rows (the
-    kernels take them), the pixels contiguous; returns (B, C, H, W)."""
+    """Checks contiguous (B, H*W, 9, C) column gradients of ``dtype``
+    against offset and mask (:func:`_check_offset_mask`); returns
+    (B, C, H, W)."""
     if dcols.dtype != dtype:
         raise TypeError(f"deform_conv2d: dcols must be {str(dtype)[6:]}, "
                         f"got {dcols.dtype}")
-    if dcols.dim() != 3:
-        raise ValueError(f"deform_conv2d: dcols must be 3-D, got "
+    if dcols.dim() != 4 or dcols.shape[2] != 9:
+        raise ValueError(f"deform_conv2d: dcols must be (B, H*W, 9, C), got "
                          f"{tuple(dcols.shape)}")
-    b, rows, hw = dcols.shape
-    if hw > 1 and dcols.stride(2) != 1:
-        raise ValueError("deform_conv2d: the pixels of dcols must be "
-                         "contiguous")
-    if (rows % 9 or offset.dim() != 4 or offset.shape[0] != b
+    if not dcols.is_contiguous():
+        raise ValueError("deform_conv2d: dcols must be contiguous")
+    b, hw, _, c = dcols.shape
+    if (offset.dim() != 4 or offset.shape[0] != b
             or hw != offset.shape[2] * offset.shape[3]):
         raise ValueError(f"dcols {tuple(dcols.shape)} does not match offset "
                          f"{tuple(offset.shape)}")
     _, h, w = _check_offset_mask(offset, mask, max_offset)
     if offset.device != dcols.device:
         raise ValueError("deform_conv2d: all tensors must be on one device")
-    return b, rows // 9, h, w
+    return b, c, h, w
 
 
 def _require_cuda(t) -> None:
@@ -961,22 +992,21 @@ def _clamp(max_offset) -> float:
     return -1.0 if max_offset is None else float(max_offset)
 
 
-# C signatures: pointer arguments, then the int shape arguments, then the
-# int64 column strides (stride_b, stride_row), then the float clamp (where
-# the entry point takes one) and the stream
+# C signatures: pointer arguments, then the int arguments, then the float
+# clamp (where the entry point takes one) and the stream
 _SIGNATURES = {
-    "cfd_dcn_fwd": (KERNEL_SOURCE, 8, 11, 0, 1),
-    "cfd_dcn_fwd_nhwc": (KERNEL_SOURCE, 2, 3, 0, 0),
-    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 8, 11, 0, 1),
-    "cfd_dcn_fwd_bf16_nhwc": (BF16_SOURCE, 2, 3, 0, 0),
-    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 4, 2, 1),
-    "cfd_dcn_col2im_count": (BACKWARD_SOURCE, 5, 3, 0, 1),
-    "cfd_dcn_col2im_fill": (BACKWARD_SOURCE, 7, 4, 0, 1),
-    "cfd_dcn_col2im": (BACKWARD_SOURCE, 7, 5, 2, 0),
-    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 4, 2, 1),
-    "cfd_dcn_im2col_bf16": (BACKWARD_SOURCE, 4, 4, 2, 1),
-    "cfd_dcn_col2im_bf16": (BACKWARD_SOURCE, 7, 5, 2, 0),
-    "cfd_dcn_col2im_coord_bf16": (BACKWARD_SOURCE, 6, 4, 2, 1),
+    "cfd_dcn_fwd": (KERNEL_SOURCE, 8, 11, 1),
+    "cfd_dcn_fwd_nhwc": (KERNEL_SOURCE, 2, 3, 0),
+    "cfd_dcn_fwd_bf16": (BF16_SOURCE, 8, 11, 1),
+    "cfd_dcn_fwd_bf16_nhwc": (BF16_SOURCE, 2, 3, 0),
+    "cfd_dcn_im2col": (BACKWARD_SOURCE, 4, 5, 1),
+    "cfd_dcn_col2im_count": (BACKWARD_SOURCE, 5, 3, 1),
+    "cfd_dcn_col2im_fill": (BACKWARD_SOURCE, 7, 4, 1),
+    "cfd_dcn_col2im": (BACKWARD_SOURCE, 6, 5, 0),
+    "cfd_dcn_col2im_coord": (BACKWARD_SOURCE, 6, 5, 1),
+    "cfd_dcn_im2col_bf16": (BACKWARD_SOURCE, 4, 5, 1),
+    "cfd_dcn_col2im_bf16": (BACKWARD_SOURCE, 6, 5, 0),
+    "cfd_dcn_col2im_coord_bf16": (BACKWARD_SOURCE, 6, 5, 1),
 }
 
 
@@ -987,11 +1017,10 @@ def _entry(name: str):
     """The C entry point ``name``, built (once) and loaded."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        source, n_ptr, n_int, n_stride, n_float = _SIGNATURES[name]
+        source, n_ptr, n_int, n_float = _SIGNATURES[name]
         fn = getattr(load_kernel_library(source).lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_int64] * n_stride
                        + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         _ENTRIES[name] = fn
     return fn

@@ -118,7 +118,8 @@ class Trainer:
             self.init_state()
         self._refuse_validation()
         loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
-                        shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED)
+                        shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED,
+                        augment=True)
         accum = int(cfg.TRAIN.get("GRAD_ACCUM", 1))
         for epoch in range(self.start_epoch, cfg.TRAIN.EPOCHS):
             frozen = (bool(cfg.MODEL.FREEZE_BACKBONE)

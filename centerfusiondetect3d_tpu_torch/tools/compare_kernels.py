@@ -7,29 +7,41 @@
         --batch 6                # serving's batch of 6 cameras
     python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
         --overlap --kernel dcn_fwd --kernel dcn_fwd_bf16 --batch 6
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel dcn_im2col_bf16 \\
+        --kernel dcn_col2im_coord_bf16 --kernel dcn_backward_bf16
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
 ``ops/dcn.py`` is imported beside this tree's as ``cfd_other.ops.dcn``, and
 its kernels build from its own sources into its own ``_build/``. Each
 ``--kernel`` (a DCN kernel wrapper of both trees: ``dcn_fwd``,
-``dcn_fwd_bf16``, the three backward kernels of either dtype) runs at every
+``dcn_fwd_bf16``, the three backward kernels of either dtype; or
+``dcn_backward`` / ``dcn_backward_bf16``, the whole
+``deform_conv2d_backward`` of one dtype, its GEMMs and copies included)
+runs at every
 distinct DCN node shape of the training main path (``runtime/synthetic.py``:
 ``MAIN_PATH_OPTS`` and ``TRAIN_OPTS``, 448x800, microbatches of 13, the
 shapes recorded by hooks in one frozen ``train_step``) on the same seeded
 inputs in both trees; ``--batch N`` replaces the microbatch with N (6:
-serving's node shapes, one image per camera). The two outputs are held
-against each other within 1e-4 (float32) or 8e-3 (bf16) relative to the
-largest magnitude. With ``--overlap`` in place of ``--other`` the other
+serving's node shapes, one image per camera). Each tree's backward kernel
+gets the inputs in that tree's own layouts: x as its backward reads it
+(channels-last where the module says ``BACKWARD_X_CHANNELS_LAST``, as its
+autograd Function saves it; else NCHW) and the column gradients from its
+own ``column_gradients``, all made from the same seeded values. The two
+outputs are held against each other in a layout-free form (im2col's
+columns through each tree's ``weight_gradient``, as dweight (O, C, 3, 3);
+the other outputs as they come) within 1e-4 (float32) or 8e-3 (bf16)
+relative to the largest magnitude. With ``--overlap`` in place of ``--other`` the other
 side is this tree's forward kernels in their in-block overlap variant
 (``ops/dcn.py:FWD_OVERLAP``; the bf16 kernel's 256-channel tile has none
 and runs as it is), whose output must equal the kernels' bitwise. Then
 each kernel is timed with CUDA events in turns
 (other, this, this, other, ...), medians of 11 after one warm-up call of
-each, one call per event pair (host work included); the forward kernels
-also by their device time alone (one event pair around 200 calls queued
-behind a sleep of the stream), in turns (other, this, this, other; the
-means). Prints the card, one line per
+each, one call per event pair (host work included); then by their
+device time alone (one event pair around 200 calls, 40 of a whole
+backward, queued behind a sleep of the stream), in turns (other, this,
+this, other; the means). Prints the card, one line per
 kernel and shape, the sums per model forward (over the 16 nodes) and, at
 the training microbatch, per unfrozen training step (over the nodes and
 microbatches), and a JSON line with every number. Card only.
@@ -64,23 +76,35 @@ PACKAGE = "centerfusiondetect3d_tpu_torch"
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 REPS = 11  # timed calls of each tree per kernel and shape
 FORWARD = ("dcn_fwd", "dcn_fwd_bf16")
+BACKWARD = ("dcn_backward", "dcn_backward_bf16")
+BACKWARD_DEVICE_LAUNCHES = 40  # calls per device-time pair of a backward
 SEED = 0
 
 
 def kernel_call(name: str, module, inputs):
-    """A no-argument call of kernel ``name`` of ``module`` (an ``ops/dcn.py``)
-    on ``inputs``."""
-    x, off, mask, wt, bias, dcols = inputs
+    """(call, layout_free): a no-argument call of kernel ``name`` of
+    ``module`` (an ``ops/dcn.py``) on ``inputs`` laid out as that module's
+    kernels take them, and the function that puts the call's output in a
+    form both trees share."""
+    x, off, mask, wt, bias, g = inputs
+    same = lambda out: out
     if name == "dcn_fwd":
-        return lambda: module.deform_conv2d(x, off, mask, wt, bias)
+        return lambda: module.deform_conv2d(x, off, mask, wt, bias), same
     if name == "dcn_fwd_bf16":
-        return lambda: module.dcn_fwd_bf16(x, off, mask, wt, bias)
+        return lambda: module.dcn_fwd_bf16(x, off, mask, wt, bias), same
+    if getattr(module, "BACKWARD_X_CHANNELS_LAST", False):
+        x = module.dcn_fwd_nhwc(x)
+    if name in BACKWARD:
+        return (lambda: module.deform_conv2d_backward(x, off, mask, wt, g),
+                same)
     fn = getattr(module, name)
     if "im2col" in name:
-        return lambda: fn(x, off, mask)
+        return lambda: fn(x, off, mask), lambda cols: module.weight_gradient(
+            g, cols).reshape(wt.shape)
+    dcols = module.column_gradients(wt, g)
     if "coord" in name:
-        return lambda: fn(dcols, x, off, mask)
-    return lambda: fn(dcols, off, mask)
+        return lambda: fn(dcols, x, off, mask), same
+    return lambda: fn(dcols, off, mask), same
 
 
 def overlap_call(fn):
@@ -100,7 +124,7 @@ def dtype_of(name: str):
 
 
 KERNELS = ("dcn_fwd", "dcn_fwd_bf16", *dcn.BACKWARD_KERNELS,
-           *dcn.BACKWARD_KERNELS_BF16)
+           *dcn.BACKWARD_KERNELS_BF16, *BACKWARD)
 
 
 def load_other(root: str):
@@ -150,7 +174,7 @@ def at_batch(shapes, batch=None):
 
 
 def node_inputs(shape, dtype, device, seed: int):
-    """x, offset, mask, weight, bias and column gradients of one node: x and
+    """x, offset, mask, weight, bias and output gradient of one node: x and
     the output gradient N(0, 1), offsets N(0, 1.5 px) with 2% pushed to
     8-12 px, a sigmoided mask, weight 0.05 N(0, 1), bias N(0, 1); x, weight,
     bias and the gradient in ``dtype``, offset and mask float32."""
@@ -168,12 +192,13 @@ def node_inputs(shape, dtype, device, seed: int):
     mask = torch.sigmoid(randn(b, 9, h, w))
     wt, bias, g = 0.05 * randn(o, c, 3, 3), randn(o), randn(b, o, h, w)
     x, wt, bias, g = (t.to(dtype) for t in (x, wt, bias, g))
-    return x, off, mask, wt, bias, dcn.column_gradients(wt, g)
+    return x, off, mask, wt, bias, g
 
 
 def rel_err(got, want) -> float:
     if isinstance(got, tuple):
-        return max(rel_err(a, b) for a, b in zip(got, want))
+        return max(rel_err(a, b) for a, b in zip(got, want)
+                   if a is not None)
     got, want = got.float(), want.float()
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-30)
@@ -246,11 +271,12 @@ def main(argv=None) -> int:
         dtype, rows = dtype_of(name), []
         for i, shape in enumerate(sorted(set(shapes), key=shapes.index)):
             inputs = node_inputs(shape, dtype, device, SEED + i)
-            fn_this = kernel_call(name, dcn, inputs)
-            fn_other = (overlap_call(fn_this) if args.overlap
-                        else kernel_call(name, other, inputs))
+            fn_this, free_this = kernel_call(name, dcn, inputs)
+            fn_other, free_other = ((overlap_call(fn_this), free_this)
+                                    if args.overlap
+                                    else kernel_call(name, other, inputs))
             with torch.no_grad():
-                got, want = fn_this(), fn_other()
+                got, want = free_this(fn_this()), free_other(fn_other())
                 rel = rel_err(got, want)
                 if args.overlap and not torch.equal(got, want):
                     raise SystemExit(
@@ -271,20 +297,21 @@ def main(argv=None) -> int:
                                               or shape[4] <= 128)
                     if not row["overlap_variant"]:
                         line += " (no overlap variant: the same kernel)"
-                if name in FORWARD:
-                    dev = ([], [])
-                    for which in (0, 1, 1, 0):
-                        dev[which].append(time_device(
-                            (fn_other, fn_this)[which]))
-                    row["other_device_ms"] = statistics.mean(dev[0])
-                    row["device_ms"] = statistics.mean(dev[1])
-                    line += (f"; device alone this {row['device_ms']:.4f} "
-                             f"ms, other {row['other_device_ms']:.4f} ms")
+                dev = ([], [])
+                n = BACKWARD_DEVICE_LAUNCHES if name in BACKWARD else None
+                for which in (0, 1, 1, 0):
+                    fn = (fn_other, fn_this)[which]
+                    dev[which].append(time_device(fn) if n is None
+                                      else time_device(fn, n))
+                row["other_device_ms"] = statistics.mean(dev[0])
+                row["device_ms"] = statistics.mean(dev[1])
+                line += (f"; device alone this {row['device_ms']:.4f} "
+                         f"ms, other {row['other_device_ms']:.4f} ms")
             rows.append(row)
             print(f"{line} (rel err {rel:.2e})")
             del inputs, fn_this, fn_other, got, want
-        keys = ["ms", "other_ms"] + (["device_ms", "other_device_ms"]
-                                     if name in FORWARD else [])
+            torch.cuda.empty_cache()
+        keys = ["ms", "other_ms", "device_ms", "other_device_ms"]
         per_forward = {k: sum(r[k] * r["nodes"] for r in rows) for k in keys}
         entry = {"per_node_shape": rows, "per_forward": per_forward}
         print(f"{name} per forward ({len(shapes)} nodes at B={batch}): "

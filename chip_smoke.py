@@ -42,16 +42,19 @@ On the card it:
    deviation (not bounded: the weights are seeded, not trained);
 9. holds the DCN backward kernels (``csrc/dcn_bwd.cu``: ``dcn_im2col``,
    ``dcn_col2im`` (a gather through an inverse sampling map),
-   ``dcn_col2im_coord``, around two plain GEMMs) against the plain backward
-   (autograd of the plain DCN) at every distinct node shape with B=2, at
-   max_offset None, 8 and 1, each kernel also against its own plain
-   version, and times the backward, its parts and the plain backward; at
-   the training microbatch it times the forward, the backward and
-   ``dcn_col2im``, holding ``dcn_col2im`` and the forward kernel against
-   their plain versions on the inputs they are timed on (the forward at
-   max_offset None, 8 and 1, and at the largest shape on collapsed
-   offsets: the microbatch gives the forward other pixel tiles and splits
-   than phases 3 and 4), reports the map's entries per pixel and bytes,
+   ``dcn_col2im_coord``, on pixel-major columns and a channels-last x,
+   around two plain GEMMs) against the plain backward (autograd of the
+   plain DCN) at every distinct node shape with B=2, at max_offset None, 8
+   and 1, each kernel also against its own plain version, and times the
+   backward, its parts, the plain backward and, beside ``dcn_im2col``, its
+   library yardstick ``grid_sample`` (``sample_grid``); at the training
+   microbatch it times the forward, the backward and ``dcn_col2im``, and
+   ``dcn_im2col`` and ``dcn_col2im_coord`` per call and by their device
+   time alone beside ``grid_sample``'s, holding each of them and the
+   forward kernel against their plain versions on the inputs they are
+   timed on (max_offset None, 8 and 1, and at the largest shape collapsed
+   offsets: the microbatch gives the kernels other pixel tiles and splits
+   than the B=2 checks), reports the map's entries per pixel and bytes,
    and at the largest shape checks and times ``dcn_col2im`` on offsets
    that collapse every tap onto one pixel (at B=2 and at the microbatch);
 10. trains with ``runtime/fit.py:Trainer`` at the same full width in float32:
@@ -64,9 +67,10 @@ On the card it:
    the step moves the live parameters, that the kernels
    launched once per DCN node per microbatch (the backward ones only in
    unfrozen steps), and that parameters, optimizer state and checkpoint
-   tensors are float32; reports ms per step, images/s and peak memory; the
-   Trainer writes its last epoch's reference ``.pt`` checkpoint into a
-   temporary ``OUTPUT_DIR``, which must read back equal to the model;
+   tensors are float32; reports ms per step, images/s and peak memory
+   (per phase); the Trainer writes its last epoch's reference ``.pt``
+   checkpoint into a temporary ``OUTPUT_DIR``, which must read back equal
+   to the model;
 11. runs one unfrozen train step of B=2 at full width with
    ``MODEL.NORM_EVAL True`` on the same seeded weights (BatchNorm at its
    initial statistics) and batch: with the kernel DCN, the plain DCN, and the
@@ -123,6 +127,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from centerfusiondetect3d_tpu_torch.config import load_config
 from centerfusiondetect3d_tpu_torch.data.pipeline import stack_items, to_device
@@ -200,11 +205,14 @@ GRAD_NAMES = ("dx", "doffset", "dmask", "dweight", "dbias")
 # dbias may round to the neighbouring bf16 value
 BF16_OUTPUTS = {"dcn_im2col_bf16", "dcn_col2im_bf16"}
 COL2IM = ("dcn_col2im", "dcn_col2im_bf16")
+# the kernels on the sampling front end, timed at the training microbatch
+SAMPLING = ("dcn_im2col", "dcn_col2im_coord", "dcn_im2col_bf16",
+            "dcn_col2im_coord_bf16")
+IM2COL = ("dcn_im2col", "dcn_im2col_bf16")
 # col2im's design traffic beside the function's own bytes: its inverse
 # sampling map, an 8-byte entry written by the fill, read and written back
 # by the sort and read by the gather, and per pixel a count and a segment
-# end, each written once and read once; and its transposed copy of the
-# column gradients (channels rounded up to 32), written once and read once
+# end, each written once and read once
 MAP_ENTRY_BYTES = 32
 MAP_PIXEL_BYTES = 16
 
@@ -625,15 +633,15 @@ def bwd_bounds(shape, bf16: bool = False):
     tensor cores 989 TFLOP/s) of each part of one node's backward: (flops,
     bytes, bound ms, bound_by) per part and for the whole backward; each
     input read and each output written once. Flops per column element:
-    im2col 7 (4 products, 3 sums), col2im 8 (4 products, 4 adds), coord 25
-    (the sample and its 2 bilinear derivatives, 3 multiply-adds), all fp32;
+    im2col 7 (4 products, 3 sums), col2im 8 (4 products, 4 adds), coord 8
+    (its 4 corner products and their sums over C; the sample and its
+    derivatives follow per (pixel, tap) from the 4 sums), all fp32;
     GEMMs 2 x 2*B*O*9C*HW, fp32 or bf16. In bf16 x, dx, the columns, the
     column gradients, the weight and g are 2 bytes, offset, mask and their
     gradients 4; the whole backward's ops time sums the fp32 kernels' and
     the bf16 GEMMs' times. The bytes are the function's own: col2im's
     inverse sampling map is the design's traffic, not the function's
-    (``map_stats``, reported beside the bound as ``map_mbytes``), and so is
-    its transposed copy of the column gradients (``transpose_mbytes``)."""
+    (``map_stats``, reported beside the bound as ``map_mbytes``)."""
     b, c, h, w, o = shape
     hw = h * w
     cols = 9 * b * c * hw
@@ -643,7 +651,7 @@ def bwd_bounds(shape, bf16: bool = False):
     parts = {
         "im2col": (7 * cols, 0, e * (x + cols) + 4 * om),
         "col2im": (8 * cols, 0, e * (cols + x) + 4 * om),
-        "col2im_coord": (25 * cols, 0, e * (cols + x) + 8 * om),
+        "col2im_coord": (8 * cols, 0, e * (cols + x) + 8 * om),
         "gemms": (0, 4 * b * o * 9 * c * hw, e * (g + cols + wt + wt + cols)),
     }
     parts["backward"] = (sum(p[0] for p in parts.values()),
@@ -675,11 +683,85 @@ def map_stats(offset, mask):
                            + MAP_PIXEL_BYTES * pixels) / 1e6}
 
 
-def transpose_mbytes(shape, bf16: bool) -> float:
-    """MB that col2im's transposed copy of the column gradients moves: the
-    (B, HW, 9, C rounded up to 32) scratch written once and read once."""
-    b, c, h, w = shape[:4]
-    return 2 * (2 if bf16 else 4) * b * h * w * 9 * (-(-c // 32) * 32) / 1e6
+def sample_grid(offset, h: int, w: int, dtype):
+    """``grid_sample``'s grid (B, 9*H, W, 2) of the 9*H*W sample positions
+    of a node (no clamp): tap k of pixel (y, x) samples (y + k // 3 - 1 +
+    dy_k, x + k % 3 - 1 + dx_k), at row k*H + y, normalized for
+    ``align_corners=True`` (-1 and 1 are the centres of the first and last
+    pixels), in ``dtype``."""
+    b = offset.shape[0]
+    tap = torch.arange(9, device=offset.device)
+    ys = (torch.arange(h, device=offset.device)[None, :, None]
+          + (tap // 3 - 1)[:, None, None])
+    xs = (torch.arange(w, device=offset.device)[None, None, :]
+          + (tap % 3 - 1)[:, None, None])
+    py = ys + offset[:, 0::2]
+    px = xs + offset[:, 1::2]
+    grid = torch.stack([2 * px / max(w - 1, 1) - 1,
+                        2 * py / max(h - 1, 1) - 1], -1)
+    return grid.reshape(b, 9 * h, w, 2).to(dtype)
+
+
+def grid_sample_call(x, offset):
+    """One PyTorch call that samples what ``dcn_im2col`` samples: bilinear
+    ``F.grid_sample`` with zero padding at the 9*H*W positions of
+    ``sample_grid``. The yardstick of im2col (``library_ms``), never called
+    by the port: it takes an NCHW x and returns (B, C, 9*H, W), and it
+    omits the mask."""
+    xn = x.contiguous()
+    grid = sample_grid(offset, x.shape[2], x.shape[3], x.dtype)
+    return lambda: F.grid_sample(xn, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+
+def micro_sampling(kernels, plains, inputs, collapsed, shape, bf16: bool):
+    """``dcn_im2col`` and ``dcn_col2im_coord`` of one dtype at the training
+    microbatch on ``inputs`` (the channels-last x the backward reads,
+    offset, mask, the GEMM's column gradients): each against its plain
+    version with max_offset in (None, 8, 1) and, where ``collapsed`` is
+    given, on those offsets (im2col's columns within BF16_RTOL in bf16, else
+    GRAD_RTOL); then each timed per call (medians of TIMING_REPS) and by its
+    device time alone (``time_device``), with im2col's yardstick
+    ``grid_sample`` beside it. Returns name -> numbers."""
+    (n_im2col, im2col), (n_coord, coord) = kernels
+    p_im2col, p_coord = plains
+    xh, off, mask, dcols = inputs
+    cases = [(off, m, "") for m in (None, 8.0, 1.0)]
+    if collapsed is not None:
+        cases.append((collapsed, None, ", collapsed offsets"))
+    calls = {
+        n_im2col: (lambda o, m: im2col(xh, o, mask, m),
+                   lambda o, m: p_im2col(xh, o, mask, m),
+                   BF16_RTOL if bf16 else GRAD_RTOL),
+        n_coord: (lambda o, m: coord(dcols, xh, o, mask, m),
+                  lambda o, m: p_coord(dcols, xh, o, mask, m), GRAD_RTOL)}
+    out = {}
+    for name, (kernel, plain, limit) in calls.items():
+        worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        for o, m, what in cases:
+            got, want = kernel(o, m), plain(o, m)
+            pairs = zip(got, want) if name == n_coord else [(got, want)]
+            for a, ref in pairs:
+                rel = rel_err(a.float(), ref.float())
+                if a.dtype != ref.dtype or not (math.isfinite(rel)
+                                                and rel <= limit):
+                    raise AssertionError(
+                        f"{name} ({a.dtype}) disagrees with its plain "
+                        f"version ({ref.dtype}) at {tuple(shape)}, "
+                        f"max_offset={m}{what}: relative {rel:.3e} > "
+                        f"{limit}")
+                worst["max_rel_err"] = max(worst["max_rel_err"], rel)
+                worst["max_abs_err"] = max(worst["max_abs_err"], float(
+                    (a.float() - ref.float()).abs().max()))
+            del got, want
+        call = lambda: kernel(off, None)
+        out[name] = {**worst, "collapsed": collapsed is not None,
+                     "ms": time_one(call, TIMING_REPS),
+                     "device_ms": time_device(call)}
+    library = grid_sample_call(xh, off)
+    out[n_im2col]["library_ms"] = time_one(library, TIMING_REPS)
+    out[n_im2col]["library_device_ms"] = time_device(library)
+    return out
 
 
 def collapsed_offsets(b, h, w, device):
@@ -756,13 +838,15 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
         return tuple(t.bfloat16() for t in tensors) if bf16 else tensors
 
     def calls(x, off, mask, dcols, max_offset=None):
-        """name -> (kernel call, plain call) on the same inputs."""
+        """name -> (kernel call, plain call) on the same inputs; the
+        kernels read x channels-last, as the backward passes it."""
+        xh = dcn.dcn_fwd_nhwc(x)
         return {
-            n_im2col: (lambda: im2col(x, off, mask, max_offset),
+            n_im2col: (lambda: im2col(xh, off, mask, max_offset),
                        lambda: p_im2col(x, off, mask, max_offset)),
             n_col2im: (lambda: col2im(dcols, off, mask, max_offset),
                        lambda: p_col2im(dcols, x, off, mask, max_offset)),
-            n_coord: (lambda: coord(dcols, x, off, mask, max_offset),
+            n_coord: (lambda: coord(dcols, xh, off, mask, max_offset),
                       lambda: p_coord(dcols, x, off, mask, max_offset)),
         }
 
@@ -814,7 +898,6 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
         row = {"shape": list(shape), "nodes": shapes.count(full),
                "max_rel_err": worst, "max_abs_err": errs,
                "map_mbytes": stats["map_mbytes"], "map": stats,
-               "transpose_mbytes": transpose_mbytes(shape, bf16),
                "bound_ms": {k: v[2] for k, v in bounds.items()},
                "bound_by": {k: v[3] for k, v in bounds.items()},
                "gflop": {k: v[0] / 1e9 for k, v in bounds.items()},
@@ -842,6 +925,8 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                 dcn.weight_gradient(g, cols), dcn.column_gradients(wt, g)),
                 TIMING_REPS)
             row["ms"], row["plain_ms"] = ms, plain
+            row["library_ms"] = time_one(grid_sample_call(x, off),
+                                         TIMING_REPS)
             # kernel times at the training microbatch, for the step shares
             mshape = (micro,) + tuple(full[1:])
             mx, moff, mmask, mwt, mbias = dcn_inputs(mshape, device, SEED)
@@ -865,9 +950,15 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                 bf16)
             row["micro_ms"][n_col2im] = time_one(
                 lambda: col2im(mdcols, moff, mmask), TIMING_REPS)
-            row["micro_bound_ms"] = bwd_bounds(mshape, bf16)[n_col2im][2]
+            mbounds = bwd_bounds(mshape, bf16)
+            row["micro_bound_ms"] = mbounds[n_col2im][2]
             row["micro_map"] = map_stats(moff, mmask)
-            row["micro_transpose_mbytes"] = transpose_mbytes(mshape, bf16)
+            row["micro_sampling"] = micro_sampling(
+                ((n_im2col, im2col), (n_coord, coord)), (p_im2col, p_coord),
+                (dcn.dcn_fwd_nhwc(mx), moff, mmask, mdcols), mcoff, mshape,
+                bf16)
+            for name in (n_im2col, n_coord):
+                row["micro_sampling"][name]["bound_ms"] = mbounds[name][2]
             if full == largest:
                 row["collapsed"]["micro_max_rel_err"] = col2im_vs_plain(
                     calls(mx, mcoff, mmask, mdcols)[n_col2im], mshape,
@@ -893,12 +984,19 @@ def check_backward(shapes, device, timed: bool, micro: int, bf16: bool):
                f"rel err {row['micro_forward']['max_rel_err']:.2e} (limit "
                f"{BF16_RTOL if bf16 else KERNEL_RTOL})"
                + f", bound {row['micro_bound_ms']:.4f} ms, map "
-               f"{row['micro_map']['map_mbytes']:.1f} MB, transposed columns "
-               f"{row['micro_transpose_mbytes']:.1f} MB"))
+               f"{row['micro_map']['map_mbytes']:.1f} MB"))
+        if timed:
+            for name, v in row["micro_sampling"].items():
+                log(f"    {name} at B={micro}: {v['ms']:.4f} ms a call, "
+                    f"device {v['device_ms']:.4f} ms, bound "
+                    f"{v['bound_ms']:.4f} ms"
+                    + (f", grid_sample {v['library_ms']:.4f} ms a call, "
+                       f"device {v['library_device_ms']:.4f} ms"
+                       if "library_ms" in v else "")
+                    + f"; rel err {v['max_rel_err']:.2e} against plain")
         log(f"    {n_col2im} map at B={b}: {stats['mean_segment']:.2f} "
             f"entries per pixel, longest segment {stats['longest_segment']}, "
-            f"{stats['map_mbytes']:.2f} MB and transposed columns "
-            f"{row['transpose_mbytes']:.2f} MB beside the function's "
+            f"{stats['map_mbytes']:.2f} MB beside the function's "
             f"{bounds[n_col2im][1] / 1e6:.2f} MB"
             + ("" if "collapsed" not in row else
                f"; collapsed offsets: rel err "
@@ -1003,7 +1101,13 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool, bf16: bool):
         return {n: p.detach().clone() for n, p in model.named_parameters()}
 
     snaps, counts, parts, grads = [snapshot()], [], [], []
+    peaks = {}  # phase -> the largest peak of its steps (bytes)
     def on_step(epoch, step, frozen, metrics):
+        if not rehearsal:
+            phase = "frozen" if frozen else "unfrozen"
+            peaks[phase] = max(peaks.get(phase, 0),
+                               torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
         counts.append(launch_counts())
         snaps.append(snapshot())
         parts.append(metrics)
@@ -1100,7 +1204,9 @@ def _train_main_path(cfg, n_items, device, rehearsal: bool, bf16: bool):
         "precision": "bf16" if bf16 else "float32",
     }
     if not rehearsal:
-        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        report["peak_mem_gb_by_phase"] = {k: v / 1e9
+                                          for k, v in peaks.items()}
+        report["peak_mem_gb"] = max(report["peak_mem_gb_by_phase"].values())
     return report
 
 
@@ -1725,48 +1831,61 @@ def backward_kernel_entry(name, rows, train):
     """The ``kernels`` line's entry of backward kernel ``name``: launches in
     the training main path ``train`` of its dtype; times, plain times and
     bounds per backward of the model at B=2 (the sum over its DCN nodes of
-    ``rows``, the per-shape rows of phase 9 or 12); for col2im also per
-    unfrozen training step (the node times at the microbatch, over the
-    microbatches) with its bound and map bytes, and per node shape its
-    map."""
+    ``rows``, the per-shape rows of phase 9 or 12), and for im2col its
+    yardstick ``grid_sample``'s; per unfrozen training step (the node times
+    at the microbatch, over the microbatches): for col2im its time, bound
+    and map bytes, for im2col and coord their times per call and by device
+    time alone, their bounds and errors against plain there (and im2col's
+    yardstick); per node shape col2im's map."""
+    micro = "micro_sampling"
     entry = {
         "name": name, "route": "cuda",
         "source": "centerfusiondetect3d_tpu_torch/csrc/dcn_bwd.cu",
         "replaces": "centerfusiondetect3d_tpu/ops/pallas_dcn.py:409",
         "launches": train["launches"][name],
-        "max_abs_err": max(r["max_abs_err"][name] for r in rows),
+        "max_abs_err": max([r["max_abs_err"][name] for r in rows]
+                           + [r[micro][name]["max_abs_err"] for r in rows
+                              if name in SAMPLING]),
         "ms": sum(r["ms"][name] * r["nodes"] for r in rows),
         "plain_ms": sum(r["plain_ms"][name] * r["nodes"] for r in rows),
         "bound_ms": sum(r["bound_ms"][name] * r["nodes"] for r in rows),
         "bound_by": "operations" if all(
             r["bound_by"][name] == "operations" for r in rows) else "bytes",
-        "library_ms": None,
+        "library_ms": (sum(r["library_ms"] * r["nodes"] for r in rows)
+                       if name in IM2COL else None),
         "per_node_shape": [
             {"shape": r["shape"], "nodes": r["nodes"],
              "ms": r["ms"][name], "plain_ms": r["plain_ms"][name],
              "bound_ms": r["bound_ms"][name],
              "max_abs_err": r["max_abs_err"][name],
+             **({"library_ms": r["library_ms"]} if name in IM2COL else {}),
+             **({micro: r[micro][name]} if name in SAMPLING else {}),
              **({"map": r["map"], "map_mbytes": r["map_mbytes"],
-                 "transpose_mbytes": r["transpose_mbytes"],
                  "micro_ms": r["micro_ms"][name],
                  "micro_bound_ms": r["micro_bound_ms"],
                  "micro_map": r["micro_map"],
-                 "micro_transpose_mbytes": r["micro_transpose_mbytes"],
                  "micro_max_rel_err": r["micro_max_rel_err"],
                  **({"collapsed": r["collapsed"]} if "collapsed" in r
                     else {})}
                 if name in COL2IM else {})} for r in rows],
     }
+    accum = train["grad_accum"]
+    per_step = lambda f: accum * sum(f(r) * r["nodes"] for r in rows)
     if name in COL2IM:
-        accum = train["grad_accum"]
-        entry["ms_per_unfrozen_step"] = accum * sum(
-            r["micro_ms"][name] * r["nodes"] for r in rows)
-        entry["bound_ms_per_unfrozen_step"] = accum * sum(
-            r["micro_bound_ms"] * r["nodes"] for r in rows)
-        entry["map_mbytes_per_unfrozen_step"] = accum * sum(
-            r["micro_map"]["map_mbytes"] * r["nodes"] for r in rows)
-        entry["transpose_mbytes_per_unfrozen_step"] = accum * sum(
-            r["micro_transpose_mbytes"] * r["nodes"] for r in rows)
+        entry["ms_per_unfrozen_step"] = per_step(
+            lambda r: r["micro_ms"][name])
+        entry["bound_ms_per_unfrozen_step"] = per_step(
+            lambda r: r["micro_bound_ms"])
+        entry["map_mbytes_per_unfrozen_step"] = per_step(
+            lambda r: r["micro_map"]["map_mbytes"])
+    if name in SAMPLING:
+        keys = ["ms", "device_ms", "bound_ms"] + (
+            ["library_ms", "library_device_ms"] if name in IM2COL else [])
+        for key in keys:
+            entry[f"{key}_per_unfrozen_step"] = per_step(
+                lambda r: r[micro][name][key])
+        entry["micro_max_rel_err"] = max(r[micro][name]["max_rel_err"]
+                                         for r in rows)
     return entry
 
 
@@ -1792,21 +1911,29 @@ def report_training(train, bwd_rows, micro: int, card, rehearsal: bool):
         return
     fwd = sum(r["micro_ms"]["forward"] * r["nodes"] for r in bwd_rows)
     bwd = sum(r["micro_ms"]["backward"] * r["nodes"] for r in bwd_rows)
-    col2im = COL2IM[train["precision"] == "bf16"]
+    bf16 = train["precision"] == "bf16"
+    col2im = COL2IM[bf16]
     c2i = sum(r["micro_ms"][col2im] * r["nodes"] for r in bwd_rows)
+    sampling = SAMPLING[2:] if bf16 else SAMPLING[:2]
+    smp = sum(r["micro_sampling"][n]["device_ms"] * r["nodes"]
+              for r in bwd_rows for n in sampling)
     accum = train["grad_accum"]
     train["dcn_share"] = {
         "forward_ms_per_step": fwd * accum,
         "backward_ms_per_step": bwd * accum,
         "col2im_ms_per_step": c2i * accum,
+        "im2col_coord_device_ms_per_step": smp * accum,
         "frozen_forward": fwd * accum / train["ms_per_step"]["frozen"],
         "unfrozen_forward": fwd * accum / train["ms_per_step"]["unfrozen"],
         "unfrozen_backward": bwd * accum / train["ms_per_step"]["unfrozen"]}
-    log(f"  peak memory {train['peak_mem_gb']:.2f} GB; DCN kernels per "
+    log(f"  peak memory {train['peak_mem_gb']:.2f} GB (frozen steps "
+        f"{train['peak_mem_gb_by_phase']['frozen']:.2f}, unfrozen "
+        f"{train['peak_mem_gb_by_phase']['unfrozen']:.2f}); DCN kernels per "
         f"step (node times at B={micro}, x{accum} microbatches): forward "
         f"{fwd * accum:.1f} ms, backward {bwd * accum:.1f} ms = "
         f"{100 * train['dcn_share']['unfrozen_backward']:.1f}% of an "
-        f"unfrozen step, of it {col2im} {c2i * accum:.1f} ms")
+        f"unfrozen step, of it {col2im} {c2i * accum:.1f} ms, "
+        f"{' + '.join(sampling)} {smp * accum:.1f} ms of device time")
 
 
 def report_step(step, precision: str):

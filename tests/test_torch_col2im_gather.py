@@ -71,15 +71,15 @@ def _offsets(kind, b=B, h=H, w=W):
 
 
 def _inputs(kind, dtype=torch.float64, seed=0, b=B, c=C, h=H, w=W):
-    """offset, mask (one tap of image 0 masked to 0) and dcols (B, 9C, HW)
-    lying (9C, B, HW) as the GEMM leaves them."""
+    """offset, mask (one tap of image 0 masked to 0) and dcols, pixel-major
+    (B, HW, 9, C) as the GEMM leaves them."""
     rng = np.random.RandomState(100 + seed)
     mask = 1 / (1 + np.exp(-rng.randn(b, 9, h, w)))
     mask[0, 4, : h // 2] = 0.0
-    dcols = rng.randn(9 * c, b, h * w)
+    dcols = rng.randn(b, h * w, 9, c)
     offset = torch.from_numpy(_offsets(kind, b, h, w)).to(dtype)
     return (offset, torch.from_numpy(mask).to(dtype),
-            torch.from_numpy(dcols).to(dtype).transpose(0, 1))
+            torch.from_numpy(dcols).to(dtype))
 
 
 def _rel(got, want):
@@ -264,8 +264,7 @@ def _card():
 
 
 def _plain_dx(dtype, dcols, offset, mask, max_offset):
-    b, rows, _ = dcols.shape
-    x = torch.zeros((b, rows // 9) + tuple(offset.shape[2:]),
+    x = torch.zeros((dcols.shape[0], dcols.shape[3]) + tuple(offset.shape[2:]),
                     device=dcols.device)
     if dtype == torch.bfloat16:
         return dcn.dcn_col2im_bf16_plain(dcols, x, offset, mask, max_offset)

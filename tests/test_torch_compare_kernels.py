@@ -79,19 +79,93 @@ def test_batch_replaces_the_microbatch_of_every_node_shape():
 def test_kernel_call_runs_each_kernel_in_its_dtype(name):
     """On CPU tensors each wrapper runs its plain version: the call gives the
     kernel's output shapes in the dtype the name says (doffset and dmask
-    float32)."""
+    float32; the whole backward its five gradients in the inputs' dtypes),
+    and its layout-free form dweight for im2col's columns."""
     b, c, h, w, o = 2, 8, 5, 6, 4
-    inputs = ck.node_inputs((b, c, h, w, o), ck.dtype_of(name), "cpu", 0)
-    assert inputs[0].dtype == ck.dtype_of(name)
+    dtype = ck.dtype_of(name)
+    inputs = ck.node_inputs((b, c, h, w, o), dtype, "cpu", 0)
+    assert inputs[0].dtype == dtype
+    call, layout_free = ck.kernel_call(name, dcn, inputs)
     with torch.no_grad():
-        out = ck.kernel_call(name, dcn, inputs)()
+        out = call()
+    if name in ck.BACKWARD:
+        assert [tuple(t.shape) for t in out] == [
+            (b, c, h, w), (b, 18, h, w), (b, 9, h, w), (o, c, 3, 3), (o,)]
+        assert [t.dtype for t in out] == [dtype, torch.float32,
+                                          torch.float32, dtype, dtype]
+        return
     if "coord" in name:
         assert [tuple(t.shape) for t in out] == [(b, 18, h, w), (b, 9, h, w)]
         assert all(t.dtype == torch.float32 for t in out)
         return
-    want = {"fwd": (b, o, h, w), "im2col": (b, 9 * c, h * w),
+    want = {"fwd": (b, o, h, w), "im2col": (b, h * w, 9, c),
             "col2im": (b, c, h, w)}
     kind = next(k for k in want if k in name)
     assert tuple(out.shape) == want[kind]
-    assert out.dtype == ck.dtype_of(name)
+    assert out.dtype == dtype
     assert torch.isfinite(out.float()).all()
+    if kind == "im2col":
+        assert tuple(layout_free(out).shape) == (o, c, 3, 3)
+    else:
+        assert layout_free(out) is out
+
+
+class _NchwColumnsTree:
+    """A stand-in for a tree whose backward kernels read an NCHW x and lay
+    their columns out (B, 9C, H*W), row c*9 + k, lying (9C, B, H*W) (the
+    layout before the columns went pixel-major), built on this tree's
+    plain versions."""
+
+    def __init__(self):
+        self.seen_x = []
+
+    def dcn_im2col(self, x, offset, mask):
+        self.seen_x.append(x)
+        cols = dcn.dcn_im2col_plain(x, offset, mask)  # (B, HW, 9, C)
+        b, hw, _, c = cols.shape
+        return cols.permute(3, 2, 0, 1).reshape(9 * c, b, hw).transpose(0, 1)
+
+    def weight_gradient(self, grad_out, cols):
+        b, o, h, w = grad_out.shape
+        g = grad_out.transpose(0, 1).reshape(o, b * h * w)
+        return g @ cols.transpose(0, 1).reshape(-1, b * h * w).t()
+
+    def column_gradients(self, weight, grad_out):
+        b, o, h, w = grad_out.shape
+        g = grad_out.transpose(0, 1).reshape(o, b * h * w)
+        return (weight.reshape(o, -1).t() @ g).view(-1, b, h * w).transpose(
+            0, 1)
+
+    def _pixel_major(self, dcols, c):
+        b, _, hw = dcols.shape
+        return dcols.reshape(b, c, 9, hw).permute(0, 3, 2, 1).contiguous()
+
+    def dcn_col2im(self, dcols, offset, mask):
+        c = dcols.shape[1] // 9
+        return dcn.dcn_col2im(self._pixel_major(dcols, c), offset, mask)
+
+    def dcn_col2im_coord(self, dcols, x, offset, mask):
+        self.seen_x.append(x)
+        return dcn.dcn_col2im_coord(self._pixel_major(dcols, x.shape[1]), x,
+                                    offset, mask)
+
+
+@pytest.mark.parametrize("name", ["dcn_im2col", "dcn_col2im",
+                                  "dcn_col2im_coord"])
+def test_trees_of_other_layouts_compare_in_a_layout_free_form(name):
+    """Each tree gets x and the column gradients in its own layout, made
+    from the same values: a tree without ``BACKWARD_X_CHANNELS_LAST`` an
+    NCHW x and its own (9C, B, H*W) column gradients; the two outputs agree
+    in their layout-free forms (im2col: through each tree's
+    ``weight_gradient``)."""
+    inputs = ck.node_inputs((2, 8, 5, 6, 4), torch.float32, "cpu", 3)
+    old = _NchwColumnsTree()
+    call_this, free_this = ck.kernel_call(name, dcn, inputs)
+    call_old, free_old = ck.kernel_call(name, old, inputs)
+    with torch.no_grad():
+        got, want = free_this(call_this()), free_old(call_old())
+    assert ck.rel_err(got, want) <= 1e-6
+    assert all(x.is_contiguous() for x in old.seen_x)
+    assert dcn.BACKWARD_X_CHANNELS_LAST
+    if name == "dcn_im2col":
+        assert tuple(got.shape) == (4, 8, 3, 3)

@@ -162,7 +162,7 @@ def test_bf16_plain_kernels_against_float32_plain_kernels(max_offset):
                                         for a in _case(10))
     xb = x.bfloat16()
     dcols = dcn.column_gradients(weight.bfloat16(), grad.bfloat16())
-    assert dcols.dtype == BF16 and dcols.shape == (2, 54, 72)
+    assert dcols.dtype == BF16 and dcols.shape == (2, 72, 9, 6)
     cols = dcn.dcn_im2col_bf16_plain(xb, offset, mask, max_offset)
     cols32 = dcn.dcn_im2col_plain(x, offset, mask, max_offset)
     assert cols.dtype == BF16

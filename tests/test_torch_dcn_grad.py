@@ -172,14 +172,19 @@ def test_plain_gradcheck_float64(max_offset):
 
 
 def test_im2col_plain_is_the_forward_columns():
+    """The pixel-major columns (B, H*W, 9, C) contract with the weight in
+    (k, c) order to the forward."""
     x, offset, mask, weight, bias, _ = (torch.from_numpy(a)
                                         for a in _case(60))
     cols = dcn.dcn_im2col_plain(x, offset, mask)
-    o, c = weight.shape[:2]
-    out = torch.matmul(weight.reshape(o, 9 * c), cols) + bias[:, None]
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    assert cols.shape == (b, h * w, 9, c) and cols.is_contiguous()
+    w_kc = weight.permute(0, 2, 3, 1).reshape(o, 9 * c)
+    out = cols.reshape(b, h * w, 9 * c) @ w_kc.t() + bias
     want = dcn.deform_conv2d_plain(x, offset, mask, weight, bias)
-    torch.testing.assert_close(out.reshape(want.shape), want, rtol=1e-5,
-                               atol=1e-5)
+    torch.testing.assert_close(out.transpose(1, 2).reshape(want.shape), want,
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_wrapper_autograd_on_cpu_is_plain_and_launches_nothing():
@@ -197,7 +202,7 @@ def test_wrapper_autograd_on_cpu_is_plain_and_launches_nothing():
 def test_backward_wrappers_run_plain_on_cpu_and_check_the_card_inputs():
     x, offset, mask, weight, _, grad = (torch.from_numpy(a)
                                         for a in _case(62))
-    dcols = torch.randn(2, 45, 99)
+    dcols = torch.randn(2, 99, 9, 5)
     counts = _counts()
     torch.testing.assert_close(dcn.dcn_im2col(x, offset, mask, 8.0),
                                dcn.dcn_im2col_plain(x, offset, mask, 8.0))
@@ -215,6 +220,9 @@ def test_backward_wrappers_run_plain_on_cpu_and_check_the_card_inputs():
         dcn._check_sampling(x, offset[:, :9], mask, None)
     with pytest.raises(ValueError):
         dcn._check_columns(dcols[:, :44], offset, mask, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        dcn._check_columns(dcols.transpose(0, 1).contiguous().transpose(0, 1),
+                           offset, mask, None)
     with pytest.raises(ValueError):
         dcn._check_sampling(x, offset, mask, -2.0)
     with pytest.raises(RuntimeError, match="no kernel"):
@@ -313,15 +321,11 @@ def test_plain_kernel_pieces_compose_to_the_plain_backward(max_offset):
     card's kernels follow)."""
     x, offset, mask, weight, bias, grad = (torch.from_numpy(a)
                                            for a in _case(63))
-    o, c = weight.shape[:2]
-    b, _, h, w = x.shape
-    g = grad.reshape(b, o, h * w)
     cols = dcn.dcn_im2col_plain(x, offset, mask, max_offset)
-    dcols = torch.matmul(weight.reshape(o, 9 * c).t(), g)
+    dcols = dcn.column_gradients(weight, grad)
     got = (dcn.dcn_col2im_plain(dcols, x, offset, mask, max_offset),
            *dcn.dcn_col2im_coord_plain(dcols, x, offset, mask, max_offset),
-           torch.matmul(g, cols.transpose(1, 2)).sum(0).view(o, c, 3, 3),
-           grad.sum((0, 2, 3)))
+           dcn.weight_gradient(grad, cols), grad.sum((0, 2, 3)))
     want = dcn.deform_conv2d_backward_plain(x, offset, mask, weight, bias,
                                             grad, max_offset)
     _assert_close([t.numpy() for t in got], [t.numpy() for t in want],
@@ -334,7 +338,7 @@ def test_each_backward_kernel_matches_its_plain_version_on_card(max_offset):
     _card()
     x, offset, mask, _, _, _ = (torch.from_numpy(a).cuda()
                                 for a in _case(72, c=24, h=17, w=23))
-    dcols = torch.randn(2, 9 * 24, 17 * 23, device="cuda")
+    dcols = torch.randn(2, 17 * 23, 9, 24, device="cuda")
     pairs = [
         (dcn.dcn_im2col(x, offset, mask, max_offset),
          dcn.dcn_im2col_plain(x, offset, mask, max_offset)),
