@@ -245,7 +245,7 @@ __device__ __forceinline__ void corner_weights(const Tap& t, float scale,
 // row) before it uses the first. Few registers (kBwdBlocks blocks per SM)
 // hide the loads' latency better than more loads in flight a thread: one
 // tap at 4 blocks per SM beat three taps at 2 (1 for coord) and at 3
-// blocks per SM, in turns on the H100 (PERF.md, PR 11).
+// blocks per SM, in turns on the H100 (tools/compare_kernels.py; PERF.md).
 
 constexpr int kBwdThreads = 256;  // threads per block (im2col, coord)
 constexpr int kBwdBlocks = 4;     // blocks per SM: at most 64 registers
