@@ -7,8 +7,9 @@
 // p4 :122). Each isolated one ingredient of the clamped shifted-window DCN
 // kernel (K1, centerfusiondetect3d_tpu/ops/pallas_dcn.py:117) for the TPU
 // compiler. Here each probe is one entry point with its own launch count
-// (ops/probes.py), built from four kernel templates:
-//   window_sum_kernel   k1, k3, kc, ka, p1, p2: unweighted window sums
+// (ops/probes.py), built from five kernel templates:
+//   window_sum_kernel   k1, k3, kc, ka: unweighted window sums of a tile
+//   row_window_kernel   p1, p2: P5's windows, summed over a run of rows
 //   field_kernel        k2, p3: an offset field read, a whole-array min/max
 //   hat_sampler_kernel  kb, k4 (= kd), ke, kf (= kg): the hat-weighted
 //                       sampler
@@ -33,8 +34,11 @@
 // What bounds them: at the scripts' shapes a probe moves about 100 KB and
 // does at most a few MFLOP, well under a microsecond of the card's memory
 // or arithmetic; the launch itself (a few microseconds) bounds every one.
-// So the design is the plainest correct one: one block per tile, 256
-// threads, no staging beyond the tile bounds and the contraction's tap.
+// So the tile probes keep the plainest correct design: one block per tile,
+// 256 threads, no staging beyond the tile bounds and the contraction's
+// tap. P5's windows (p1, p2) are different: one output with no tiles, so
+// one block would put the whole window through one of 132 SMs. Their
+// kernel runs over the output instead (row_window_kernel below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,7 +53,6 @@ constexpr float kClip = 8.f;        // the probes clip dy and dx to +-8
 constexpr int kOpen = 1 << 20;      // a loop range that is not cut
 constexpr int kMaxSmem = 232448;    // dynamic shared memory a block can use
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const bf16* p) {
   return __bfloat162float(*p);
 }
@@ -132,7 +135,6 @@ enum class Reduce {
   kSumChannels,  // k1: the channel sum, rounded to bf16, broadcast
   kChannel0,     // k3, kc: channel 0, broadcast
   kCount,        // ka: 1 per (gy, gx), broadcast
-  kCopy,         // p1, p2: every channel on its own
 };
 enum class Loop { kFixed, kTileY, kTileYX };
 
@@ -148,9 +150,9 @@ struct Windows {
   int lo, hi;
 };
 
-template <typename T, Reduce R, Loop L>
+template <Reduce R, Loop L>
 __global__ void __launch_bounds__(kThreads)
-window_sum_kernel(const T* __restrict__ x, const float* __restrict__ off,
+window_sum_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
                   float* __restrict__ out, Windows g) {
   const int b = blockIdx.x / g.n_rb, rb = blockIdx.x % g.n_rb;
   int ylo = g.lo, yhi = g.hi, xlo = 0, xhi = 0;
@@ -163,11 +165,9 @@ window_sum_kernel(const T* __restrict__ x, const float* __restrict__ off,
       xhi = bd.xhi;
     }
   }
-  const T* xb =
+  const bf16* xb =
       R == Reduce::kCount ? nullptr : x + (size_t)b * g.xh * g.xw * g.xc;
-  const int per_pixel = R == Reduce::kCopy ? g.xc : 1;
-  for (int i = threadIdx.x; i < g.br * g.w * per_pixel; i += blockDim.x) {
-    const int ch = i % per_pixel, p = i / per_pixel;
+  for (int p = threadIdx.x; p < g.br * g.w; p += blockDim.x) {
     const int r = p / g.w, c = p % g.w;
     float acc = 0.f;
     for (int gy = ylo; gy <= yhi; ++gy) {
@@ -176,26 +176,68 @@ window_sum_kernel(const T* __restrict__ x, const float* __restrict__ off,
           acc += 1.f;
           continue;
         }
-        const T* px = xb + ((size_t)(g.row0 + rb * g.row_step + gy + r) * g.xw
-                             + (g.col0 + gx + c)) * g.xc;
+        const bf16* px = xb + ((size_t)(g.row0 + rb * g.row_step + gy + r)
+                               * g.xw + (g.col0 + gx + c)) * g.xc;
         if (R == Reduce::kSumChannels) {
           float s = 0.f;
           for (int k = 0; k < g.xc; ++k) s += load(px + k);
           acc += s;
         } else {
-          acc += load(px + ch);
+          acc += load(px);
         }
       }
     }
     if (R == Reduce::kSumChannels) acc = round_bf16(acc);
     float* o = out + (((size_t)b * g.n_rb * g.br + rb * g.br + r) * g.w + c)
                          * g.nc;
-    if (R == Reduce::kCopy) {
-      o[ch] = acc;
-    } else {
-      for (int j = 0; j < g.nc; ++j) o[j] = acc;
-    }
+    for (int j = 0; j < g.nc; ++j) o[j] = acc;
   }
+}
+
+// ------------------------------------------------------- P5's windows
+
+// out[r, :span] = the sum over i = lo ... hi-1, in that order, of the span
+// floats of x that start col0 floats into row i + r (rows row_stride
+// floats apart): p2 sums its hi - lo windows from zero, as the script's
+// fori_loop does; p1 (kCopy, hi = lo + 1) copies its one window, with
+// nothing added to it (0 + -0.0 would be +0.0). Each window row is
+// contiguous in x, so the grid runs over the output: blockIdx.y is the
+// output row, blockIdx.x a chunk of kRowThreads vectors of its span, one
+// vector a thread; the rows of a thread's sum lie row_stride floats apart.
+// No index is divided at run time. V is float4 where the wrapper found
+// every window row of x and out 16-byte aligned and whole in float4s (the
+// entry checks it again), else float. p1's 8 x 16 x 128 window is 4,096
+// float4s: 32 blocks of 128 threads, one 16-byte load and store each.
+constexpr int kRowThreads = 128;
+
+struct RowWindows {
+  int row_stride, col0, span, lo, hi;  // in floats
+  int vectors;                         // span in V
+};
+
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <typename V, bool kCopy>
+__global__ void __launch_bounds__(kRowThreads)
+row_window_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  RowWindows g) {
+  const int v = blockIdx.x * kRowThreads + threadIdx.x;
+  if (v >= g.vectors) return;
+  const int r = blockIdx.y;
+  constexpr int kWidth = sizeof(V) / sizeof(float);
+  const size_t step = (size_t)g.row_stride / kWidth;  // rows, in V
+  const V* src = reinterpret_cast<const V*>(x + g.col0) + v;
+  V acc = V{};
+  if (kCopy) {
+    acc = __ldg(src + (size_t)(g.lo + r) * step);
+  } else {
+    for (int i = g.lo; i < g.hi; ++i)
+      acc = vadd(acc, __ldg(src + (size_t)(i + r) * step));
+  }
+  reinterpret_cast<V*>(out + (size_t)r * g.span)[v] = acc;
 }
 
 // ------------------------------------------------------- field reads
@@ -364,11 +406,35 @@ Tiles make_tiles(int batch, int n_rb, int br, int w, int c, int o, int pad) {
 
 int launched() { return (int)cudaGetLastError(); }
 
-template <typename T, Reduce R, Loop L>
+template <Reduce R, Loop L>
 int launch_windows(const void* x, const float* off, float* out,
                    const Windows& g, cudaStream_t stream) {
-  window_sum_kernel<T, R, L><<<g.batch * g.n_rb, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), off, out, g);
+  window_sum_kernel<R, L><<<g.batch * g.n_rb, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), off, out, g);
+  return launched();
+}
+
+// out (rows, span) from x as row_window_kernel says; vec 4 (float4) or 1,
+// chosen by the wrapper (ops/probes.py:row_windows) and refused here where
+// a window row of x or out would not be 16-byte aligned and whole in float4s
+template <bool kCopy>
+int launch_row_windows(const float* x, float* out, int row_stride, int col0,
+                       int span, int rows, int lo, int hi, int vec,
+                       cudaStream_t stream) {
+  if (rows < 1 || span < 1 || lo < 0 || hi < lo || (kCopy && hi != lo + 1))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned =
+      ((reinterpret_cast<size_t>(x + col0) | reinterpret_cast<size_t>(out))
+       & 15) == 0 && row_stride % 4 == 0 && span % 4 == 0;
+  if (vec != 1 && !(vec == 4 && aligned)) return (int)cudaErrorInvalidValue;
+  const RowWindows g{row_stride, col0, span, lo, hi, span / vec};
+  const dim3 grid((g.vectors + kRowThreads - 1) / kRowThreads, rows);
+  if (vec == 4)
+    row_window_kernel<float4, kCopy><<<grid, kRowThreads, 0, stream>>>(
+        x, out, g);
+  else
+    row_window_kernel<float, kCopy><<<grid, kRowThreads, 0, stream>>>(
+        x, out, g);
   return launched();
 }
 
@@ -423,7 +489,7 @@ int launch_contract(const void* x, const float* off, const float* mask,
 #define TILES make_tiles(batch, n_rb, br, wd, c, o, pad)
 
 TILE_PROBE(k1) {  // the channel sum at rows rb*BR + 3 + r, columns 2 + c
-  return launch_windows<bf16, Reduce::kSumChannels, Loop::kFixed>(
+  return launch_windows<Reduce::kSumChannels, Loop::kFixed>(
       x, off, out, tile_windows(TILES, 3, br, 2), stream);
 }
 TILE_PROBE(k2) {
@@ -432,7 +498,7 @@ TILE_PROBE(k2) {
   return launched();
 }
 TILE_PROBE(k3) {  // no row-block term
-  return launch_windows<bf16, Reduce::kChannel0, Loop::kTileY>(
+  return launch_windows<Reduce::kChannel0, Loop::kTileY>(
       x, off, out, tile_windows(TILES, pad, 0, pad), stream);
 }
 TILE_PROBE(k4) {
@@ -444,14 +510,14 @@ TILE_PROBE(k5) {
       TapWindow{}, c, o, batch * n_rb, br * wd, stream);
 }
 TILE_PROBE(ka) {
-  return launch_windows<bf16, Reduce::kCount, Loop::kTileYX>(
+  return launch_windows<Reduce::kCount, Loop::kTileYX>(
       x, off, out, tile_windows(TILES, pad, br, pad), stream);
 }
 TILE_PROBE(kb) {  // no row-block term, no x loop
   return launch_hat<false, false, false>(x, off, out, TILES, stream);
 }
 TILE_PROBE(kc) {
-  return launch_windows<bf16, Reduce::kChannel0, Loop::kTileY>(
+  return launch_windows<Reduce::kChannel0, Loop::kTileY>(
       x, off, out, tile_windows(TILES, pad, br, pad), stream);
 }
 TILE_PROBE(kd) {  // k4's function: its device code
@@ -472,23 +538,22 @@ TILE_PROBE(kg) {  // kf's function (its roll never wraps): its device code
 #undef TILES
 #undef TILE_PROBE
 
-// p1: out (rows, cols, d2) = x[g:g+rows, g+1:g+1+cols, :] of x f32
-// (d0, d1, d2)
-extern "C" int cfd_probe_p1(const float* x, float* out, int d0, int d1,
-                            int d2, int g, int rows, int cols,
-                            cudaStream_t stream) {
-  return launch_windows<float, Reduce::kCopy, Loop::kFixed>(
-      x, nullptr, out,
-      Windows{1, 1, rows, cols, d0, d1, d2, d2, g, 0, g + 1, 0, 0}, stream);
+// p1 and p2: out (rows, span) as row_window_kernel says, x f32. p1 is one
+// window, a copy: lo = g, hi = g + 1, col0 = (g + 1) * d2 of x (d0, d1, d2),
+// span = cols * d2; p2 sums rows lo ... hi-1 of x (n, l) from zero: col0 =
+// 0, span = l.
+extern "C" int cfd_probe_p1(const float* x, float* out, int row_stride,
+                            int col0, int span, int rows, int lo, int hi,
+                            int vec, cudaStream_t stream) {
+  return launch_row_windows<true>(x, out, row_stride, col0, span, rows, lo,
+                                  hi, vec, stream);
 }
 
-// p2: out (rows, l) = sum over lo <= i < hi of x[i:i+rows, :], x f32 (n, l)
-// read as (n, 1, l)
-extern "C" int cfd_probe_p2(const float* x, float* out, int n, int l, int lo,
-                            int hi, int rows, cudaStream_t stream) {
-  return launch_windows<float, Reduce::kCopy, Loop::kFixed>(
-      x, nullptr, out, Windows{1, 1, rows, 1, n, 1, l, l, 0, 0, 0, lo, hi - 1},
-      stream);
+extern "C" int cfd_probe_p2(const float* x, float* out, int row_stride,
+                            int col0, int span, int rows, int lo, int hi,
+                            int vec, cudaStream_t stream) {
+  return launch_row_windows<false>(x, out, row_stride, col0, span, rows, lo,
+                                   hi, vec, stream);
 }
 
 // p3: out = x + trunc(min x) where max x > 0.5, else 0; x f32 of n

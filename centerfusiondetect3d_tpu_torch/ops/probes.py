@@ -60,14 +60,18 @@ Each wrapper checks device, dtype, shape, contiguity and that every window
 it reads lies inside x (interpret mode clamps an out-of-range start and the
 TPU does not; the wrappers raise). On a CPU tensor it runs the plain version;
 on a CUDA tensor it launches its kernel or raises (no fallback), and its
-``.launches`` counts the launches. ``PROBES`` lists the sixteen.
+``.launches`` counts the launches. ``PROBES`` lists the sixteen, each with
+its yardstick where one PyTorch call computes its function
+(``Probe.library``: ``k2``, ``p1``, ``p2``, timed beside the kernel by
+``chip_smoke.py``; the port never calls it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -297,6 +301,27 @@ def probe_p2_plain(x, lo: int, hi: int):
     return acc
 
 
+# --------------------------------------------- yardsticks: one PyTorch call
+
+
+def probe_k2_library(off, geom: Geometry = SCRIPT_GEOMETRY):
+    """``k2`` as one copy: dy broadcast to O by ``expand(...).contiguous()``."""
+    g = geom
+    return off[:, 4, ..., None].expand(g.batch, g.h, g.w, g.o).contiguous()
+
+
+def probe_p1_library(x, g: int):
+    """``p1`` as one copy: ``x[g:g+8, g+1:g+17].clone()``."""
+    return x[g:g + P5_ROWS, g + 1:g + 1 + P5_COLS].clone()
+
+
+def probe_p2_library(x, lo: int, hi: int):
+    """``p2`` as one reduction: the ``hi - lo`` row windows of
+    ``x.unfold(0, 8, 1)`` (views) summed over the window index in one
+    ``sum``, in its own order (within 1e-6 of the plain sum)."""
+    return x.unfold(0, P5_ROWS, 1)[lo:hi].transpose(1, 2).sum(0)
+
+
 def probe_p3_plain(x):
     """Plain ``p3``: x + trunc(min x) if max x > 0.5, else zeros (the
     float -> int32 cast truncates toward zero)."""
@@ -370,8 +395,8 @@ _SIGNATURES = {
     **{f"cfd_probe_{n}": _TILE_ARGS for n in (
         "k1", "k2", "k3", "k4", "k5", "ka", "kb", "kc", "kd", "ke", "kf",
         "kg")},
-    "cfd_probe_p1": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6,
-    "cfd_probe_p2": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5,
+    **{f"cfd_probe_{n}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+       for n in ("p1", "p2")},
     "cfd_probe_p3": [ctypes.c_void_p] * 2 + [ctypes.c_int],
     "cfd_probe_p4": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
     + [ctypes.c_float],
@@ -445,6 +470,20 @@ probe_kg = _tile_probe("kg", probe_kg_plain, ("x", "off"),
                        all_channels=True)
 
 
+def row_windows(x, out, col0: int, lo: int, hi: int):
+    """The C arguments (row_stride, col0, span, rows, lo, hi, vec) of P5's
+    window kernel for out (rows, ...) = the sum over i in [lo, hi) of the
+    span = out[0].numel() floats of x that start col0 floats into row i + r
+    (x's rows, dim 0, row_stride floats apart). vec is 4 (float4 loads and
+    stores) where every such row of x and of out starts on 16 bytes and
+    holds whole float4s, else 1."""
+    row_stride = math.prod(x.shape[1:])
+    rows, span = out.shape[0], math.prod(out.shape[1:])
+    aligned = (x.data_ptr() + 4 * col0) % 16 == 0 and out.data_ptr() % 16 == 0
+    vec = 4 if aligned and row_stride % 4 == 0 and span % 4 == 0 else 1
+    return row_stride, col0, span, rows, lo, hi, vec
+
+
 def probe_p1(x, g: int):
     """The ``p1`` kernel: x[g:g+8, g+1:g+17, :] of a float32 3-D x, as
     :func:`probe_p1_plain` (which runs instead on CPU tensors)."""
@@ -460,9 +499,10 @@ def probe_p1(x, g: int):
         return probe_p1_plain(x, g)
     out = torch.empty((P5_ROWS, P5_COLS, x.shape[2]), dtype=torch.float32,
                       device=x.device)
-    _run(x, "cfd_probe_p1", x.data_ptr(), out.data_ptr(), *x.shape, g,
-         P5_ROWS, P5_COLS)
-    probe_p1.launches += 1
+    if out.numel():
+        _run(x, "cfd_probe_p1", x.data_ptr(), out.data_ptr(),
+             *row_windows(x, out, (g + 1) * x.shape[2], g, g + 1))
+        probe_p1.launches += 1
     return out
 
 
@@ -481,9 +521,10 @@ def probe_p2(x, lo: int, hi: int):
         return probe_p2_plain(x, lo, hi)
     out = torch.empty((P5_ROWS, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _run(x, "cfd_probe_p2", x.data_ptr(), out.data_ptr(), *x.shape, lo, hi,
-         P5_ROWS)
-    probe_p2.launches += 1
+    if out.numel():
+        _run(x, "cfd_probe_p2", x.data_ptr(), out.data_ptr(),
+             *row_windows(x, out, 0, lo, hi))
+        probe_p2.launches += 1
     return out
 
 
@@ -547,8 +588,13 @@ probe_p5 = probe_k6
 @dataclass(frozen=True)
 class Probe:
     """One probe kernel: its wrapper and plain version, the script and the
-    name it had there, the line of its body, and its tolerance relative to
-    the plain result's largest magnitude (0: bitwise)."""
+    name it had there, the line of its body, its tolerance relative to the
+    plain result's largest magnitude (0: bitwise), and its yardstick: one
+    PyTorch call that computes the same function on the same arguments, or
+    None where no single call does (the tile probes' loops run over bounds
+    that the offsets set; ``k1`` sums, rounds to bf16 and broadcasts; ``k5``
+    and ``p4`` scale, round and contract; ``p3`` needs a min, a max and a
+    select)."""
 
     name: str
     kernel: Callable
@@ -557,6 +603,7 @@ class Probe:
     script_name: str
     line: int
     rtol: float
+    library: Optional[Callable] = None
 
     @property
     def replaces(self) -> str:
@@ -573,7 +620,8 @@ _P1, _P2, _P3, _P5 = (f"scripts/{s}.py" for s in (
 EXACT, SUMS, BF16_TAP = 0.0, 1e-5, 8e-3
 PROBES: Dict[str, Probe] = {p.name: p for p in (
     Probe("k1", probe_k1, probe_k1_plain, _P1, "k1_4d_dyn_slice", 62, SUMS),
-    Probe("k2", probe_k2, probe_k2_plain, _P1, "k2_field_slice", 71, EXACT),
+    Probe("k2", probe_k2, probe_k2_plain, _P1, "k2_field_slice", 71, EXACT,
+          probe_k2_library),
     Probe("k3", probe_k3, probe_k3_plain, _P1, "k3_dyn_fori_1d", 77, SUMS),
     Probe("k4", probe_k4, probe_k4_plain, _P1, "k4_nested_fori", 93, SUMS),
     Probe("k5", probe_k5, probe_k5_plain, _P1, "k5_matmul_reshape", 120,
@@ -589,9 +637,9 @@ PROBES: Dict[str, Probe] = {p.name: p for p in (
           SUMS),
     Probe("kg", probe_kg, probe_kg_plain, _P3, "kg_dynamic_roll", 117, SUMS),
     Probe("p1", probe_p1, probe_p1_plain, _P5, "dyn_start_sublane_slice", 45,
-          EXACT),
+          EXACT, probe_p1_library),
     Probe("p2", probe_p2, probe_p2_plain, _P5, "dyn_bound_fori_loop", 68,
-          EXACT),
+          EXACT, probe_p2_library),
     Probe("p3", probe_p3, probe_p3_plain, _P5, "scalar_reduce_plwhen", 98,
           EXACT),
     Probe("p4", probe_p4, probe_p4_plain, _P5, "bf16_slice_mac_matmul", 122,

@@ -10,6 +10,8 @@
     python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
         --other _compare/parent --kernel dcn_im2col_bf16 \\
         --kernel dcn_col2im_coord_bf16 --kernel dcn_backward_bf16
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel probe_p1 --kernel probe_p2
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
@@ -32,7 +34,12 @@ own ``column_gradients``, all made from the same seeded values. The two
 outputs are held against each other in a layout-free form (im2col's
 columns through each tree's ``weight_gradient``, as dweight (O, C, 3, 3);
 the other outputs as they come) within 1e-4 (float32) or 8e-3 (bf16)
-relative to the largest magnitude. With ``--overlap`` in place of ``--other`` the other
+relative to the largest magnitude. The probe kernels ``probe_p1`` and
+``probe_p2`` (``ops/probes.py``, P5's windows) run instead on
+``tools/probe_dcn.py``'s inputs of them, in both trees, whose outputs must
+be equal bitwise; beside them their yardstick (``Probe.library`` of this
+tree) is timed by its device time alone. With ``--overlap`` in place of
+``--other`` the other
 side is this tree's forward kernels in their in-block overlap variant
 (``ops/dcn.py:FWD_OVERLAP``; the bf16 kernel's 256-channel tile has none
 and runs as it is), whose output must equal the kernels' bitwise. Then
@@ -64,9 +71,10 @@ from ..config import load_config
 from ..data.pipeline import stack_items, to_device
 from ..losses import GenericLoss
 from ..models import DeformConvNode, build_model
-from ..ops import dcn
+from ..ops import dcn, probes
 from ..runtime.synthetic import (MAIN_PATH_OPTS, TRAIN_OPTS,
                                  SyntheticTrainingSet, seeded_weights)
+from ..tools import probe_dcn
 from ..training import learning_rate, make_optimizer, train_step
 from ..utils.observability import time_device
 
@@ -125,10 +133,12 @@ def dtype_of(name: str):
 
 KERNELS = ("dcn_fwd", "dcn_fwd_bf16", *dcn.BACKWARD_KERNELS,
            *dcn.BACKWARD_KERNELS_BF16, *BACKWARD)
+PROBE_KERNELS = ("probe_p1", "probe_p2")
 
 
 def load_other(root: str):
-    """``ops/dcn.py`` of the port in the checkout ``root``."""
+    """The ``ops`` package of the port in the checkout ``root``, imported
+    as ``cfd_other.ops`` (``.dcn``, ``.probes``)."""
     pkg = os.path.join(root, PACKAGE)
     for name, path in (("cfd_other", pkg),
                        ("cfd_other.ops", os.path.join(pkg, "ops"))):
@@ -138,7 +148,50 @@ def load_other(root: str):
         module = importlib.util.module_from_spec(spec)
         sys.modules[name] = module
         spec.loader.exec_module(module)
-    return importlib.import_module("cfd_other.ops.dcn")
+    for name in ("dcn", "probes"):
+        importlib.import_module(f"cfd_other.ops.{name}")
+    return sys.modules["cfd_other.ops"]
+
+
+def probe_calls(name: str, other_probes, device):
+    """(label, this tree's call, the other's, this tree's yardstick) of
+    probe kernel ``name`` (``probe_p1`` or ``probe_p2``) on each of
+    ``tools/probe_dcn.py``'s inputs of it: each tree's wrapper in its
+    ``ops/probes.py`` (the other's is ``other_probes``) on the same
+    tensors."""
+    short = name[len("probe_"):]
+    this, other = probes.PROBES[short], other_probes.PROBES[short]
+    return [(label, (lambda a=a: this.kernel(*a)),
+             (lambda a=a: other.kernel(*a)),
+             (lambda a=a: this.library(*a)))
+            for label, a, _ in probe_dcn.p5_cases(short, SEED, device)]
+
+
+def compare_probe(name: str, other_probes, device):
+    """The report entry of probe kernel ``name``: per input, both trees'
+    outputs equal bitwise (else exit), each tree's time per call and by
+    device time alone in turns, and the yardstick's device time alone."""
+    rows = []
+    for label, fn_this, fn_other, library in probe_calls(
+            name, other_probes, device):
+        got, want = fn_this(), fn_other()
+        if not torch.equal(got, want):
+            raise SystemExit(f"compare_kernels: {name} of the two trees "
+                             f"differ on {label}: {rel_err(got, want):.3e}")
+        ms_other, ms_this = time_turns(fn_other, fn_this, REPS)
+        dev = ([], [])
+        for which in (0, 1, 1, 0):
+            dev[which].append(time_device((fn_other, fn_this)[which]))
+        row = {"case": label, "ms": ms_this, "other_ms": ms_other,
+               "device_ms": statistics.mean(dev[1]),
+               "other_device_ms": statistics.mean(dev[0]),
+               "library_device_ms": time_device(library)}
+        rows.append(row)
+        print(f"{name} {label}: device alone this {row['device_ms']:.5f} "
+              f"ms, other {row['other_device_ms']:.5f} ms, library "
+              f"{row['library_device_ms']:.5f} ms; per call this "
+              f"{ms_this:.4f} ms, other {ms_other:.4f} ms (bitwise equal)")
+    return {"per_case": rows}
 
 
 def training_node_shapes(device):
@@ -221,53 +274,17 @@ def time_turns(fn_other, fn_this, reps: int):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    other_side = ap.add_mutually_exclusive_group(required=True)
-    other_side.add_argument("--other", metavar="DIR",
-                            help="another checkout, inside this one")
-    other_side.add_argument("--overlap", action="store_true",
-                            help="the forward kernels against their "
-                                 "in-block overlap variant")
-    ap.add_argument("--kernel", action="append", required=True,
-                    choices=KERNELS)
-    ap.add_argument("--batch", type=int, default=None, metavar="N",
-                    help="images per node call (default: the training "
-                         "microbatch, 13)")
-    args = ap.parse_args(argv)
-    if args.batch is not None and args.batch < 1:
-        raise SystemExit("compare_kernels: --batch must be >= 1")
-    if args.overlap:
-        if not set(args.kernel) <= set(FORWARD):
-            raise SystemExit("compare_kernels: --overlap takes only the "
-                             "forward kernels " + ", ".join(FORWARD))
-    else:
-        other_root = os.path.realpath(args.other)
-        if (other_root == ROOT
-                or os.path.commonpath([ROOT, other_root]) != ROOT
-                or not os.path.isdir(os.path.join(other_root, PACKAGE))):
-            raise SystemExit(f"compare_kernels: --other must be a directory "
-                             f"inside {ROOT} that holds {PACKAGE}/")
-    if not torch.cuda.is_available():
-        raise SystemExit("compare_kernels: no CUDA device available")
-    device = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False).stdout.strip().splitlines()
-    print(card[0] if card else "nvidia-smi: no reading")
-    other = None if args.overlap else load_other(other_root)
+def compare_dcn(names, other, args, device, report) -> None:
+    """Adds to ``report`` the entries of DCN kernels ``names`` against
+    ``other`` (the other tree's ``ops/dcn.py``, or None with ``--overlap``)
+    at the training node shapes (``args.batch``: at that batch)."""
     shapes, accum = training_node_shapes(device)
     micro = shapes[0][0]
     shapes = at_batch(shapes, args.batch)
     batch = shapes[0][0]
     torch.cuda.empty_cache()
-    report = {"card": card[0] if card else None,
-              "other": "overlap" if args.overlap else args.other,
-              "batch": batch, "microbatches": accum, "kernels": {}}
-    for name in args.kernel:
+    report.update(batch=batch, microbatches=accum)
+    for name in names:
         dtype, rows = dtype_of(name), []
         for i, shape in enumerate(sorted(set(shapes), key=shapes.index)):
             inputs = node_inputs(shape, dtype, device, SEED + i)
@@ -323,6 +340,55 @@ def main(argv=None) -> int:
                   + ", ".join(f"{k} {v:.3f}" for k, v in
                               entry["per_unfrozen_step"].items()))
         report["kernels"][name] = entry
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    other_side = ap.add_mutually_exclusive_group(required=True)
+    other_side.add_argument("--other", metavar="DIR",
+                            help="another checkout, inside this one")
+    other_side.add_argument("--overlap", action="store_true",
+                            help="the forward kernels against their "
+                                 "in-block overlap variant")
+    ap.add_argument("--kernel", action="append", required=True,
+                    choices=KERNELS + PROBE_KERNELS)
+    ap.add_argument("--batch", type=int, default=None, metavar="N",
+                    help="images per node call (default: the training "
+                         "microbatch, 13)")
+    args = ap.parse_args(argv)
+    if args.batch is not None and args.batch < 1:
+        raise SystemExit("compare_kernels: --batch must be >= 1")
+    if args.overlap:
+        if not set(args.kernel) <= set(FORWARD):
+            raise SystemExit("compare_kernels: --overlap takes only the "
+                             "forward kernels " + ", ".join(FORWARD))
+    else:
+        other_root = os.path.realpath(args.other)
+        if (other_root == ROOT
+                or os.path.commonpath([ROOT, other_root]) != ROOT
+                or not os.path.isdir(os.path.join(other_root, PACKAGE))):
+            raise SystemExit(f"compare_kernels: --other must be a directory "
+                             f"inside {ROOT} that holds {PACKAGE}/")
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels: no CUDA device available")
+    device = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False).stdout.strip().splitlines()
+    print(card[0] if card else "nvidia-smi: no reading")
+    other = None if args.overlap else load_other(other_root)
+    report = {"card": card[0] if card else None,
+              "other": "overlap" if args.overlap else args.other,
+              "kernels": {}}
+    for name in [k for k in args.kernel if k in PROBE_KERNELS]:
+        report["kernels"][name] = compare_probe(name, other.probes, device)
+    names = [k for k in args.kernel if k not in PROBE_KERNELS]
+    if names:
+        compare_dcn(names, None if other is None else other.dcn, args,
+                    device, report)
     print(json.dumps(report))
     return 0
 

@@ -98,10 +98,12 @@ On the card it:
    scripts' inputs and two seeded draws at the scripts' geometry and a
    second one, held against its plain version (``ops/probes.py``), and K1
    at the probes' shapes through ``dcn_fwd_bf16``; every kernel must have
-   launched. Then each kernel, its plain version and, for ``p1``, the one
-   PyTorch call that computes it are timed on each of its inputs at the
-   scripts' geometry, beside the bound of those inputs; ``p1`` and its
-   PyTorch call also by their device time alone;
+   launched. Then each kernel and its plain version are timed per call on
+   each of its inputs at the scripts' geometry, and each kernel by its
+   device time alone, beside the bound of those inputs and the launch
+   floor (the device time alone of a kernel that does nothing); where one
+   PyTorch call computes the probe's function (``Probe.library``: ``k2``,
+   ``p1``, ``p2``), that call is timed the same two ways beside it;
 16. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -1482,21 +1484,33 @@ def probe_bound(name: str, args, geom):
 
 
 def probe_timing_cases(name: str, device):
-    """(label, kernel call, plain call, args) of probe ``name`` on each of
-    its inputs at the scripts' geometry, the script's own first."""
+    """(label, kernel call, plain call, library call or None, args) of
+    probe ``name`` on each of its inputs at the scripts' geometry, the
+    script's own first; the library call is ``Probe.library``'s."""
     probe = probes.PROBES[name]
     geom = probes.SCRIPT_GEOMETRY
+    lib = probe.library
     if name in ("p1", "p2", "p3", "p4"):
         return [(label, (lambda a=a: probe.kernel(*a)),
-                 (lambda a=a: probe.plain(*a)), a)
+                 (lambda a=a: probe.plain(*a)),
+                 None if lib is None else (lambda a=a: lib(*a)), a)
                 for label, a, _ in probe_dcn.p5_cases(name, SEED, device)]
     cases = []
     for case in probe_dcn.CASES:
         inp = probe_dcn.tile_inputs(probe.script, geom, case, SEED, device)
         a = [inp[k] for k in probe.kernel.inputs]
         cases.append((case, (lambda a=a: probe.kernel(*a, geom=geom)),
-                      (lambda a=a: probe.plain(*a, geom)), a))
+                      (lambda a=a: probe.plain(*a, geom)),
+                      None if lib is None else (lambda a=a: lib(*a, geom)),
+                      a))
     return cases
+
+
+def launch_floor_ms() -> float:
+    """Device time alone of a kernel that does nothing
+    (``torch.cuda._sleep(0)``), per launch: the least a probe kernel can
+    take, beside its bound."""
+    return time_device(lambda: torch.cuda._sleep(0))
 
 
 def check_probes(device, timed: bool):
@@ -1505,11 +1519,14 @@ def check_probes(device, timed: bool):
     holds every probe kernel against its plain version (and K1 at the
     probes' shapes, ``dcn_fwd_bf16``, against its plain version) and every
     probe must pass; on the card each of the sixteen kernels must have
-    launched. On the card each kernel, its plain version and, for ``p1``,
-    ``x[g:g+8, g+1:g+17].clone()`` (the one PyTorch call that computes
-    it) are then timed on each of its inputs at the scripts' geometry;
-    the headline is the script's own input. ``p1`` and its PyTorch call are
-    also timed by device time alone (``time_device``)."""
+    launched. On the card each kernel and its plain version are then timed
+    per call, and each kernel by its device time alone (``time_device``),
+    on each of its inputs at the scripts' geometry, beside the bound of
+    those inputs and the launch floor (a kernel that does nothing, timed
+    before and after the probes); where ``Probe.library`` is set, that one
+    PyTorch call is timed the same two ways and the ratio of the device
+    times alone is printed. The headline is the script's own input; a last
+    line ranks the kernels (``rank_probes``)."""
     probes.reset_launch_counts()
     lines = []
     results = probe_dcn.run(torch.device(device), SEED, out=lines.append)
@@ -1532,45 +1549,84 @@ def check_probes(device, timed: bool):
     if not timed:
         return rows
     geom = probes.SCRIPT_GEOMETRY
+    floors = [launch_floor_ms()]
     for name, row in rows.items():
         per_case = []
-        for label, kernel, plain, a in probe_timing_cases(name, device):
+        for label, kernel, plain, library, a in probe_timing_cases(name,
+                                                                   device):
             ms, plain_ms = time_pair(kernel, plain, TIMING_REPS)
             bound_ms, bound_by, flops, nbytes = probe_bound(name, a, geom)
             case = {"case": label, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "flops": flops, "bytes": nbytes, "library_ms": None}
-            if name == "p1":
-                x, g = a
-
-                def library():
-                    return x[g:g + probes.P5_ROWS,
-                             g + 1:g + 1 + probes.P5_COLS].clone()
-
+                    "device_ms": time_device(kernel), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                    "library_ms": None, "library_device_ms": None}
+            if library is not None:
                 case["library_ms"] = time_one(library, TIMING_REPS)
-                # device time alone, per launch
-                case["device_ms"] = time_device(kernel)
                 case["library_device_ms"] = time_device(library)
+                case["device_vs_library"] = (case["device_ms"]
+                                             / case["library_device_ms"])
             per_case.append(case)
         row["per_case"] = per_case
-        head = per_case[0]
-        log(f"  probe {name}: kernel {head['ms']:.4f} ms, plain "
-            f"{head['plain_ms']:.4f} ms, bound {head['bound_ms']:.2e} ms "
-            f"({head['bound_by']}) on the script's input"
-            + (f", library {head['library_ms']:.4f} ms; device time alone "
-               f"{head['device_ms']:.5f} ms, library "
-               f"{head['library_device_ms']:.5f} ms per launch of "
-               f"{DEVICE_LAUNCHES}" if head["library_ms"] is not None else "")
-            + "; other inputs " + ", ".join(
-                f"{c['case']} {c['ms']:.4f} / {c['plain_ms']:.3f} ms"
-                for c in per_case[1:]))
+    floors.append(launch_floor_ms())
+    floor = statistics.mean(floors)
+    log(f"  launch floor (torch.cuda._sleep(0), device time alone per "
+        f"launch of {DEVICE_LAUNCHES}): {floors[0]:.5f} ms before the "
+        f"probes, {floors[1]:.5f} ms after")
+    for name, row in rows.items():
+        row["launch_floor_ms"] = floor
+        head = row["per_case"][0]
+        lib = ("" if head["library_device_ms"] is None else
+               f", library {head['library_device_ms']:.5f} ms (kernel / "
+               f"library {head['device_vs_library']:.2f})")
+        log(f"  probe {name}: device time alone {head['device_ms']:.5f} ms "
+            f"per launch{lib}, bound {head['bound_ms']:.2e} ms "
+            f"({head['bound_by']}), launch floor {floor:.5f} ms; per call "
+            f"kernel {head['ms']:.4f} ms, plain {head['plain_ms']:.4f} ms "
+            "on the script's input; other inputs " + ", ".join(
+                f"{c['case']} {c['device_ms']:.5f}"
+                + ("" if c["library_device_ms"] is None else
+                   f" (library {c['library_device_ms']:.5f})")
+                + f" / per call {c['ms']:.4f} / plain {c['plain_ms']:.3f} ms"
+                for c in row["per_case"][1:]))
+    log("  probe ranking: " + "; ".join(
+        f"{n} " + (f"{rows[n]['device_vs_library']:.2f}x its library, "
+                   if rows[n]["device_vs_library"] is not None else "")
+        + f"gap {rows[n]['probe_path_gap_ms']:.5f} ms"
+        for n in rank_probes(rows)))
     return rows
+
+
+def rank_probes(rows):
+    """The probe kernels in the order of the port's redesign rule: first
+    those slower than their library call (their device times alone summed
+    over the timed inputs above the call's summed likewise), by that
+    ratio; then the rest by their probe-path gap, the launches on the
+    probe path times the mean over the timed inputs of device time alone
+    minus bound (a tile probe's launches are its three inputs at two
+    geometries, timed at the first). Sets both numbers on each row."""
+    for row in rows.values():
+        cases = row["per_case"]
+        row["probe_path_gap_ms"] = row["launches"] * statistics.mean(
+            c["device_ms"] - c["bound_ms"] for c in cases)
+        row["device_vs_library"] = None
+        if cases[0]["library_device_ms"] is not None:
+            row["device_vs_library"] = (
+                sum(c["device_ms"] for c in cases)
+                / sum(c["library_device_ms"] for c in cases))
+    losing = [n for n, r in rows.items()
+              if r["device_vs_library"] is not None
+              and r["device_vs_library"] > 1]
+    return (sorted(losing, key=lambda n: -rows[n]["device_vs_library"])
+            + sorted((n for n in rows if n not in losing),
+                     key=lambda n: -rows[n]["probe_path_gap_ms"]))
 
 
 def probe_kernel_entries(rows):
     """The ``kernels`` line's entries of the sixteen probe kernels: launches
     on the probe path, and the script's own input at the scripts' geometry
-    for the times and the bound (every input in ``per_case``)."""
+    for the times and the bound (every input in ``per_case``): per call
+    (``ms``, ``plain_ms``, ``library_ms``) and by device time alone
+    (``device_ms``, ``library_device_ms``), beside ``launch_floor_ms``."""
     entries = []
     for name, row in rows.items():
         probe = probes.PROBES[name]
@@ -1583,7 +1639,12 @@ def probe_kernel_entries(rows):
             "launches": row["launches"], "max_abs_err": row["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "per_case": row["per_case"],
+            "library_ms": head["library_ms"], "device_ms": head["device_ms"],
+            "library_device_ms": head["library_device_ms"],
+            "launch_floor_ms": row["launch_floor_ms"],
+            "device_vs_library": row["device_vs_library"],
+            "probe_path_gap_ms": row["probe_path_gap_ms"],
+            "per_case": row["per_case"],
         })
     return entries
 

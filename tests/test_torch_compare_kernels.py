@@ -8,6 +8,7 @@ import torch
 
 from centerfusiondetect3d_tpu_torch.ops import dcn
 from centerfusiondetect3d_tpu_torch.tools import compare_kernels as ck
+from centerfusiondetect3d_tpu_torch.tools import probe_dcn
 
 
 @pytest.mark.parametrize("other", ["/", "..", "."])
@@ -169,3 +170,26 @@ def test_trees_of_other_layouts_compare_in_a_layout_free_form(name):
     assert dcn.BACKWARD_X_CHANNELS_LAST
     if name == "dcn_im2col":
         assert tuple(got.shape) == (4, 8, 3, 3)
+
+
+def test_overlap_refuses_the_probe_kernels():
+    with pytest.raises(SystemExit, match="only the forward"):
+        ck.main(["--overlap", "--kernel", "probe_p1"])
+
+
+@pytest.mark.parametrize("name", ck.PROBE_KERNELS)
+def test_probe_calls_give_both_trees_the_tool_inputs(name):
+    """Each probe input of ``tools/probe_dcn.py`` goes to both trees'
+    wrappers and to this tree's yardstick; on CPU tensors the wrappers run
+    their plain versions, so a tree compared with itself gives equal
+    outputs, and the yardstick agrees within its order's rounding."""
+    from centerfusiondetect3d_tpu_torch.ops import probes
+
+    calls = ck.probe_calls(name, probes, "cpu")
+    assert [label for label, *_ in calls] == [
+        label for label, _, _ in probe_dcn.p5_cases(name[6:], ck.SEED,
+                                                    "cpu")]
+    for label, this, other, library in calls:
+        got = this()
+        assert torch.equal(got, other()), label
+        assert ck.rel_err(library(), got) <= 1e-6, label
