@@ -7,13 +7,16 @@
 // p4 :122). Each isolated one ingredient of the clamped shifted-window DCN
 // kernel (K1, centerfusiondetect3d_tpu/ops/pallas_dcn.py:117) for the TPU
 // compiler. Here each probe is one entry point with its own launch count
-// (ops/probes.py), built from five kernel templates:
+// (ops/probes.py), built from these kernels:
 //   window_sum_kernel   k1, k3, kc, ka: unweighted window sums of a tile
 //   row_window_kernel   p1, p2: P5's windows, summed over a run of rows
-//   field_kernel        k2, p3: an offset field read, a whole-array min/max
+//   broadcast_kernel    k2: the offset field's dy, broadcast to O
+//   shift_if_max_kernel p3: a whole-array min/max
 //   hat_sampler_kernel  kb, k4 (= kd), ke, kf (= kg): the hat-weighted
 //                       sampler
-//   contract_kernel     k5, p4: a bf16 tap in shared memory, contracted
+//   hat_tap_kernel      k5: the hat-weighted tap of every channel,
+//                       contracted with bf16 taps on the tensor cores
+//   contract_kernel     p4: a scaled bf16 tap in shared memory, contracted
 //                       with bf16 taps in f32
 // ops/probes.py states what each probe computes; its plain versions are
 // the reference these kernels are held against.
@@ -22,23 +25,27 @@
 // (B, HP, WP, C), HP = n_rb*BR + 2*pad, WP = W + 2*pad; off f32
 // (B, 18, n_rb*BR, W) with dy in channel 4 and dx in channel 5; mask f32
 // (B, 9, n_rb*BR, W); w bf16 (9, C, O); out f32 (B, n_rb*BR, W, O), or C
-// channels for kf and kg. A thread block is one (b, rb) tile of BR x W
-// pixels, the Pallas grid's unit: the tile's loop bounds come from the min
-// and max of its clipped dy and dx, reduced in shared memory first; then
-// threads run over (pixel, channel) and sum in f32 registers in the
-// scripts' order (gy outer, gx inner), with the products and sums rounded
-// where the scripts round them (no fused multiply-add), so the plain
-// version and the kernel differ only where a sum runs in another order.
-// The wrapper checks that every window lies inside x.
+// channels for kf and kg. A thread block of the sampling probes is one
+// (b, rb) tile of BR x W pixels, the Pallas grid's unit: the tile's loop
+// bounds come from the min and max of its clipped dy and dx, reduced in
+// shared memory first; then threads run over (pixel, channel) and sum in
+// f32 registers in the scripts' order (gy outer, gx inner), with the
+// products and sums rounded where the scripts round them (no fused
+// multiply-add), so the plain version and the kernel differ only where a
+// sum runs in another order. The wrapper checks that every window lies
+// inside x.
 //
 // What bounds them: at the scripts' shapes a probe moves about 100 KB and
 // does at most a few MFLOP, well under a microsecond of the card's memory
 // or arithmetic; the launch itself (a few microseconds) bounds every one.
-// So the tile probes keep the plainest correct design: one block per tile,
-// 256 threads, no staging beyond the tile bounds and the contraction's
-// tap. P5's windows (p1, p2) are different: one output with no tiles, so
-// one block would put the whole window through one of 132 SMs. Their
-// kernel runs over the output instead (row_window_kernel below).
+// So most tile probes keep the plainest correct design: one block per
+// tile, 256 threads, no staging beyond the tile bounds. Where one block a
+// tile put the work through 4 of 132 SMs, the kernel runs over the output
+// instead: P5's windows (p1, p2: row_window_kernel), k2's broadcast
+// (broadcast_kernel) and k5's tap and contraction (hat_tap_kernel, a
+// block per 16 pixels of a tile).
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -240,35 +247,53 @@ row_window_kernel(const float* __restrict__ x, float* __restrict__ out,
   reinterpret_cast<V*>(out + (size_t)r * g.span)[v] = acc;
 }
 
-// ------------------------------------------------------- field reads
+// ------------------------------------------------------- k2's broadcast
 
-enum class Field {
-  kBroadcast,   // k2: dy of tile (b, rb), not clipped, broadcast to O
-  kShiftIfMax,  // p3: x + trunc(min x) where max x > 0.5, else 0
-};
+// out[b, p, :] = dy[b, p] (offset channel 4, not clipped) for the hw
+// pixels p of each batch b. The grid runs over the output, not over tiles:
+// blockIdx.y is b, and a block of (vectors of O on x, pixels on y)
+// threads strides over the batch's pixels, so a thread reads its pixel's
+// dy once and stores it broadcast as V: float4 where the wrapper found O
+// whole in float4s and out on 16 bytes (the entry checks it again), else
+// float. No index is divided at run time. At the scripts' geometry (O =
+// 16, 384 pixels a batch): blocks of 4 x 64 threads, 12 blocks, one
+// 16-byte store a thread.
+__device__ __forceinline__ void splat(float v, float& o) { o = v; }
+__device__ __forceinline__ void splat(float v, float4& o) {
+  o = make_float4(v, v, v, v);
+}
 
-template <Field F>
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-field_kernel(const float* __restrict__ in, float* __restrict__ out, int n,
-             Tiles t) {
-  if (F == Field::kBroadcast) {
-    const int b = blockIdx.x / t.n_rb, rb = blockIdx.x % t.n_rb;
-    const float* dy = in + ((size_t)b * 18 + 4) * t.h() * t.w
-                      + (size_t)rb * t.pixels();
-    float* o = out + t.at(b, rb, 0, 0, t.o);
-    for (int i = threadIdx.x; i < t.pixels() * t.o; i += blockDim.x)
-      o[i] = dy[i / t.o];
-  } else {
-    float lo = CUDART_INF_F, hi = -CUDART_INF_F;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      lo = fminf(lo, in[i]);
-      hi = fmaxf(hi, in[i]);
-    }
-    block_min_max(lo, hi);
-    const float shift = (float)(int)lo;  // the int32 cast: toward zero
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      out[i] = hi > 0.5f ? in[i] + shift : 0.f;
+broadcast_kernel(const float* __restrict__ off, float* __restrict__ out,
+                 int hw, int vectors) {
+  const int b = blockIdx.y;
+  const float* dy = off + ((size_t)b * 18 + 4) * hw;
+  V* o = reinterpret_cast<V*>(out) + (size_t)b * hw * vectors;
+  for (int p = blockIdx.x * blockDim.y + threadIdx.y; p < hw;
+       p += gridDim.x * blockDim.y) {
+    V v;
+    splat(__ldg(dy + p), v);
+    for (int j = threadIdx.x; j < vectors; j += blockDim.x)
+      o[(size_t)p * vectors + j] = v;
   }
+}
+
+// ------------------------------------------------------- p3's field read
+
+// x + trunc(min x) where max x > 0.5, else 0; one block
+__global__ void __launch_bounds__(kThreads)
+shift_if_max_kernel(const float* __restrict__ in, float* __restrict__ out,
+                    int n) {
+  float lo = CUDART_INF_F, hi = -CUDART_INF_F;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    lo = fminf(lo, in[i]);
+    hi = fmaxf(hi, in[i]);
+  }
+  block_min_max(lo, hi);
+  const float shift = (float)(int)lo;  // the int32 cast: toward zero
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    out[i] = hi > 0.5f ? in[i] + shift : 0.f;
 }
 
 // ------------------------------------------------- hat-weighted sampler
@@ -331,12 +356,217 @@ hat_sampler_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
   }
 }
 
-// ------------------------------------------------------- contractions
+// ------------------------------------------ k5's tap and its contraction
 
-enum class Tap {
-  kHat,     // k5: bf16(k4's sample of every channel * mask channel 3)
-  kScaled,  // p4: bf16(x[row0 + r, col0 + c, :] * bf16(scale))
+// The raw bits of kVec bf16 channels: one 16-byte load of 8 (its address
+// on 16 bytes), or one 2-byte load
+template <int kVec>
+struct Channels {
+  uint4 bits;
+  __device__ __forceinline__ void fetch(const bf16* __restrict__ p) {
+    bits = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void unpack(float (&v)[kVec]) const {
+    const unsigned pair[4] = {bits.x, bits.y, bits.z, bits.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // bf16 -> f32 is exact: the high half
+      v[2 * q] = __uint_as_float(pair[q] << 16);
+      v[2 * q + 1] = __uint_as_float(pair[q] & 0xffff0000u);
+    }
+  }
 };
+template <>
+struct Channels<1> {
+  bf16 bits;
+  __device__ __forceinline__ void fetch(const bf16* __restrict__ p) {
+    bits = *p;
+  }
+  __device__ __forceinline__ void unpack(float (&v)[1]) const {
+    v[0] = __bfloat162float(bits);
+  }
+};
+
+// The most gx a tile's box can hold: with dx clipped to +-8, xlo >= -8 and
+// xhi <= 9
+constexpr int kBox = 2 * 8 + 2;
+
+// the n terms of one row of a box: r[j] from row + j * c, j < n
+template <int kVec>
+__device__ __forceinline__ void fetch_row(Channels<kVec> (&r)[kBox],
+                                          const bf16* row, int n, int c) {
+#pragma unroll
+  for (int j = 0; j < kBox; ++j) {
+    if (j >= n) break;
+    r[j].fetch(row + (ptrdiff_t)j * c);
+  }
+}
+
+// acc += (wy * wx[j]) * r[j] for j < n, in order, rounded as hat_sum does
+template <int kVec>
+__device__ __forceinline__ void sum_row(const Channels<kVec> (&r)[kBox],
+                                        float wy, const float (&wx)[kBox],
+                                        int n, float (&acc)[kVec]) {
+#pragma unroll
+  for (int j = 0; j < kBox; ++j) {
+    if (j >= n) break;
+    const float wyx = __fmul_rn(wy, wx[j]);
+    float v[kVec];
+    r[j].unpack(v);
+#pragma unroll
+    for (int q = 0; q < kVec; ++q)
+      acc[q] = __fadd_rn(acc[q], __fmul_rn(wyx, v[q]));
+  }
+}
+
+// v rounded to bf16 at s (16-byte aligned for kVec 8)
+template <int kVec>
+__device__ __forceinline__ void store_tap(bf16* s, const float (&v)[kVec]) {
+  if constexpr (kVec == 8) {
+    uint4 u;
+    unsigned* pair = reinterpret_cast<unsigned*>(&u);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+      pair[q] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(s) = u;
+  } else {
+    s[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+__device__ __forceinline__ unsigned ld_pair(const bf16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, col-major), bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// k5: per pixel of tile (b, rb) the k4 sum of every channel, in hat_sum's
+// order and rounding (gy outer, gx inner, __fmul_rn / __fadd_rn, every term of
+// the tile's box: a term of weight zero stays, so 0 * inf is NaN as in the
+// script), times mask channel 3, rounded to bf16 once; then contracted with
+// w[3] (C, O) in f32. One block a tile would put the work through 4 of 132
+// SMs, so the grid is (group of kTapPixels pixels, rb, b), and each block
+// reduces its tile's bounds itself (tile_bounds) with at least kTapThreads
+// threads, so that the fixed work (the bounds over the tile, w[3] to shared
+// memory) takes one or two loads a thread. A thread owns one (pixel, vector of
+// kVec channels): wy once a gy, wy * wx once a (gy, gx), and one 16-byte load
+// of 8 bf16 channels a term (kVec 8, where C % 8 == 0 and x lies on 16 bytes,
+// the wrapper's choice that the entry checks again; else one channel). With
+// about one warp an SM there is no other warp to hide a load's latency or a
+// dependent instruction's behind, so a thread runs whole rows of its box: the
+// weights hat(gx - dx) of its pixel once, in registers (a row holds at most
+// kBox terms), the next row's loads in flight while a row sums, and nothing
+// but the loads and the arithmetic in a row's straight-line code. The bf16
+// taps (K = C zero-padded to kp, a multiple of 16) go to shared memory beside
+// w[3] transposed (O zero-padded to op, a multiple of 8), rows ld = kp + 8
+// apart: an odd number of 16-byte units, so the fragment loads hit 32 banks.
+// Each warp contracts the 16 x kp tap with n8 tiles of w in turn, mma.sync
+// m16n8k16 (bf16 in, f32 out; the products of two bf16 values are exact in
+// f32, the order of the sums is the tensor core's), and stores the rows of the
+// tile's pixels and the columns below O.
+constexpr int kTapPixels = 16;  // pixels a block: one mma M tile
+constexpr int kTapThreads = 128;  // the fewest threads a block
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+hat_tap_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
+               const float* __restrict__ mask, const bf16* __restrict__ w,
+               float* __restrict__ out, Tiles t, int kp, int op) {
+  extern __shared__ __align__(16) unsigned char s_k5[];
+  const int ld = kp + 8;
+  bf16* s_tap = reinterpret_cast<bf16*>(s_k5);  // [kTapPixels][ld]
+  bf16* s_w = s_tap + kTapPixels * ld;          // [op][ld]: w[3] transposed
+  const int b = blockIdx.z, rb = blockIdx.y, p0 = blockIdx.x * kTapPixels;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int tile_px = t.pixels();
+  const size_t plane = (size_t)t.h() * t.w, tile0 = (size_t)rb * tile_px;
+  const float* dy = off + ((size_t)b * 18 + 4) * plane + tile0;
+  const float* dx = dy + plane;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < kp * op; i += blockDim.x) {
+    const int n = i / kp, k = i - n * kp;
+    s_w[n * ld + k] = k < t.c && n < t.o ? w[(size_t)k * t.o + n] : zero;
+  }
+  const int pad_c = kp - t.c;
+  for (int i = threadIdx.x; i < kTapPixels * pad_c; i += blockDim.x) {
+    const int r = i / pad_c;
+    s_tap[r * ld + t.c + (i - r * pad_c)] = zero;
+  }
+  const Bounds bd = tile_bounds(off, t.h(), t.w, t.br, b, rb);
+  const int nx = bd.xhi - bd.xlo + 1;
+  const bf16* xb = x + (size_t)b * t.hp() * t.wp() * t.c;
+  const ptrdiff_t row_step = (ptrdiff_t)t.wp() * t.c;
+  const int vectors = t.c / kVec;
+  for (int item = threadIdx.x; item < kTapPixels * vectors;
+       item += blockDim.x) {
+    const int i = item / vectors, ch = (item - i * vectors) * kVec;
+    const int p = p0 + i;
+    float acc[kVec];
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) acc[q] = 0.f;
+    if (p < tile_px) {
+      const int r = p / t.w, c = p - r * t.w;
+      const float py = clip(dy[p]), px = clip(dx[p]);
+      const float m = mask[((size_t)b * 9 + 3) * plane + tile0 + p];
+      const bf16* at = xb + ((size_t)(rb * t.br + t.pad + r) * t.wp()
+                             + t.pad + c + bd.xlo) * t.c + ch;  // gx = xlo
+      float wx[kBox];  // hat(gx - dx) for gx = xlo + j
+#pragma unroll
+      for (int j = 0; j < kBox; ++j) wx[j] = hat((float)(bd.xlo + j) - px);
+      // the box's rows in order, the next row's loads in flight while
+      // this row sums
+      Channels<kVec> even[kBox], odd[kBox];
+      fetch_row(even, at + bd.ylo * row_step, nx, t.c);
+      for (int gy = bd.ylo; gy <= bd.yhi; gy += 2) {
+        const bool pair = gy < bd.yhi;
+        if (pair) fetch_row(odd, at + (gy + 1) * row_step, nx, t.c);
+        sum_row(even, hat((float)gy - py), wx, nx, acc);
+        if (!pair) break;
+        if (gy + 2 <= bd.yhi)
+          fetch_row(even, at + (gy + 2) * row_step, nx, t.c);
+        sum_row(odd, hat((float)(gy + 1) - py), wx, nx, acc);
+      }
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) acc[q] = __fmul_rn(acc[q], m);
+    }
+    store_tap<kVec>(s_tap + i * ld + ch, acc);
+  }
+  __syncthreads();
+  float* o = out + ((size_t)b * plane + tile0) * t.o;
+  const int g = lane >> 2, tq = lane & 3;  // the fragments' row, column pair
+  const bf16* a_lo = s_tap + g * ld + tq * 2;
+  const bf16* a_hi = a_lo + 8 * ld;
+  for (int nt = warp; nt < op / 8; nt += warps) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const bf16* bp = s_w + (nt * 8 + g) * ld + tq * 2;
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      const unsigned a[4] = {ld_pair(a_lo + k0), ld_pair(a_hi + k0),
+                             ld_pair(a_lo + k0 + 8), ld_pair(a_hi + k0 + 8)};
+      mma_bf16(acc, a, ld_pair(bp + k0), ld_pair(bp + k0 + 8));
+    }
+    const int n = nt * 8 + tq * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + g + 8 * h;
+      if (p >= tile_px) continue;
+      float* dst = o + (size_t)p * t.o + n;
+      if (n < t.o) dst[0] = acc[2 * h];
+      if (n + 1 < t.o) dst[1] = acc[2 * h + 1];
+    }
+  }
+}
+
+// ------------------------------------------------------- p4's contraction
 
 // p4's window: rows x cols pixels at (row0, col0) of x (xh, xw, k)
 struct TapWindow {
@@ -344,48 +574,23 @@ struct TapWindow {
   float scale;
 };
 
-// One block per tile (k5) or the one window (p4): the bf16 tap of its
-// pixels (pixels x k) goes to shared memory, then out[p, n] = sum_k
+// One block for p4's one window: the bf16 tap bf16(x * bf16(scale)) of
+// its pixels (pixels x k) goes to shared memory, then out[p, n] = sum_k
 // tap[p, k] * w[k, n] in f32 (a product of two bf16 values is exact in
-// f32); w is (k, n), for k5 the taps' w[3] (C, O).
-template <Tap P>
+// f32); w is (k, n).
 __global__ void __launch_bounds__(kThreads)
-contract_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
-                const float* __restrict__ mask, const bf16* __restrict__ w,
-                float* __restrict__ out, Tiles t, TapWindow win, int k, int n) {
+contract_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                float* __restrict__ out, TapWindow win, int k, int n) {
   extern __shared__ unsigned short s_raw[];
   bf16* s_tap = reinterpret_cast<bf16*>(s_raw);
-  int pixels;
-  float* o;
-  if (P == Tap::kHat) {
-    const int b = blockIdx.x / t.n_rb, rb = blockIdx.x % t.n_rb;
-    const Bounds bd = tile_bounds(off, t.h(), t.w, t.br, b, rb);
-    const bf16* xb = x + (size_t)b * t.hp() * t.wp() * t.c;
-    const size_t plane = (size_t)t.h() * t.w;
-    pixels = t.pixels();
-    for (int i = threadIdx.x; i < pixels * k; i += blockDim.x) {
-      const int ch = i % k, p = i / k;
-      const int r = p / t.w, c = p % t.w;
-      const size_t pix = (size_t)(rb * t.br + r) * t.w + c;
-      const float dy = clip(off[((size_t)b * 18 + 4) * plane + pix]);
-      const float dx = clip(off[((size_t)b * 18 + 5) * plane + pix]);
-      const float m = mask[((size_t)b * 9 + 3) * plane + pix];
-      const float tap = hat_sum<true, true>(
-          xb, t, rb, r, c, ch, dy, dx, bd.ylo, bd.yhi, bd.xlo, bd.xhi);
-      s_tap[i] = __float2bfloat16_rn(__fmul_rn(tap, m));
-    }
-    o = out + t.at(b, rb, 0, 0, n);
-  } else {
-    const float scale = round_bf16(win.scale);
-    pixels = win.rows * win.cols;
-    for (int i = threadIdx.x; i < pixels * k; i += blockDim.x) {
-      const int ch = i % k, p = i / k;
-      const int r = p / win.cols, c = p % win.cols;
-      const float v = load(x + ((size_t)(win.row0 + r) * win.xw
-                                + win.col0 + c) * k + ch);
-      s_tap[i] = __float2bfloat16_rn(__fmul_rn(v, scale));
-    }
-    o = out;
+  const float scale = round_bf16(win.scale);
+  const int pixels = win.rows * win.cols;
+  for (int i = threadIdx.x; i < pixels * k; i += blockDim.x) {
+    const int ch = i % k, p = i / k;
+    const int r = p / win.cols, c = p % win.cols;
+    const float v = load(x + ((size_t)(win.row0 + r) * win.xw
+                              + win.col0 + c) * k + ch);
+    s_tap[i] = __float2bfloat16_rn(__fmul_rn(v, scale));
   }
   __syncthreads();
   for (int i = threadIdx.x; i < pixels * n; i += blockDim.x) {
@@ -394,7 +599,7 @@ contract_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
     float acc = 0.f;
     for (int kk = 0; kk < k; ++kk)
       acc = fmaf(__bfloat162float(a[kk]), load(w + (size_t)kk * n + j), acc);
-    o[(size_t)p * n + j] = acc;
+    out[(size_t)p * n + j] = acc;
   }
 }
 
@@ -457,22 +662,41 @@ int launch_hat(const void* x, const float* off, float* out, const Tiles& t,
   return launched();
 }
 
-template <Tap P>
-int launch_contract(const void* x, const float* off, const float* mask,
-                    const void* w, float* out, const Tiles& t,
-                    const TapWindow& win, int k, int n, int blocks,
-                    int pixels, cudaStream_t stream) {
-  const size_t smem = (size_t)pixels * k * sizeof(bf16);
+// p4: one block stages its pixels x k tap in shared memory
+int launch_contract(const void* x, const void* w, float* out,
+                    const TapWindow& win, int k, int n, cudaStream_t stream) {
+  const size_t smem = (size_t)win.rows * win.cols * k * sizeof(bf16);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        contract_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        contract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  contract_kernel<P><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), off, mask, static_cast<const bf16*>(w),
-      out, t, win, k, n);
+  contract_kernel<<<1, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), out, win, k,
+      n);
+  return launched();
+}
+
+// k5 on tiles t: a block per kTapPixels pixels of a tile, w3 = w[3]
+template <int kVec>
+int launch_tap(const void* x, const float* off, const float* mask,
+               const bf16* w3, float* out, const Tiles& t, int kp, int op,
+               size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hat_tap_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int items = kTapPixels * (t.c / kVec);
+  const int threads =
+      std::min(kThreads, std::max(kTapThreads, (items + 31) / 32 * 32));
+  const dim3 grid((t.pixels() + kTapPixels - 1) / kTapPixels, t.n_rb,
+                  t.batch);
+  hat_tap_kernel<kVec><<<grid, threads, smem, stream>>>(
+      static_cast<const bf16*>(x), off, mask, w3, out, t, kp, op);
   return launched();
 }
 
@@ -492,22 +716,12 @@ TILE_PROBE(k1) {  // the channel sum at rows rb*BR + 3 + r, columns 2 + c
   return launch_windows<Reduce::kSumChannels, Loop::kFixed>(
       x, off, out, tile_windows(TILES, 3, br, 2), stream);
 }
-TILE_PROBE(k2) {
-  field_kernel<Field::kBroadcast>
-      <<<batch * n_rb, kThreads, 0, stream>>>(off, out, 0, TILES);
-  return launched();
-}
 TILE_PROBE(k3) {  // no row-block term
   return launch_windows<Reduce::kChannel0, Loop::kTileY>(
       x, off, out, tile_windows(TILES, pad, 0, pad), stream);
 }
 TILE_PROBE(k4) {
   return launch_hat<false, true, true>(x, off, out, TILES, stream);
-}
-TILE_PROBE(k5) {
-  return launch_contract<Tap::kHat>(
-      x, off, mask, static_cast<const bf16*>(w) + 3 * c * o, out, TILES,
-      TapWindow{}, c, o, batch * n_rb, br * wd, stream);
 }
 TILE_PROBE(ka) {
   return launch_windows<Reduce::kCount, Loop::kTileYX>(
@@ -538,6 +752,54 @@ TILE_PROBE(kg) {  // kf's function (its roll never wraps): its device code
 #undef TILES
 #undef TILE_PROBE
 
+// k2: out (B, H*W, O) = dy broadcast to O, as broadcast_kernel says; vec 4
+// (float4 stores) or 1, chosen by the wrapper (ops/probes.py:k2_width) and
+// refused here where O is not whole in float4s or out is off 16 bytes.
+// The tile arguments are the tile probes'.
+extern "C" int cfd_probe_k2(const void*, const float* off, const float*,
+                            const void*, float* out, int batch, int n_rb,
+                            int br, int wd, int, int o, int, int vec,
+                            cudaStream_t stream) {
+  const int hw = n_rb * br * wd;
+  if (batch < 1 || hw < 1 || o < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<size_t>(out) & 15) == 0 && o % 4 == 0;
+  if (vec != 1 && !(vec == 4 && aligned)) return (int)cudaErrorInvalidValue;
+  const int vectors = o / vec;
+  const int bx = std::min(vectors, kThreads);
+  const int by = std::max(1, std::min(kThreads / bx, hw));
+  const dim3 grid((hw + by - 1) / by, batch);
+  const dim3 block(bx, by);
+  if (vec == 4)
+    broadcast_kernel<float4><<<grid, block, 0, stream>>>(off, out, hw,
+                                                         vectors);
+  else
+    broadcast_kernel<float><<<grid, block, 0, stream>>>(off, out, hw, vectors);
+  return launched();
+}
+
+// k5: as hat_tap_kernel says; vec 8 (16-byte loads of 8 channels) or 1,
+// chosen by the wrapper (ops/probes.py:k5_width) and refused here where C
+// % 8 != 0 or x is off 16 bytes. Refused too where the tap and w[3] would
+// not fit in a block's shared memory.
+extern "C" int cfd_probe_k5(const void* x, const float* off,
+                            const float* mask, const void* w, float* out,
+                            int batch, int n_rb, int br, int wd, int c, int o,
+                            int pad, int vec, cudaStream_t stream) {
+  if (batch < 1 || n_rb < 1 || br < 1 || wd < 1 || c < 1 || o < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<size_t>(x) & 15) == 0 && c % 8 == 0;
+  if (vec != 1 && !(vec == 8 && aligned)) return (int)cudaErrorInvalidValue;
+  const int kp = (c + 15) / 16 * 16, op = (o + 7) / 8 * 8;
+  const size_t smem = (size_t)(kTapPixels + op) * (kp + 8) * sizeof(bf16);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const Tiles t = make_tiles(batch, n_rb, br, wd, c, o, pad);
+  const bf16* w3 = static_cast<const bf16*>(w) + (size_t)3 * c * o;
+  if (vec == 8)
+    return launch_tap<8>(x, off, mask, w3, out, t, kp, op, smem, stream);
+  return launch_tap<1>(x, off, mask, w3, out, t, kp, op, smem, stream);
+}
+
 // p1 and p2: out (rows, span) as row_window_kernel says, x f32. p1 is one
 // window, a copy: lo = g, hi = g + 1, col0 = (g + 1) * d2 of x (d0, d1, d2),
 // span = cols * d2; p2 sums rows lo ... hi-1 of x (n, l) from zero: col0 =
@@ -560,8 +822,7 @@ extern "C" int cfd_probe_p2(const float* x, float* out, int row_stride,
 // elements, one block
 extern "C" int cfd_probe_p3(const float* x, float* out, int n,
                             cudaStream_t stream) {
-  field_kernel<Field::kShiftIfMax><<<1, kThreads, 0, stream>>>(x, out, n,
-                                                               Tiles{});
+  shift_if_max_kernel<<<1, kThreads, 0, stream>>>(x, out, n);
   return launched();
 }
 
@@ -571,8 +832,7 @@ extern "C" int cfd_probe_p4(const void* x, const void* w, float* out, int xh,
                             int xw, int k, int n, int row0, int col0,
                             int rows, int cols, float scale,
                             cudaStream_t stream) {
-  return launch_contract<Tap::kScaled>(
-      x, nullptr, nullptr, w, out, Tiles{},
-      TapWindow{xh, xw, row0, col0, rows, cols, scale}, k, n, 1, rows * cols,
-      stream);
+  return launch_contract(x, w, out,
+                         TapWindow{xh, xw, row0, col0, rows, cols, scale}, k,
+                         n, stream);
 }

@@ -60,10 +60,14 @@ Each wrapper checks device, dtype, shape, contiguity and that every window
 it reads lies inside x (interpret mode clamps an out-of-range start and the
 TPU does not; the wrappers raise). On a CPU tensor it runs the plain version;
 on a CUDA tensor it launches its kernel or raises (no fallback), and its
-``.launches`` counts the launches. ``PROBES`` lists the sixteen, each with
-its yardstick where one PyTorch call computes its function
-(``Probe.library``: ``k2``, ``p1``, ``p2``, timed beside the kernel by
-``chip_smoke.py``; the port never calls it).
+``.launches`` counts the launches. The wrappers of ``k2``, ``p1`` and
+``p2`` pick their kernels' store width, that of ``k5`` its load width,
+from the tensors' shapes and addresses (``k2_width``, ``row_windows``,
+``k5_width``); the C entries check the choice again and refuse a wrong
+one. ``PROBES`` lists the sixteen, each with its yardstick where one
+PyTorch call computes its function (``Probe.library``: ``k2``, ``p1``,
+``p2``, timed beside the kernel by ``chip_smoke.py``; the port never calls
+it).
 """
 
 from __future__ import annotations
@@ -128,6 +132,12 @@ class Geometry:
 SCRIPT_GEOMETRY = Geometry()  # the scripts' BR, W, C, O = 8, 24, 16, 16
 SECOND_GEOMETRY = Geometry(br=4, w=40, c=8, o=32)
 GEOMETRIES = (SCRIPT_GEOMETRY, SECOND_GEOMETRY)
+# the edges of k2's and k5's kernels: 45 pixels a tile (no multiple of k5's
+# 16), C = 24 (K pads to 32, three 8-channel vectors), O = 6 (no float4 and
+# no multiple of 8). Not in GEOMETRIES: the probe path's launch counts, and
+# with them the ranking, stay as they were; the card tests and
+# chip_smoke.py's phase 15 check the two kernels there.
+RAGGED_GEOMETRY = Geometry(br=5, w=9, c=24, o=6)
 
 
 # ------------------------------------------------------------ plain versions
@@ -393,8 +403,9 @@ def _check_tile(geom: Geometry, x=None, off=None, mask=None, w=None):
 _TILE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
 _SIGNATURES = {
     **{f"cfd_probe_{n}": _TILE_ARGS for n in (
-        "k1", "k2", "k3", "k4", "k5", "ka", "kb", "kc", "kd", "ke", "kf",
-        "kg")},
+        "k1", "k3", "k4", "ka", "kb", "kc", "kd", "ke", "kf", "kg")},
+    # k2, k5: the vector width
+    **{f"cfd_probe_{n}": _TILE_ARGS + [ctypes.c_int] for n in ("k2", "k5")},
     **{f"cfd_probe_{n}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
        for n in ("p1", "p2")},
     "cfd_probe_p3": [ctypes.c_void_p] * 2 + [ctypes.c_int],
@@ -421,11 +432,35 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def k2_width(out) -> int:
+    """``k2``'s store width: 4 (float4) where out (B, H, W, O) holds whole
+    float4s a pixel and starts on 16 bytes, else 1."""
+    return 4 if out.shape[-1] % 4 == 0 and out.data_ptr() % 16 == 0 else 1
+
+
+def k5_width(x) -> int:
+    """``k5``'s load width: 8 channels (one 16-byte load) where x (B, HP,
+    WP, C) holds whole 8-channel vectors a pixel and starts on 16 bytes,
+    else 1."""
+    return 8 if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 else 1
+
+
+def _k2_args(named, out):
+    """(vec,) of the ``k2`` entry."""
+    return (k2_width(out),)
+
+
+def _k5_args(named, out):
+    """(vec,) of the ``k5`` entry."""
+    return (k5_width(named["x"]),)
+
+
 def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
-                all_channels: bool = False):
+                all_channels: bool = False, extra: Optional[Callable] = None):
     """The wrapper of tile probe ``name``: takes ``inputs`` (of x, off,
     mask, w) and the geometry; returns float32 (B, H, W, O), or
-    (B, H, W, C) with ``all_channels``."""
+    (B, H, W, C) with ``all_channels``. ``extra(named, out)`` gives the C
+    arguments after the geometry (``k2``, ``k5``: the vector width)."""
 
     def wrapper(*tensors, geom: Geometry = SCRIPT_GEOMETRY):
         if len(tensors) != len(inputs):
@@ -440,7 +475,8 @@ def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
                           dtype=torch.float32, device=dev)
         _run(out, f"cfd_probe_{name}",
              *(_ptr(named.get(k)) for k in ("x", "off", "mask", "w")),
-             out.data_ptr(), g.batch, g.n_rb, g.br, g.w, g.c, g.o, g.pad)
+             out.data_ptr(), g.batch, g.n_rb, g.br, g.w, g.c, g.o, g.pad,
+             *(() if extra is None else extra(named, out)))
         wrapper.launches += 1
         return out
 
@@ -455,10 +491,11 @@ def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
 
 
 probe_k1 = _tile_probe("k1", probe_k1_plain, ("x",))
-probe_k2 = _tile_probe("k2", probe_k2_plain, ("off",))
+probe_k2 = _tile_probe("k2", probe_k2_plain, ("off",), extra=_k2_args)
 probe_k3 = _tile_probe("k3", probe_k3_plain, ("x", "off"))
 probe_k4 = _tile_probe("k4", probe_k4_plain, ("x", "off"))
-probe_k5 = _tile_probe("k5", probe_k5_plain, ("x", "off", "mask", "w"))
+probe_k5 = _tile_probe("k5", probe_k5_plain, ("x", "off", "mask", "w"),
+                       extra=_k5_args)
 probe_ka = _tile_probe("ka", probe_ka_plain, ("off",))
 probe_kb = _tile_probe("kb", probe_kb_plain, ("x", "off"))
 probe_kc = _tile_probe("kc", probe_kc_plain, ("x", "off"))

@@ -12,6 +12,8 @@
         --kernel dcn_col2im_coord_bf16 --kernel dcn_backward_bf16
     python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
         --other _compare/parent --kernel probe_p1 --kernel probe_p2
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel probe_k2 --kernel probe_k5
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
@@ -34,22 +36,22 @@ own ``column_gradients``, all made from the same seeded values. The two
 outputs are held against each other in a layout-free form (im2col's
 columns through each tree's ``weight_gradient``, as dweight (O, C, 3, 3);
 the other outputs as they come) within 1e-4 (float32) or 8e-3 (bf16)
-relative to the largest magnitude. The probe kernels ``probe_p1`` and
-``probe_p2`` (``ops/probes.py``, P5's windows) run instead on
-``tools/probe_dcn.py``'s inputs of them, in both trees, whose outputs must
-be equal bitwise; beside them their yardstick (``Probe.library`` of this
-tree) is timed by its device time alone. With ``--overlap`` in place of
-``--other`` the other
-side is this tree's forward kernels in their in-block overlap variant
-(``ops/dcn.py:FWD_OVERLAP``; the bf16 kernel's 256-channel tile has none
-and runs as it is), whose output must equal the kernels' bitwise. Then
-each kernel is timed with CUDA events in turns
+relative to the largest magnitude. The probe kernels (``ops/probes.py``:
+``probe_k2`` and ``probe_k5`` on the three inputs of a tile probe at both
+of ``probes.GEOMETRIES``, ``probe_p1`` and ``probe_p2`` on P5's windows)
+run instead on ``tools/probe_dcn.py``'s inputs of them, in both trees,
+whose outputs must agree within the probe's ``Probe.rtol`` (0: bitwise);
+beside them their yardstick (``Probe.library`` of this tree, where there
+is one) is timed by its device time alone. With ``--overlap`` in place of
+``--other`` the other side is this tree's forward kernels in their
+in-block overlap variant (``ops/dcn.py:FWD_OVERLAP``; the bf16 kernel's
+256-channel tile has none and runs as it is), whose output must equal
+the kernels' bitwise. Then each kernel is timed with CUDA events in turns
 (other, this, this, other, ...), medians of 11 after one warm-up call of
 each, one call per event pair (host work included); then by their
 device time alone (one event pair around 200 calls, 40 of a whole
 backward, queued behind a sleep of the stream), in turns (other, this,
-this, other; the means). Prints the card, one line per
-kernel and shape, the sums per model forward (over the 16 nodes) and, at
+this, other; the means). Prints the card, one line per kernel and shape, the sums per model forward (over the 16 nodes) and, at
 the training microbatch, per unfrozen training step (over the nodes and
 microbatches), and a JSON line with every number. Card only.
 """
@@ -57,6 +59,7 @@ microbatches), and a JSON line with every number. Card only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -76,7 +79,7 @@ from ..runtime.synthetic import (MAIN_PATH_OPTS, TRAIN_OPTS,
                                  SyntheticTrainingSet, seeded_weights)
 from ..tools import probe_dcn
 from ..training import learning_rate, make_optimizer, train_step
-from ..utils.observability import time_device
+from ..utils.observability import DEVICE_LAUNCHES, time_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.realpath(__file__))))
@@ -133,7 +136,7 @@ def dtype_of(name: str):
 
 KERNELS = ("dcn_fwd", "dcn_fwd_bf16", *dcn.BACKWARD_KERNELS,
            *dcn.BACKWARD_KERNELS_BF16, *BACKWARD)
-PROBE_KERNELS = ("probe_p1", "probe_p2")
+PROBE_KERNELS = ("probe_k2", "probe_k5", "probe_p1", "probe_p2")
 
 
 def load_other(root: str):
@@ -154,43 +157,79 @@ def load_other(root: str):
 
 
 def probe_calls(name: str, other_probes, device):
-    """(label, this tree's call, the other's, this tree's yardstick) of
-    probe kernel ``name`` (``probe_p1`` or ``probe_p2``) on each of
-    ``tools/probe_dcn.py``'s inputs of it: each tree's wrapper in its
-    ``ops/probes.py`` (the other's is ``other_probes``) on the same
-    tensors."""
+    """(label, this tree's call, the other's, this tree's yardstick or
+    None) of probe kernel ``name`` on each of ``tools/probe_dcn.py``'s
+    inputs of it (a tile probe's three inputs at each of ``GEOMETRIES``,
+    P5's windows their own): each tree's wrapper in its ``ops/probes.py``
+    (the other's is ``other_probes``, with its own ``Geometry``) on the
+    same tensors."""
     short = name[len("probe_"):]
     this, other = probes.PROBES[short], other_probes.PROBES[short]
-    return [(label, (lambda a=a: this.kernel(*a)),
-             (lambda a=a: other.kernel(*a)),
-             (lambda a=a: this.library(*a)))
-            for label, a, _ in probe_dcn.p5_cases(short, SEED, device)]
+    lib = this.library
+    if short in ("p1", "p2"):
+        return [(label, (lambda a=a: this.kernel(*a)),
+                 (lambda a=a: other.kernel(*a)),
+                 None if lib is None else (lambda a=a: lib(*a)))
+                for label, a, _ in probe_dcn.p5_cases(short, SEED, device)]
+    calls = []
+    for geom in probes.GEOMETRIES:
+        theirs = other_probes.Geometry(**dataclasses.asdict(geom))
+        for case in probe_dcn.CASES:
+            inp = probe_dcn.tile_inputs(this.script, geom, case, SEED, device)
+            a = [inp[k] for k in this.kernel.inputs]
+            calls.append((
+                probe_dcn.tile_label(case, geom),
+                (lambda a=a, g=geom: this.kernel(*a, geom=g)),
+                (lambda a=a, g=theirs: other.kernel(*a, geom=g)),
+                None if lib is None else (lambda a=a, g=geom: lib(*a, g))))
+    return calls
+
+
+def hold_probe(got, want, rtol: float, what: str, label: str) -> float:
+    """Exits unless got is want within rtol of its largest magnitude (0:
+    bitwise); returns the relative error."""
+    rel = rel_err(got, want)
+    if not (torch.equal(got, want) if rtol == 0 else rel <= rtol):
+        raise SystemExit(f"compare_kernels: {what} differ on {label}: "
+                         f"relative {rel:.3e}, the probe's rtol {rtol:g} "
+                         "(0: bitwise)")
+    return rel
+
+
+def device_turns(fn_other, fn_this, n: int = DEVICE_LAUNCHES):
+    """(other, this): the mean device time alone of each (``time_device``
+    over n calls), in turns (other, this, this, other)."""
+    dev = ([], [])
+    for which in (0, 1, 1, 0):
+        dev[which].append(time_device((fn_other, fn_this)[which], n))
+    return statistics.mean(dev[0]), statistics.mean(dev[1])
 
 
 def compare_probe(name: str, other_probes, device):
     """The report entry of probe kernel ``name``: per input, both trees'
-    outputs equal bitwise (else exit), each tree's time per call and by
-    device time alone in turns, and the yardstick's device time alone."""
+    outputs within the probe's ``rtol`` (else exit), each tree's time per
+    call and by device time alone in turns, and the yardstick's device
+    time alone where there is one."""
+    short = name[len("probe_"):]
+    rtol = probes.PROBES[short].rtol
     rows = []
     for label, fn_this, fn_other, library in probe_calls(
             name, other_probes, device):
-        got, want = fn_this(), fn_other()
-        if not torch.equal(got, want):
-            raise SystemExit(f"compare_kernels: {name} of the two trees "
-                             f"differ on {label}: {rel_err(got, want):.3e}")
+        rel = hold_probe(fn_this(), fn_other(), rtol,
+                         f"{name} of the two trees", label)
         ms_other, ms_this = time_turns(fn_other, fn_this, REPS)
-        dev = ([], [])
-        for which in (0, 1, 1, 0):
-            dev[which].append(time_device((fn_other, fn_this)[which]))
+        other_dev, this_dev = device_turns(fn_other, fn_this)
         row = {"case": label, "ms": ms_this, "other_ms": ms_other,
-               "device_ms": statistics.mean(dev[1]),
-               "other_device_ms": statistics.mean(dev[0]),
-               "library_device_ms": time_device(library)}
+               "device_ms": this_dev, "other_device_ms": other_dev,
+               "max_rel_err": rel, "library_device_ms": None}
+        line = (f"{name} {label}: device alone this {this_dev:.5f} ms, "
+                f"other {other_dev:.5f} ms")
+        if library is not None:
+            row["library_device_ms"] = time_device(library)
+            line += f", library {row['library_device_ms']:.5f} ms"
         rows.append(row)
-        print(f"{name} {label}: device alone this {row['device_ms']:.5f} "
-              f"ms, other {row['other_device_ms']:.5f} ms, library "
-              f"{row['library_device_ms']:.5f} ms; per call this "
-              f"{ms_this:.4f} ms, other {ms_other:.4f} ms (bitwise equal)")
+        print(f"{line}; per call this {ms_this:.4f} ms, other "
+              f"{ms_other:.4f} ms (rel err {rel:.2e}, rtol {rtol:g})")
     return {"per_case": rows}
 
 
@@ -314,14 +353,9 @@ def compare_dcn(names, other, args, device, report) -> None:
                                               or shape[4] <= 128)
                     if not row["overlap_variant"]:
                         line += " (no overlap variant: the same kernel)"
-                dev = ([], [])
-                n = BACKWARD_DEVICE_LAUNCHES if name in BACKWARD else None
-                for which in (0, 1, 1, 0):
-                    fn = (fn_other, fn_this)[which]
-                    dev[which].append(time_device(fn) if n is None
-                                      else time_device(fn, n))
-                row["other_device_ms"] = statistics.mean(dev[0])
-                row["device_ms"] = statistics.mean(dev[1])
+                row["other_device_ms"], row["device_ms"] = device_turns(
+                    fn_other, fn_this, BACKWARD_DEVICE_LAUNCHES
+                    if name in BACKWARD else DEVICE_LAUNCHES)
                 line += (f"; device alone this {row['device_ms']:.4f} "
                          f"ms, other {row['other_device_ms']:.4f} ms")
             rows.append(row)

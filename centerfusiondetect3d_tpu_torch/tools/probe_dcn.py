@@ -220,6 +220,12 @@ class Result:
                 + "".join(f"; {n}" for n in self.notes))
 
 
+def tile_label(case: str, geom: Geometry) -> str:
+    """The label of a tile probe's input ``case`` at ``geom``."""
+    return (f"{case} at (BR, W, C, O) = ({geom.br}, {geom.w}, {geom.c}, "
+            f"{geom.o})")
+
+
 def check_tile_probe(name: str, device, seed: int) -> Result:
     probe = PROBES[name]
     res = Result(name, probe.script_name, probe.rtol)
@@ -229,8 +235,7 @@ def check_tile_probe(name: str, device, seed: int) -> Result:
             inputs = tile_inputs(probe.script, geom, case, seed, device)
             args = [inputs[k] for k in probe.kernel.inputs]
             got = probe.kernel(*args, geom=geom)
-            label = f"{case} at (BR, W, C, O) = ({geom.br}, {geom.w}, " \
-                    f"{geom.c}, {geom.o})"
+            label = tile_label(case, geom)
             res.hold(label, got, probe.plain(*args, geom), probe.rtol)
             if name in ("kf", "kg"):
                 want = torch.from_numpy(bilinear_oracle(

@@ -98,7 +98,9 @@ On the card it:
    scripts' inputs and two seeded draws at the scripts' geometry and a
    second one, held against its plain version (``ops/probes.py``), and K1
    at the probes' shapes through ``dcn_fwd_bf16``; every kernel must have
-   launched. Then each kernel and its plain version are timed per call on
+   launched; then ``k2`` and ``k5`` at a ragged geometry (45 pixels a
+   tile, C = 24, O = 6), each against its plain version, outside those
+   counts. Then each kernel and its plain version are timed per call on
    each of its inputs at the scripts' geometry, and each kernel by its
    device time alone, beside the bound of those inputs and the launch
    floor (the device time alone of a kernel that does nothing); where one
@@ -1519,7 +1521,9 @@ def check_probes(device, timed: bool):
     holds every probe kernel against its plain version (and K1 at the
     probes' shapes, ``dcn_fwd_bf16``, against its plain version) and every
     probe must pass; on the card each of the sixteen kernels must have
-    launched. On the card each kernel and its plain version are then timed
+    launched. Then ``k2`` and ``k5`` are held against their plain versions
+    at the ragged geometry (``check_ragged_probes``), outside those
+    counts. On the card each kernel and its plain version are then timed
     per call, and each kernel by its device time alone (``time_device``),
     on each of its inputs at the scripts' geometry, beside the bound of
     those inputs and the launch floor (a kernel that does nothing, timed
@@ -1546,6 +1550,8 @@ def check_probes(device, timed: bool):
                      "max_rel_err": r.max_rel_err, "cases": r.cases,
                      "launches": counts[r.name], "rtol": r.rtol}
             for r in results if r.name in probes.PROBES}
+    for name, rel in check_ragged_probes(device).items():
+        rows[name]["ragged_max_rel_err"] = rel
     if not timed:
         return rows
     geom = probes.SCRIPT_GEOMETRY
@@ -1596,6 +1602,35 @@ def check_probes(device, timed: bool):
     return rows
 
 
+def check_ragged_probes(device):
+    """``k2`` and ``k5`` at ``probes.RAGGED_GEOMETRY``, the edges of their
+    kernels (45 pixels a tile, C = 24, O = 6), on ``tools/probe_dcn.py``'s
+    three inputs, each held against its plain version within its ``rtol``
+    (``k2`` bitwise); raises on a mismatch. Called after the probe path's
+    launch counts are read, so these launches are not counted there.
+    Returns each kernel's largest relative error."""
+    geom = probes.RAGGED_GEOMETRY
+    worst = {}
+    for name in ("k2", "k5"):
+        probe = probes.PROBES[name]
+        res = probe_dcn.Result(name, probe.script_name, probe.rtol)
+        for case in probe_dcn.CASES:
+            inp = probe_dcn.tile_inputs(probe.script, geom, case, SEED,
+                                        device)
+            args = [inp[k] for k in probe.kernel.inputs]
+            res.hold(f"{case} at the ragged geometry",
+                     probe.kernel(*args, geom=geom), probe.plain(*args, geom),
+                     probe.rtol)
+        log(f"  ragged geometry (BR, W, C, O) = ({geom.br}, {geom.w}, "
+            f"{geom.c}, {geom.o}): {res.line()}")
+        if not res.passed:
+            raise AssertionError(f"probe {name} disagrees with its plain "
+                                 f"version at the ragged geometry: "
+                                 + "; ".join(res.failures))
+        worst[name] = res.max_rel_err
+    return worst
+
+
 def rank_probes(rows):
     """The probe kernels in the order of the port's redesign rule: first
     those slower than their library call (their device times alone summed
@@ -1626,7 +1661,8 @@ def probe_kernel_entries(rows):
     on the probe path, and the script's own input at the scripts' geometry
     for the times and the bound (every input in ``per_case``): per call
     (``ms``, ``plain_ms``, ``library_ms``) and by device time alone
-    (``device_ms``, ``library_device_ms``), beside ``launch_floor_ms``."""
+    (``device_ms``, ``library_device_ms``), beside ``launch_floor_ms``;
+    ``k2`` and ``k5`` also their largest error at the ragged geometry."""
     entries = []
     for name, row in rows.items():
         probe = probes.PROBES[name]
@@ -1644,6 +1680,7 @@ def probe_kernel_entries(rows):
             "launch_floor_ms": row["launch_floor_ms"],
             "device_vs_library": row["device_vs_library"],
             "probe_path_gap_ms": row["probe_path_gap_ms"],
+            "ragged_max_rel_err": row.get("ragged_max_rel_err"),
             "per_case": row["per_case"],
         })
     return entries

@@ -179,17 +179,57 @@ def test_overlap_refuses_the_probe_kernels():
 
 @pytest.mark.parametrize("name", ck.PROBE_KERNELS)
 def test_probe_calls_give_both_trees_the_tool_inputs(name):
-    """Each probe input of ``tools/probe_dcn.py`` goes to both trees'
-    wrappers and to this tree's yardstick; on CPU tensors the wrappers run
-    their plain versions, so a tree compared with itself gives equal
-    outputs, and the yardstick agrees within its order's rounding."""
+    """Each probe input of ``tools/probe_dcn.py`` (P5's windows their own,
+    a tile probe's three inputs at both geometries) goes to both trees'
+    wrappers and to this tree's yardstick where there is one (none for
+    ``k5``); on CPU tensors the wrappers run their plain versions, so a
+    tree compared with itself gives equal outputs, and the yardstick
+    agrees within its order's rounding."""
     from centerfusiondetect3d_tpu_torch.ops import probes
 
     calls = ck.probe_calls(name, probes, "cpu")
-    assert [label for label, *_ in calls] == [
-        label for label, _, _ in probe_dcn.p5_cases(name[6:], ck.SEED,
-                                                    "cpu")]
+    short = name[6:]
+    if short in ("p1", "p2"):
+        labels = [label for label, _, _ in probe_dcn.p5_cases(
+            short, ck.SEED, "cpu")]
+    else:
+        labels = [probe_dcn.tile_label(case, geom)
+                  for geom in probes.GEOMETRIES for case in probe_dcn.CASES]
+    assert [label for label, *_ in calls] == labels
     for label, this, other, library in calls:
         got = this()
         assert torch.equal(got, other()), label
-        assert ck.rel_err(library(), got) <= 1e-6, label
+        assert (library is None) == (name == "probe_k5"), label
+        if library is not None:
+            assert ck.rel_err(library(), got) <= 1e-6, label
+
+
+@pytest.mark.parametrize("name", ["probe_k2", "probe_k5"])
+def test_the_redesigned_probes_are_kernels_of_the_tool(name):
+    """The parser takes them (the refusal is the directory's, not the
+    kernel's), and their calls run the plain versions on the CPU."""
+    from centerfusiondetect3d_tpu_torch.ops import probes
+
+    with pytest.raises(SystemExit, match="inside"):
+        ck.main(["--other", ck.ROOT, "--kernel", name])
+    probe = probes.PROBES[name[6:]]
+    cases = [(g, c) for g in probes.GEOMETRIES for c in probe_dcn.CASES]
+    for (label, this, _, _), (geom, case) in zip(
+            ck.probe_calls(name, probes, "cpu"), cases, strict=True):
+        inp = probe_dcn.tile_inputs(probe.script, geom, case, ck.SEED, "cpu")
+        want = probe.plain(*[inp[k] for k in probe.kernel.inputs], geom)
+        assert torch.equal(this(), want), label
+
+
+def test_a_probe_is_held_to_its_rtol():
+    """0 is bitwise; a nonzero rtol is relative to the largest magnitude;
+    the message names the tolerance."""
+    want = torch.tensor([1.0, -2.0, 4.0])
+    assert ck.hold_probe(want.clone(), want, 0.0, "k2", "case") == 0.0
+    near = want + torch.tensor([0.0, 0.0, 4e-3])
+    with pytest.raises(SystemExit, match="rtol 0 "):
+        ck.hold_probe(near, want, 0.0, "k2", "case")
+    assert ck.hold_probe(near, want, 8e-3, "k5", "case") == pytest.approx(
+        1e-3, rel=1e-3)
+    with pytest.raises(SystemExit, match="rtol 0.0001"):
+        ck.hold_probe(near, want, 1e-4, "k5", "case")
