@@ -12,12 +12,13 @@
 //   row_window_kernel   p1, p2: P5's windows, summed over a run of rows
 //   broadcast_kernel    k2: the offset field's dy, broadcast to O
 //   shift_if_max_kernel p3: a whole-array min/max
-//   hat_sampler_kernel  kb, k4 (= kd), ke, kf (= kg): the hat-weighted
-//                       sampler
+//   hat_sampler_kernel  kb, k4 (= kd), ke: the hat-weighted sampler of
+//                       channel 0
+//   hat_cols_kernel     kf (= kg): the hat-weighted sampler of every channel
 //   hat_tap_kernel      k5: the hat-weighted tap of every channel,
 //                       contracted with bf16 taps on the tensor cores
 //   contract_kernel     p4: a scaled bf16 tap in shared memory, contracted
-//                       with bf16 taps in f32
+//                       with bf16 taps on the tensor cores
 // ops/probes.py states what each probe computes; its plain versions are
 // the reference these kernels are held against.
 //
@@ -42,10 +43,12 @@
 // tile, 256 threads, no staging beyond the tile bounds. Where one block a
 // tile put the work through 4 of 132 SMs, the kernel runs over the output
 // instead: P5's windows (p1, p2: row_window_kernel), k2's broadcast
-// (broadcast_kernel) and k5's tap and contraction (hat_tap_kernel, a
-// block per 16 pixels of a tile).
+// (broadcast_kernel), k5's tap and contraction (hat_tap_kernel, a block
+// per 16 pixels of a tile), kf's sampler (hat_cols_kernel) and p4's
+// contraction (contract_kernel, a block per 16 pixels and 32 columns).
 
 #include <algorithm>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -325,51 +328,56 @@ __device__ float hat_sum(const bf16* __restrict__ xb, const Tiles& t, int rb,
   return acc;
 }
 
-// kb, k4/kd, ke, kf/kg: the tile's bounds, cut to [kYMin, kYMax] and
-// [kXMin, kXMax]; every channel (kf, kg) or channel 0 broadcast to O
-template <bool kAllChannels, bool kRowBlock, bool kXLoop, int kYMin,
-          int kYMax, int kXMin, int kXMax>
+// kb, k4/kd, ke: the tile's bounds, gy cut to [kYMin, kYMax]; channel 0
+// broadcast to O
+template <bool kRowBlock, bool kXLoop, int kYMin, int kYMax>
 __global__ void __launch_bounds__(kThreads)
 hat_sampler_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
                    float* __restrict__ out, Tiles t) {
   const int b = blockIdx.x / t.n_rb, rb = blockIdx.x % t.n_rb;
   const Bounds bd = tile_bounds(off, t.h(), t.w, t.br, b, rb);
   const int ylo = max(bd.ylo, kYMin), yhi = min(bd.yhi, kYMax);
-  const int xlo = max(bd.xlo, kXMin), xhi = min(bd.xhi, kXMax);
   const bf16* xb = x + (size_t)b * t.hp() * t.wp() * t.c;
   const size_t plane = (size_t)t.h() * t.w;
-  const int nch = kAllChannels ? t.c : 1;
-  for (int i = threadIdx.x; i < t.pixels() * nch; i += blockDim.x) {
-    const int ch = i % nch, p = i / nch;
+  for (int p = threadIdx.x; p < t.pixels(); p += blockDim.x) {
     const int r = p / t.w, c = p % t.w;
     const size_t pix = (size_t)(rb * t.br + r) * t.w + c;
     const float dy = clip(off[((size_t)b * 18 + 4) * plane + pix]);
     const float dx = clip(off[((size_t)b * 18 + 5) * plane + pix]);
     const float acc = hat_sum<kRowBlock, kXLoop>(
-        xb, t, rb, r, c, ch, dy, dx, ylo, yhi, xlo, xhi);
-    if (kAllChannels) {
-      out[t.at(b, rb, r, c, t.c) + ch] = acc;
-    } else {
-      float* o = out + t.at(b, rb, r, c, t.o);
-      for (int j = 0; j < t.o; ++j) o[j] = acc;
-    }
+        xb, t, rb, r, c, 0, dy, dx, ylo, yhi, bd.xlo, bd.xhi);
+    float* o = out + t.at(b, rb, r, c, t.o);
+    for (int j = 0; j < t.o; ++j) o[j] = acc;
   }
 }
 
 // ------------------------------------------ k5's tap and its contraction
 
-// The raw bits of kVec bf16 channels: one 16-byte load of 8 (its address
-// on 16 bytes), or one 2-byte load
+// The raw bits of kVec bf16 channels: one 16- or 4-byte load of 8 (k5) or 2
+// (kf) (its address on as many bytes), or one 2-byte load
+__device__ __forceinline__ void words(const uint4& b, unsigned (&w)[4]) {
+  w[0] = b.x;
+  w[1] = b.y;
+  w[2] = b.z;
+  w[3] = b.w;
+}
+__device__ __forceinline__ void words(unsigned b, unsigned (&w)[1]) {
+  w[0] = b;
+}
+
 template <int kVec>
 struct Channels {
-  uint4 bits;
+  static_assert(kVec == 2 || kVec == 8, "2 or 8 channels");
+  using Bits = std::conditional_t<kVec == 8, uint4, unsigned>;
+  Bits bits;
   __device__ __forceinline__ void fetch(const bf16* __restrict__ p) {
-    bits = __ldg(reinterpret_cast<const uint4*>(p));
+    bits = __ldg(reinterpret_cast<const Bits*>(p));
   }
   __device__ __forceinline__ void unpack(float (&v)[kVec]) const {
-    const unsigned pair[4] = {bits.x, bits.y, bits.z, bits.w};
+    unsigned pair[kVec / 2];
+    words(bits, pair);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // bf16 -> f32 is exact: the high half
+    for (int q = 0; q < kVec / 2; ++q) {  // bf16 -> f32 is exact: the high half
       v[2 * q] = __uint_as_float(pair[q] << 16);
       v[2 * q + 1] = __uint_as_float(pair[q] & 0xffff0000u);
     }
@@ -415,6 +423,26 @@ __device__ __forceinline__ void sum_row(const Channels<kVec> (&r)[kBox],
 #pragma unroll
     for (int q = 0; q < kVec; ++q)
       acc[q] = __fadd_rn(acc[q], __fmul_rn(wyx, v[q]));
+  }
+}
+
+// acc += the box's rows gy = ylo ... yhi in order, each as sum_row, with the
+// next row's loads in flight while a row sums; at is the term (gy, gx) =
+// (0, xlo), rows row_step apart, terms c apart; wx[j] = hat(xlo + j - dx)
+template <int kVec>
+__device__ __forceinline__ void sum_box(const bf16* at, ptrdiff_t row_step,
+                                        int c, int ylo, int yhi, float py,
+                                        const float (&wx)[kBox], int nx,
+                                        float (&acc)[kVec]) {
+  Channels<kVec> even[kBox], odd[kBox];
+  fetch_row(even, at + ylo * row_step, nx, c);
+  for (int gy = ylo; gy <= yhi; gy += 2) {
+    const bool pair = gy < yhi;
+    if (pair) fetch_row(odd, at + (gy + 1) * row_step, nx, c);
+    sum_row(even, hat((float)gy - py), wx, nx, acc);
+    if (!pair) break;
+    if (gy + 2 <= yhi) fetch_row(even, at + (gy + 2) * row_step, nx, c);
+    sum_row(odd, hat((float)(gy + 1) - py), wx, nx, acc);
   }
 }
 
@@ -523,19 +551,7 @@ hat_tap_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
       float wx[kBox];  // hat(gx - dx) for gx = xlo + j
 #pragma unroll
       for (int j = 0; j < kBox; ++j) wx[j] = hat((float)(bd.xlo + j) - px);
-      // the box's rows in order, the next row's loads in flight while
-      // this row sums
-      Channels<kVec> even[kBox], odd[kBox];
-      fetch_row(even, at + bd.ylo * row_step, nx, t.c);
-      for (int gy = bd.ylo; gy <= bd.yhi; gy += 2) {
-        const bool pair = gy < bd.yhi;
-        if (pair) fetch_row(odd, at + (gy + 1) * row_step, nx, t.c);
-        sum_row(even, hat((float)gy - py), wx, nx, acc);
-        if (!pair) break;
-        if (gy + 2 <= bd.yhi)
-          fetch_row(even, at + (gy + 2) * row_step, nx, t.c);
-        sum_row(odd, hat((float)(gy + 1) - py), wx, nx, acc);
-      }
+      sum_box(at, row_step, t.c, bd.ylo, bd.yhi, py, wx, nx, acc);
 #pragma unroll
       for (int q = 0; q < kVec; ++q) acc[q] = __fmul_rn(acc[q], m);
     }
@@ -566,6 +582,101 @@ hat_tap_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
   }
 }
 
+// ------------------------------------------ kf's sampler of every channel
+
+// kf (= kg): per pixel of tile (b, rb) and channel, the sum over the tile's
+// box, gx cut to [kKfXMin, kKfXMax], of hat(gy - dy) * hat(gx - dx) * x,
+// with hat_sum's rounding (__fmul_rn / __fadd_rn) and every term kept (0 *
+// inf is NaN, as in the plain version). One block a tile
+// (hat_sampler_kernel) put this through 4 of 132 SMs, one 2-byte load and
+// two integer divisions a term. Here the grid is (group of px_block pixels,
+// rb, b), and each block reduces its tile's bounds itself (tile_bounds). What
+// bounds the kernel is each thread's chain of terms (up to 18 x 18 on the
+// wide input), so a (pixel, vector of kVec channels) takes kSplit threads,
+// adjacent lanes of a warp: part s sums its own run of the box's rows, in
+// order (the rows cut into kSplit runs of ceil(ny / kSplit)), as
+// hat_tap_kernel sums a whole box: its row weights hat(gx - dx) once, in
+// registers, each gy weight once, one kVec-channel load a term, whole rows
+// in straight-line code with the next row's loads in flight (sum_box). The
+// parts' sums are then added in one fixed order, ((part 0 + part 1) + part
+// 2) + part 3 (the plain version adds the same terms in one run: the two
+// differ by the order of the sums, within kf's 1e-5, and are bitwise
+// reproducible). Part 0 stores the vector, a float2 or a float. kVec is 2
+// channels (one 4-byte load) where C is even and x on 4 bytes, else 1: the
+// wrapper's choice (ops/probes.py:kf_width), checked again by the entry. A
+// block holds about kColThreads threads; nothing ties it to k5's 16-pixel
+// M tiles. Timed against 8, 4 and 1 channels a thread, 2 or 8 parts and 64
+// or 256 threads a block (PERF.md §6), this design was the fastest on the
+// wide input (18 x 18 terms) that is no slower on the script's (8 parts
+// read about 1% lower on the wide input and 1-2% higher on the script's);
+// float4 stores, gathered from the lanes beside, were no faster.
+constexpr int kColThreads = 128;  // threads a block, where C allows
+constexpr int kSplit = 4;         // threads a (pixel, vector)
+constexpr int kKfXMin = -9, kKfXMax = 10;  // kf's GX_RANGE, range(-9, 11)
+
+// v to o: one float2 (o on 8 bytes) or float store
+template <int kVec>
+__device__ __forceinline__ void store_cols(float* o, const float (&v)[kVec]) {
+  if constexpr (kVec == 2) {
+    *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+  } else {
+    o[0] = v[0];
+  }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+hat_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
+                float* __restrict__ out, Tiles t, int px_block) {
+  static_assert(32 % kSplit == 0, "a (pixel, vector) within one warp");
+  static_assert(kVec == 1 || kVec == 2, "1 or 2 channels a thread");
+  const int b = blockIdx.z, rb = blockIdx.y, p0 = blockIdx.x * px_block;
+  const int tile_px = t.pixels();
+  const size_t plane = (size_t)t.h() * t.w, tile0 = (size_t)rb * tile_px;
+  const float* dy = off + ((size_t)b * 18 + 4) * plane + tile0;
+  const float* dx = dy + plane;
+  const Bounds bd = tile_bounds(off, t.h(), t.w, t.br, b, rb);
+  const int xlo = max(bd.xlo, kKfXMin);
+  const int nx = min(bd.xhi, kKfXMax) - xlo + 1;
+  const int chunk = (bd.yhi - bd.ylo + kSplit) / kSplit;  // rows a part
+  const bf16* xb = x + (size_t)b * t.hp() * t.wp() * t.c;
+  const ptrdiff_t row_step = (ptrdiff_t)t.wp() * t.c;
+  const int vectors = t.c / kVec, items = px_block * vectors;
+  const int lane = threadIdx.x & 31, part = lane % kSplit;
+  const int first = lane - part;  // the lane of part 0
+  // every lane runs every pass (the warp's shuffles), items past the end
+  // or past the tile idle
+  for (int i0 = 0; i0 < items; i0 += blockDim.x / kSplit) {
+    const int item = i0 + threadIdx.x / kSplit;
+    const int i = item / vectors, v = item - i * vectors, p = p0 + i;
+    const bool valid = item < items && p < tile_px;
+    float acc[kVec];
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) acc[q] = 0.f;
+    const int lo = bd.ylo + part * chunk, hi = min(bd.yhi, lo + chunk - 1);
+    if (valid && lo <= hi) {
+      const int r = p / t.w, c = p - r * t.w;
+      const float py = clip(dy[p]), px = clip(dx[p]);
+      const bf16* at = xb + ((size_t)(rb * t.br + t.pad + r) * t.wp()
+                             + t.pad + c + xlo) * t.c + v * kVec;  // gx = xlo
+      float wx[kBox];  // hat(gx - dx) for gx = xlo + j
+#pragma unroll
+      for (int j = 0; j < kBox; ++j) wx[j] = hat((float)(xlo + j) - px);
+      sum_box(at, row_step, t.c, lo, hi, py, wx, nx, acc);
+    }
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) {
+      float sum = __shfl_sync(0xffffffffu, acc[q], first);
+#pragma unroll
+      for (int j = 1; j < kSplit; ++j)
+        sum = __fadd_rn(sum, __shfl_sync(0xffffffffu, acc[q], first + j));
+      acc[q] = sum;
+    }
+    float* o = out + ((size_t)b * plane + tile0 + p) * t.c + v * kVec;
+    if (valid && part == 0) store_cols<kVec>(o, acc);
+  }
+}
+
 // ------------------------------------------------------- p4's contraction
 
 // p4's window: rows x cols pixels at (row0, col0) of x (xh, xw, k)
@@ -574,32 +685,143 @@ struct TapWindow {
   float scale;
 };
 
-// One block for p4's one window: the bf16 tap bf16(x * bf16(scale)) of
-// its pixels (pixels x k) goes to shared memory, then out[p, n] = sum_k
-// tap[p, k] * w[k, n] in f32 (a product of two bf16 values is exact in
-// f32); w is (k, n).
-__global__ void __launch_bounds__(kThreads)
+// out[p, n] = sum_k tap[p, k] * w[k, n] in f32, tap = bf16(x * bf16(scale))
+// of the window's pixels p (row-major), w (k, n). One block (the old
+// kernel) contracted the 128 x 64 tap in scalar FMA, reading w from device
+// memory for every product. Here the grid runs over the output: blockIdx.y
+// is a group of 16 pixels (one mma M tile; one window row of p4's 16
+// columns), blockIdx.x a slice of kContractCols columns, so p4's 128 x 128
+// output is 32 blocks. A block stages its 16 pixels' scaled, bf16-rounded
+// taps and its slice of w transposed in shared memory (K zero-padded to kp,
+// a multiple of 16; columns past n zero), rows ld = kp + 8 apart (an odd
+// number of 16-byte units, so the fragment loads hit 32 banks), with 16-byte
+// loads where the entry found k (for x; n for w) whole in 8-element vectors
+// and the array on 16 bytes (every pixel's k channels are contiguous, so
+// col0 does not break the alignment). Each warp contracts the 16 x kp tap
+// with one n8 tile of the slice, mma.sync m16n8k16 (bf16 in, f32 out: a
+// product of two bf16 values is exact in f32, so only the order of the sums
+// differs from the plain version), and stores the pixels below rows * cols
+// and the columns below n, as float2 where n is even.
+constexpr int kContractThreads = 128;  // 4 warps, one n8 tile each
+constexpr int kContractCols = 32;      // output columns a block
+constexpr int kContractPixels = 16;    // pixels a block: one mma M tile
+
+// bf16(v * scale) of the 8 bf16 values in u
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 u, float scale) {
+  unsigned in[4], o[4];
+  words(u, in);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(
+        __fmul_rn(__uint_as_float(in[q] << 16), scale),
+        __fmul_rn(__uint_as_float(in[q] & 0xffff0000u), scale));
+    o[q] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// the bf16 in the low (hi = 0) or high half of u
+__device__ __forceinline__ bf16 half_of(unsigned u, int hi) {
+  return __ushort_as_bfloat16((unsigned short)(hi ? u >> 16 : u & 0xffffu));
+}
+
+__global__ void __launch_bounds__(kContractThreads)
 contract_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                float* __restrict__ out, TapWindow win, int k, int n) {
-  extern __shared__ unsigned short s_raw[];
-  bf16* s_tap = reinterpret_cast<bf16*>(s_raw);
-  const float scale = round_bf16(win.scale);
+                float* __restrict__ out, TapWindow win, int k, int n, int kp,
+                bool vec_x, bool vec_w) {
+  extern __shared__ __align__(16) unsigned char s_p4[];
+  const int ld = kp + 8;
+  bf16* s_tap = reinterpret_cast<bf16*>(s_p4);  // [kContractPixels][ld]
+  bf16* s_w = s_tap + kContractPixels * ld;     // [kContractCols][ld]
   const int pixels = win.rows * win.cols;
-  for (int i = threadIdx.x; i < pixels * k; i += blockDim.x) {
-    const int ch = i % k, p = i / k;
-    const int r = p / win.cols, c = p % win.cols;
-    const float v = load(x + ((size_t)(win.row0 + r) * win.xw
-                              + win.col0 + c) * k + ch);
-    s_tap[i] = __float2bfloat16_rn(__fmul_rn(v, scale));
+  const int m0 = blockIdx.y * kContractPixels, n0 = blockIdx.x * kContractCols;
+  const float scale = round_bf16(win.scale);
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  // the tap: pixel m0 + i at x[row0 + r, col0 + c, :]
+  if (vec_x) {
+    const int vectors = k / 8;
+    for (int it = threadIdx.x; it < kContractPixels * vectors;
+         it += blockDim.x) {
+      const int i = it / vectors, v = it - i * vectors, p = m0 + i;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (p < pixels) {
+        const int r = p / win.cols, c = p - r * win.cols;
+        u = scale_bf16x8(
+            __ldg(reinterpret_cast<const uint4*>(
+                x + ((size_t)(win.row0 + r) * win.xw + win.col0 + c) * k)
+                + v),
+            scale);
+      }
+      *reinterpret_cast<uint4*>(s_tap + i * ld + v * 8) = u;
+    }
+  } else {
+    for (int it = threadIdx.x; it < kContractPixels * k; it += blockDim.x) {
+      const int i = it / k, ch = it - i * k, p = m0 + i;
+      bf16 v = zero;
+      if (p < pixels) {
+        const int r = p / win.cols, c = p - r * win.cols;
+        v = __float2bfloat16_rn(__fmul_rn(
+            load(x + ((size_t)(win.row0 + r) * win.xw + win.col0 + c) * k
+                 + ch),
+            scale));
+      }
+      s_tap[i * ld + ch] = v;
+    }
+  }
+  const int pad_k = kp - k;
+  for (int it = threadIdx.x; it < kContractPixels * pad_k; it += blockDim.x) {
+    const int i = it / pad_k;
+    s_tap[i * ld + k + (it - i * pad_k)] = zero;
+  }
+  // w's slice, transposed: s_w[j][kk] = w[kk, n0 + j]
+  if (vec_w) {
+    constexpr int kVecs = kContractCols / 8;
+    for (int it = threadIdx.x; it < kp * kVecs; it += blockDim.x) {
+      const int kk = it / kVecs, j = (it - kk * kVecs) * 8;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (kk < k && n0 + j < n)  // n % 8 == 0: a vector is whole or past n
+        u = __ldg(reinterpret_cast<const uint4*>(w + (size_t)kk * n + n0 + j));
+      unsigned e[4];
+      words(u, e);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        s_w[(j + q) * ld + kk] = half_of(e[q / 2], q & 1);
+    }
+  } else {
+    for (int it = threadIdx.x; it < kp * kContractCols; it += blockDim.x) {
+      const int kk = it / kContractCols, j = it - kk * kContractCols;
+      s_w[j * ld + kk] =
+          kk < k && n0 + j < n ? w[(size_t)kk * n + n0 + j] : zero;
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < pixels * n; i += blockDim.x) {
-    const int j = i % n, p = i / n;
-    const bf16* a = s_tap + (size_t)p * k;
-    float acc = 0.f;
-    for (int kk = 0; kk < k; ++kk)
-      acc = fmaf(__bfloat162float(a[kk]), load(w + (size_t)kk * n + j), acc);
-    out[(size_t)p * n + j] = acc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // the fragments' row, column pair
+  const bf16* a_lo = s_tap + g * ld + tq * 2;
+  const bf16* a_hi = a_lo + 8 * ld;
+  for (int nt = warp; nt < kContractCols / 8; nt += blockDim.x >> 5) {
+    const int col = n0 + nt * 8 + tq * 2;
+    if (n0 + nt * 8 >= n) break;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const bf16* bp = s_w + (nt * 8 + g) * ld + tq * 2;
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      const unsigned a[4] = {ld_pair(a_lo + k0), ld_pair(a_hi + k0),
+                             ld_pair(a_lo + k0 + 8), ld_pair(a_hi + k0 + 8)};
+      mma_bf16(acc, a, ld_pair(bp + k0), ld_pair(bp + k0 + 8));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + g + 8 * h;
+      if (p >= pixels) continue;
+      float* dst = out + (size_t)p * n + col;
+      if (n % 2 == 0 && col < n) {
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[2 * h], acc[2 * h + 1]);
+      } else {
+        if (col < n) dst[0] = acc[2 * h];
+        if (col + 1 < n) dst[1] = acc[2 * h + 1];
+      }
+    }
   }
 }
 
@@ -650,22 +872,22 @@ Windows tile_windows(const Tiles& t, int row0, int row_step, int col0) {
                  row0, row_step, col0, 0, 0};
 }
 
-template <bool kAllChannels, bool kRowBlock, bool kXLoop,
-          int kYMin = -kOpen, int kYMax = kOpen, int kXMin = -kOpen,
-          int kXMax = kOpen>
+template <bool kRowBlock, bool kXLoop, int kYMin = -kOpen,
+          int kYMax = kOpen>
 int launch_hat(const void* x, const float* off, float* out, const Tiles& t,
                cudaStream_t stream) {
-  hat_sampler_kernel<kAllChannels, kRowBlock, kXLoop, kYMin, kYMax, kXMin,
-                     kXMax>
+  hat_sampler_kernel<kRowBlock, kXLoop, kYMin, kYMax>
       <<<t.batch * t.n_rb, kThreads, 0, stream>>>(
           static_cast<const bf16*>(x), off, out, t);
   return launched();
 }
 
-// p4: one block stages its pixels x k tap in shared memory
-int launch_contract(const void* x, const void* w, float* out,
+// p4: a block per 16 pixels and kContractCols columns of the output
+int launch_contract(const bf16* x, const bf16* w, float* out,
                     const TapWindow& win, int k, int n, cudaStream_t stream) {
-  const size_t smem = (size_t)win.rows * win.cols * k * sizeof(bf16);
+  const int kp = (k + 15) / 16 * 16;
+  const size_t smem =
+      (size_t)(kContractPixels + kContractCols) * (kp + 8) * sizeof(bf16);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -673,10 +895,43 @@ int launch_contract(const void* x, const void* w, float* out,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  contract_kernel<<<1, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), out, win, k,
-      n);
+  const bool vec_x = k % 8 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const bool vec_w = n % 8 == 0 && (reinterpret_cast<size_t>(w) & 15) == 0;
+  const int pixels = win.rows * win.cols;
+  const dim3 grid((n + kContractCols - 1) / kContractCols,
+                  (pixels + kContractPixels - 1) / kContractPixels);
+  contract_kernel<<<grid, kContractThreads, smem, stream>>>(
+      x, w, out, win, k, n, kp, vec_x, vec_w);
   return launched();
+}
+
+// kf on tiles t: a block per px_block pixels of a tile, kVec channels a
+// thread
+template <int kVec>
+int launch_cols(const void* x, const float* off, float* out, const Tiles& t,
+                cudaStream_t stream) {
+  const int lanes = t.c / kVec * kSplit;  // threads a pixel
+  const int px_block = std::max(1, kColThreads / lanes);
+  const int threads = std::min(kThreads, (px_block * lanes + 31) / 32 * 32);
+  const dim3 grid((t.pixels() + px_block - 1) / px_block, t.n_rb, t.batch);
+  hat_cols_kernel<kVec><<<grid, threads, 0, stream>>>(
+      static_cast<const bf16*>(x), off, out, t, px_block);
+  return launched();
+}
+
+// kf and kg: as hat_cols_kernel says; vec 2 (one 4-byte load and one
+// float2 store of 2 channels) or 1, chosen by the wrapper
+// (ops/probes.py:kf_width) and refused here where C is odd, x is off 4
+// bytes or out off 8 bytes
+int launch_cols_checked(const void* x, const float* off, float* out,
+                        const Tiles& t, int vec, cudaStream_t stream) {
+  if (t.batch < 1 || t.n_rb < 1 || t.br < 1 || t.w < 1 || t.c < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = t.c % 2 == 0 && (reinterpret_cast<size_t>(x) & 3) == 0
+      && (reinterpret_cast<size_t>(out) & 7) == 0;
+  if (vec != 1 && !(vec == 2 && aligned)) return (int)cudaErrorInvalidValue;
+  if (vec == 2) return launch_cols<2>(x, off, out, t, stream);
+  return launch_cols<1>(x, off, out, t, stream);
 }
 
 // k5 on tiles t: a block per kTapPixels pixels of a tile, w3 = w[3]
@@ -721,36 +976,44 @@ TILE_PROBE(k3) {  // no row-block term
       x, off, out, tile_windows(TILES, pad, 0, pad), stream);
 }
 TILE_PROBE(k4) {
-  return launch_hat<false, true, true>(x, off, out, TILES, stream);
+  return launch_hat<true, true>(x, off, out, TILES, stream);
 }
 TILE_PROBE(ka) {
   return launch_windows<Reduce::kCount, Loop::kTileYX>(
       x, off, out, tile_windows(TILES, pad, br, pad), stream);
 }
 TILE_PROBE(kb) {  // no row-block term, no x loop
-  return launch_hat<false, false, false>(x, off, out, TILES, stream);
+  return launch_hat<false, false>(x, off, out, TILES, stream);
 }
 TILE_PROBE(kc) {
   return launch_windows<Reduce::kChannel0, Loop::kTileY>(
       x, off, out, tile_windows(TILES, pad, br, pad), stream);
 }
 TILE_PROBE(kd) {  // k4's function: its device code
-  return launch_hat<false, true, true>(x, off, out, TILES, stream);
+  return launch_hat<true, true>(x, off, out, TILES, stream);
 }
 TILE_PROBE(ke) {  // gy cut to [-2, 2]
-  return launch_hat<false, true, true, -2, 2>(x, off, out, TILES, stream);
-}
-TILE_PROBE(kf) {  // every channel, gx cut to GX_RANGE = [-9, 10]
-  return launch_hat<true, true, true, -kOpen, kOpen, -9, 10>(
-      x, off, out, TILES, stream);
-}
-TILE_PROBE(kg) {  // kf's function (its roll never wraps): its device code
-  return launch_hat<true, true, true, -kOpen, kOpen, -9, 10>(
-      x, off, out, TILES, stream);
+  return launch_hat<true, true, -2, 2>(x, off, out, TILES, stream);
 }
 
 #undef TILES
 #undef TILE_PROBE
+
+// kf (every channel, gx cut to GX_RANGE = [-9, 10]) and kg (kf's function:
+// its roll never wraps; kf's device code): as hat_cols_kernel says, vec
+// as launch_cols_checked says. The tile arguments are the tile probes'.
+#define COLS_PROBE(name)                                                   \
+  extern "C" int cfd_probe_##name(                                         \
+      const void* x, const float* off, const float*, const void*,          \
+      float* out, int batch, int n_rb, int br, int wd, int c, int o,       \
+      int pad, int vec, cudaStream_t stream) {                             \
+    return launch_cols_checked(x, off, out,                                \
+                               make_tiles(batch, n_rb, br, wd, c, o, pad), \
+                               vec, stream);                               \
+  }
+COLS_PROBE(kf)
+COLS_PROBE(kg)
+#undef COLS_PROBE
 
 // k2: out (B, H*W, O) = dy broadcast to O, as broadcast_kernel says; vec 4
 // (float4 stores) or 1, chosen by the wrapper (ops/probes.py:k2_width) and
@@ -832,7 +1095,10 @@ extern "C" int cfd_probe_p4(const void* x, const void* w, float* out, int xh,
                             int xw, int k, int n, int row0, int col0,
                             int rows, int cols, float scale,
                             cudaStream_t stream) {
-  return launch_contract(x, w, out,
+  if (xh < 1 || xw < 1 || k < 0 || n < 1 || rows < 1 || cols < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_contract(static_cast<const bf16*>(x),
+                         static_cast<const bf16*>(w), out,
                          TapWindow{xh, xw, row0, col0, rows, cols, scale}, k,
                          n, stream);
 }

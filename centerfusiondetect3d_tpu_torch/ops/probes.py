@@ -61,12 +61,13 @@ it reads lies inside x (interpret mode clamps an out-of-range start and the
 TPU does not; the wrappers raise). On a CPU tensor it runs the plain version;
 on a CUDA tensor it launches its kernel or raises (no fallback), and its
 ``.launches`` counts the launches. The wrappers of ``k2``, ``p1`` and
-``p2`` pick their kernels' store width, that of ``k5`` its load width,
-from the tensors' shapes and addresses (``k2_width``, ``row_windows``,
-``k5_width``); the C entries check the choice again and refuse a wrong
-one. ``PROBES`` lists the sixteen, each with its yardstick where one
-PyTorch call computes its function (``Probe.library``: ``k2``, ``p1``,
-``p2``, timed beside the kernel by ``chip_smoke.py``; the port never calls
+``p2`` pick their kernels' store width, those of ``k5``, ``kf`` and ``kg``
+their load width, from the tensors' shapes and addresses (``k2_width``,
+``row_windows``, ``k5_width``, ``kf_width``); the C entries check the
+choice again and refuse a wrong one (``p4``'s entry picks its own).
+``PROBES`` lists the sixteen, each with its yardstick where one PyTorch
+call computes its function (``Probe.library``: ``k2``, ``p1``, ``p2``,
+``p4``, timed beside the kernel by ``chip_smoke.py``; the port never calls
 it).
 """
 
@@ -132,12 +133,15 @@ class Geometry:
 SCRIPT_GEOMETRY = Geometry()  # the scripts' BR, W, C, O = 8, 24, 16, 16
 SECOND_GEOMETRY = Geometry(br=4, w=40, c=8, o=32)
 GEOMETRIES = (SCRIPT_GEOMETRY, SECOND_GEOMETRY)
-# the edges of k2's and k5's kernels: 45 pixels a tile (no multiple of k5's
-# 16), C = 24 (K pads to 32, three 8-channel vectors), O = 6 (no float4 and
-# no multiple of 8). Not in GEOMETRIES: the probe path's launch counts, and
-# with them the ranking, stay as they were; the card tests and
-# chip_smoke.py's phase 15 check the two kernels there.
+# the edges of the k2, k5 and kf kernels: 45 pixels a tile (no multiple of
+# k5's 16), C = 24 (K pads to 32, three 8-channel vectors), O = 6 (no float4
+# and no multiple of 8). Not in GEOMETRIES: the probe path's launch counts,
+# and with them the ranking, stay as they were; the card tests and
+# chip_smoke.py's phase 15 check the kernels there.
 RAGGED_GEOMETRY = Geometry(br=5, w=9, c=24, o=6)
+# p4's (K, N) at the edges of its kernel: K = 24 pads to 32 (three 8-channel
+# loads a pixel); N = 20 fills no 32-column block and no 8-column vector of w
+RAGGED_P4 = (24, 20)
 
 
 # ------------------------------------------------------------ plain versions
@@ -332,6 +336,21 @@ def probe_p2_library(x, lo: int, hi: int):
     return x.unfold(0, P5_ROWS, 1)[lo:hi].transpose(1, 2).sum(0)
 
 
+def probe_p4_library(x, w):
+    """``p4`` as one call: ``torch.baddbmm`` of the (8, 16, K) window view
+    and w expanded to (8, K, N), alpha 2, beta 0, with a float32 result from
+    bf16 operands. On finite x below half of bf16's largest value x * 2 is
+    exact in bf16 and 2 * sum in float32, so only the order of the sums
+    differs from the plain version. It has a CUDA kernel only (the CPU has
+    none)."""
+    win = x[P4_ROW0:P4_ROW0 + P5_ROWS, P4_COL0:P4_COL0 + P5_COLS]
+    k, n = w.shape
+    out = torch.empty((P5_ROWS, P5_COLS, n), dtype=torch.float32,
+                      device=x.device)
+    return torch.baddbmm(out, win, w.expand(P5_ROWS, k, n), beta=0,
+                         alpha=P4_SCALE, out_dtype=torch.float32)
+
+
 def probe_p3_plain(x):
     """Plain ``p3``: x + trunc(min x) if max x > 0.5, else zeros (the
     float -> int32 cast truncates toward zero)."""
@@ -403,9 +422,10 @@ def _check_tile(geom: Geometry, x=None, off=None, mask=None, w=None):
 _TILE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
 _SIGNATURES = {
     **{f"cfd_probe_{n}": _TILE_ARGS for n in (
-        "k1", "k3", "k4", "ka", "kb", "kc", "kd", "ke", "kf", "kg")},
-    # k2, k5: the vector width
-    **{f"cfd_probe_{n}": _TILE_ARGS + [ctypes.c_int] for n in ("k2", "k5")},
+        "k1", "k3", "k4", "ka", "kb", "kc", "kd", "ke")},
+    # k2, k5, kf, kg: the vector width
+    **{f"cfd_probe_{n}": _TILE_ARGS + [ctypes.c_int]
+       for n in ("k2", "k5", "kf", "kg")},
     **{f"cfd_probe_{n}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
        for n in ("p1", "p2")},
     "cfd_probe_p3": [ctypes.c_void_p] * 2 + [ctypes.c_int],
@@ -445,6 +465,13 @@ def k5_width(x) -> int:
     return 8 if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 else 1
 
 
+def kf_width(x) -> int:
+    """``kf``'s and ``kg``'s channels a thread: 2 (one 4-byte load) where x
+    (B, HP, WP, C) holds whole pairs a pixel and starts on 4 bytes, else 1.
+    Two channels a thread beat 8, 4 and 1 on the card."""
+    return 2 if x.shape[-1] % 2 == 0 and x.data_ptr() % 4 == 0 else 1
+
+
 def _k2_args(named, out):
     """(vec,) of the ``k2`` entry."""
     return (k2_width(out),)
@@ -453,6 +480,11 @@ def _k2_args(named, out):
 def _k5_args(named, out):
     """(vec,) of the ``k5`` entry."""
     return (k5_width(named["x"]),)
+
+
+def _kf_args(named, out):
+    """(vec,) of the ``kf`` and ``kg`` entries."""
+    return (kf_width(named["x"]),)
 
 
 def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
@@ -502,9 +534,9 @@ probe_kc = _tile_probe("kc", probe_kc_plain, ("x", "off"))
 probe_kd = _tile_probe("kd", probe_kd_plain, ("x", "off"))
 probe_ke = _tile_probe("ke", probe_ke_plain, ("x", "off"))
 probe_kf = _tile_probe("kf", probe_kf_plain, ("x", "off"),
-                       all_channels=True)
+                       all_channels=True, extra=_kf_args)
 probe_kg = _tile_probe("kg", probe_kg_plain, ("x", "off"),
-                       all_channels=True)
+                       all_channels=True, extra=_kf_args)
 
 
 def row_windows(x, out, col0: int, lo: int, hi: int):
@@ -595,9 +627,11 @@ def probe_p4(x, w):
         return probe_p4_plain(x, w)
     out = torch.empty((P5_ROWS, P5_COLS, w.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _run(x, "cfd_probe_p4", x.data_ptr(), w.data_ptr(), out.data_ptr(),
-         *x.shape, w.shape[1], P4_ROW0, P4_COL0, P5_ROWS, P5_COLS, P4_SCALE)
-    probe_p4.launches += 1
+    if out.numel():
+        _run(x, "cfd_probe_p4", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+             *x.shape, w.shape[1], P4_ROW0, P4_COL0, P5_ROWS, P5_COLS,
+             P4_SCALE)
+        probe_p4.launches += 1
     return out
 
 
@@ -625,13 +659,16 @@ probe_p5 = probe_k6
 @dataclass(frozen=True)
 class Probe:
     """One probe kernel: its wrapper and plain version, the script and the
-    name it had there, the line of its body, its tolerance relative to the
-    plain result's largest magnitude (0: bitwise), and its yardstick: one
-    PyTorch call that computes the same function on the same arguments, or
-    None where no single call does (the tile probes' loops run over bounds
-    that the offsets set; ``k1`` sums, rounds to bf16 and broadcasts; ``k5``
-    and ``p4`` scale, round and contract; ``p3`` needs a min, a max and a
-    select)."""
+    name it had there, the line of its body, the function of
+    ``csrc/dcn_probes.cu`` that its entry launches (``device``), its
+    tolerance relative to the plain result's largest magnitude (0:
+    bitwise), and its yardstick: one PyTorch call that computes the same
+    function on the same arguments, or None where no single call does (the
+    tile probes' loops run over bounds that the offsets set; ``kf`` and
+    ``kg`` sample bilinearly, but ``grid_sample`` takes an NCHW x and a
+    normalised grid and returns x's dtype, bf16; ``k1`` sums, rounds to bf16
+    and broadcasts; ``k5`` masks, rounds and contracts; ``p3`` needs a min,
+    a max and a select)."""
 
     name: str
     kernel: Callable
@@ -639,6 +676,7 @@ class Probe:
     script: str
     script_name: str
     line: int
+    device: str
     rtol: float
     library: Optional[Callable] = None
 
@@ -656,31 +694,38 @@ _P1, _P2, _P3, _P5 = (f"scripts/{s}.py" for s in (
 # rounding: two bf16 ulps
 EXACT, SUMS, BF16_TAP = 0.0, 1e-5, 8e-3
 PROBES: Dict[str, Probe] = {p.name: p for p in (
-    Probe("k1", probe_k1, probe_k1_plain, _P1, "k1_4d_dyn_slice", 62, SUMS),
-    Probe("k2", probe_k2, probe_k2_plain, _P1, "k2_field_slice", 71, EXACT,
-          probe_k2_library),
-    Probe("k3", probe_k3, probe_k3_plain, _P1, "k3_dyn_fori_1d", 77, SUMS),
-    Probe("k4", probe_k4, probe_k4_plain, _P1, "k4_nested_fori", 93, SUMS),
+    Probe("k1", probe_k1, probe_k1_plain, _P1, "k1_4d_dyn_slice", 62,
+          "window_sum_kernel", SUMS),
+    Probe("k2", probe_k2, probe_k2_plain, _P1, "k2_field_slice", 71,
+          "broadcast_kernel", EXACT, probe_k2_library),
+    Probe("k3", probe_k3, probe_k3_plain, _P1, "k3_dyn_fori_1d", 77,
+          "window_sum_kernel", SUMS),
+    Probe("k4", probe_k4, probe_k4_plain, _P1, "k4_nested_fori", 93,
+          "hat_sampler_kernel", SUMS),
     Probe("k5", probe_k5, probe_k5_plain, _P1, "k5_matmul_reshape", 120,
-          BF16_TAP),
+          "hat_tap_kernel", BF16_TAP),
     Probe("ka", probe_ka, probe_ka_plain, _P2, "ka_nested_trivial", 64,
-          EXACT),
-    Probe("kb", probe_kb, probe_kb_plain, _P2, "kb_hat_slice_1d", 80, SUMS),
-    Probe("kc", probe_kc, probe_kc_plain, _P2, "kc_pid_slice_1d", 95, SUMS),
-    Probe("kd", probe_kd, probe_kd_plain, _P2, "kd_linearized", 110, SUMS),
+          "window_sum_kernel", EXACT),
+    Probe("kb", probe_kb, probe_kb_plain, _P2, "kb_hat_slice_1d", 80,
+          "hat_sampler_kernel", SUMS),
+    Probe("kc", probe_kc, probe_kc_plain, _P2, "kc_pid_slice_1d", 95,
+          "window_sum_kernel", SUMS),
+    Probe("kd", probe_kd, probe_kd_plain, _P2, "kd_linearized", 110,
+          "hat_sampler_kernel", SUMS),
     Probe("ke", probe_ke, probe_ke_plain, _P2, "ke_static_when_inner_fori",
-          131, SUMS),
+          131, "hat_sampler_kernel", SUMS),
     Probe("kf", probe_kf, probe_kf_plain, _P3, "kf_static_gx_when", 97,
-          SUMS),
-    Probe("kg", probe_kg, probe_kg_plain, _P3, "kg_dynamic_roll", 117, SUMS),
+          "hat_cols_kernel", SUMS),
+    Probe("kg", probe_kg, probe_kg_plain, _P3, "kg_dynamic_roll", 117,
+          "hat_cols_kernel", SUMS),
     Probe("p1", probe_p1, probe_p1_plain, _P5, "dyn_start_sublane_slice", 45,
-          EXACT, probe_p1_library),
+          "row_window_kernel", EXACT, probe_p1_library),
     Probe("p2", probe_p2, probe_p2_plain, _P5, "dyn_bound_fori_loop", 68,
-          EXACT, probe_p2_library),
+          "row_window_kernel", EXACT, probe_p2_library),
     Probe("p3", probe_p3, probe_p3_plain, _P5, "scalar_reduce_plwhen", 98,
-          EXACT),
+          "shift_if_max_kernel", EXACT),
     Probe("p4", probe_p4, probe_p4_plain, _P5, "bf16_slice_mac_matmul", 122,
-          SUMS),
+          "contract_kernel", SUMS, probe_p4_library),
 )}
 # K1 at the probes' shapes: (script, name there, line); dcn_fwd_bf16's limit
 K1_PROBES = {"k6": (_P1, "k6_full_kernel", 132),

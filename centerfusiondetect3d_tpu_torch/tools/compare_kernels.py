@@ -14,6 +14,9 @@
         --other _compare/parent --kernel probe_p1 --kernel probe_p2
     python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
         --other _compare/parent --kernel probe_k2 --kernel probe_k5
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel probe_kf --kernel probe_kg \\
+        --kernel probe_p4
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
@@ -37,10 +40,11 @@ outputs are held against each other in a layout-free form (im2col's
 columns through each tree's ``weight_gradient``, as dweight (O, C, 3, 3);
 the other outputs as they come) within 1e-4 (float32) or 8e-3 (bf16)
 relative to the largest magnitude. The probe kernels (``ops/probes.py``:
-``probe_k2`` and ``probe_k5`` on the three inputs of a tile probe at both
-of ``probes.GEOMETRIES``, ``probe_p1`` and ``probe_p2`` on P5's windows)
-run instead on ``tools/probe_dcn.py``'s inputs of them, in both trees,
-whose outputs must agree within the probe's ``Probe.rtol`` (0: bitwise);
+``probe_k2``, ``probe_k5``, ``probe_kf`` and ``probe_kg`` on the three
+inputs of a tile probe at both of ``probes.GEOMETRIES``, ``probe_p1``,
+``probe_p2`` and ``probe_p4`` on P5's inputs) run instead on
+``tools/probe_dcn.py``'s inputs of them, in both trees, whose outputs must
+agree within the probe's ``Probe.rtol`` (0: bitwise);
 beside them their yardstick (``Probe.library`` of this tree, where there
 is one) is timed by its device time alone. With ``--overlap`` in place of
 ``--other`` the other side is this tree's forward kernels in their
@@ -136,7 +140,8 @@ def dtype_of(name: str):
 
 KERNELS = ("dcn_fwd", "dcn_fwd_bf16", *dcn.BACKWARD_KERNELS,
            *dcn.BACKWARD_KERNELS_BF16, *BACKWARD)
-PROBE_KERNELS = ("probe_k2", "probe_k5", "probe_p1", "probe_p2")
+PROBE_KERNELS = ("probe_k2", "probe_k5", "probe_kf", "probe_kg",
+                 "probe_p1", "probe_p2", "probe_p4")
 
 
 def load_other(root: str):
@@ -160,13 +165,13 @@ def probe_calls(name: str, other_probes, device):
     """(label, this tree's call, the other's, this tree's yardstick or
     None) of probe kernel ``name`` on each of ``tools/probe_dcn.py``'s
     inputs of it (a tile probe's three inputs at each of ``GEOMETRIES``,
-    P5's windows their own): each tree's wrapper in its ``ops/probes.py``
+    P5's their own): each tree's wrapper in its ``ops/probes.py``
     (the other's is ``other_probes``, with its own ``Geometry``) on the
     same tensors."""
     short = name[len("probe_"):]
     this, other = probes.PROBES[short], other_probes.PROBES[short]
     lib = this.library
-    if short in ("p1", "p2"):
+    if short in ("p1", "p2", "p4"):
         return [(label, (lambda a=a: this.kernel(*a)),
                  (lambda a=a: other.kernel(*a)),
                  None if lib is None else (lambda a=a: lib(*a)))

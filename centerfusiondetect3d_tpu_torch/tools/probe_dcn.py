@@ -112,6 +112,17 @@ def p5_cases(name: str, seed: int, device):
     raise KeyError(name)
 
 
+def ragged_p4_inputs(seed: int, device, shape=probes.RAGGED_P4):
+    """(x, w) of ``p4`` at (K, N) = ``shape``, by default
+    ``probes.RAGGED_P4``: x (16, 32, K) N(0, 1) and w (K, N) 0.1 N(0, 1),
+    rounded to bf16, from ``RandomState(seed + 3)``. Not one of the probe
+    path's inputs."""
+    k, n = shape
+    rng = np.random.RandomState(seed + 3)
+    return (_tensor(rng.randn(16, 32, k), device, torch.bfloat16),
+            _tensor(0.1 * rng.randn(k, n), device, torch.bfloat16))
+
+
 def k1_cases(name: str, seed: int, device):
     """(label, (x, offset, mask, weight)) of K1 at the probes' shape, NCHW
     as ``ops/dcn.py`` takes it. ``k6``: (B, C, H, W, O) = (2, 16, 16, 24,

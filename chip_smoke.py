@@ -98,14 +98,15 @@ On the card it:
    scripts' inputs and two seeded draws at the scripts' geometry and a
    second one, held against its plain version (``ops/probes.py``), and K1
    at the probes' shapes through ``dcn_fwd_bf16``; every kernel must have
-   launched; then ``k2`` and ``k5`` at a ragged geometry (45 pixels a
-   tile, C = 24, O = 6), each against its plain version, outside those
-   counts. Then each kernel and its plain version are timed per call on
+   launched; then ``k2``, ``k5``, ``kf`` and ``kg`` at a ragged geometry
+   (45 pixels a tile, C = 24, O = 6) and ``p4`` at a ragged K and N (24,
+   20), each against its plain version, outside those counts. Then each
+   kernel and its plain version are timed per call on
    each of its inputs at the scripts' geometry, and each kernel by its
    device time alone, beside the bound of those inputs and the launch
    floor (the device time alone of a kernel that does nothing); where one
    PyTorch call computes the probe's function (``Probe.library``: ``k2``,
-   ``p1``, ``p2``), that call is timed the same two ways beside it;
+   ``p1``, ``p2``, ``p4``), that call is timed the same two ways beside it;
 16. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -1521,13 +1522,14 @@ def check_probes(device, timed: bool):
     holds every probe kernel against its plain version (and K1 at the
     probes' shapes, ``dcn_fwd_bf16``, against its plain version) and every
     probe must pass; on the card each of the sixteen kernels must have
-    launched. Then ``k2`` and ``k5`` are held against their plain versions
-    at the ragged geometry (``check_ragged_probes``), outside those
-    counts. On the card each kernel and its plain version are then timed
-    per call, and each kernel by its device time alone (``time_device``),
-    on each of its inputs at the scripts' geometry, beside the bound of
-    those inputs and the launch floor (a kernel that does nothing, timed
-    before and after the probes); where ``Probe.library`` is set, that one
+    launched. Then ``k2``, ``k5``, ``kf``, ``kg`` and ``p4`` are held
+    against their plain versions at their ragged shapes
+    (``check_ragged_probes``), outside those counts. On the card each
+    kernel and its plain version are then timed per call, and each kernel
+    by its device time alone (``time_device``), on each of its inputs at
+    the scripts' geometry, beside the bound of those inputs and the launch
+    floor (a kernel that does nothing, timed before and after the probes);
+    where ``Probe.library`` is set, that one
     PyTorch call is timed the same two ways and the ratio of the device
     times alone is printed. The headline is the script's own input; a last
     line ranks the kernels (``rank_probes``)."""
@@ -1603,29 +1605,37 @@ def check_probes(device, timed: bool):
 
 
 def check_ragged_probes(device):
-    """``k2`` and ``k5`` at ``probes.RAGGED_GEOMETRY``, the edges of their
-    kernels (45 pixels a tile, C = 24, O = 6), on ``tools/probe_dcn.py``'s
-    three inputs, each held against its plain version within its ``rtol``
-    (``k2`` bitwise); raises on a mismatch. Called after the probe path's
-    launch counts are read, so these launches are not counted there.
-    Returns each kernel's largest relative error."""
+    """``k2``, ``k5``, ``kf`` and ``kg`` at ``probes.RAGGED_GEOMETRY``, the
+    edges of their kernels (45 pixels a tile, C = 24, O = 6), on
+    ``tools/probe_dcn.py``'s three inputs, and ``p4`` at ``probes.RAGGED_P4``
+    (K = 24 padded to 32, N = 20 masked), each held against its plain
+    version within its ``rtol`` (``k2`` bitwise); raises on a mismatch.
+    Called after the probe path's launch counts are read, so these launches
+    are not counted there. Returns each kernel's largest relative error."""
     geom = probes.RAGGED_GEOMETRY
     worst = {}
-    for name in ("k2", "k5"):
+    for name in ("k2", "k5", "kf", "kg", "p4"):
         probe = probes.PROBES[name]
         res = probe_dcn.Result(name, probe.script_name, probe.rtol)
-        for case in probe_dcn.CASES:
-            inp = probe_dcn.tile_inputs(probe.script, geom, case, SEED,
-                                        device)
-            args = [inp[k] for k in probe.kernel.inputs]
-            res.hold(f"{case} at the ragged geometry",
-                     probe.kernel(*args, geom=geom), probe.plain(*args, geom),
-                     probe.rtol)
-        log(f"  ragged geometry (BR, W, C, O) = ({geom.br}, {geom.w}, "
-            f"{geom.c}, {geom.o}): {res.line()}")
+        if name == "p4":
+            args = probe_dcn.ragged_p4_inputs(SEED, device)
+            res.hold(f"(K, N) = {probes.RAGGED_P4}", probe.kernel(*args),
+                     probe.plain(*args), probe.rtol)
+            where = f"(K, N) = {probes.RAGGED_P4}"
+        else:
+            for case in probe_dcn.CASES:
+                inp = probe_dcn.tile_inputs(probe.script, geom, case, SEED,
+                                            device)
+                args = [inp[k] for k in probe.kernel.inputs]
+                res.hold(f"{case} at the ragged geometry",
+                         probe.kernel(*args, geom=geom),
+                         probe.plain(*args, geom), probe.rtol)
+            where = f"(BR, W, C, O) = ({geom.br}, {geom.w}, {geom.c}, " \
+                    f"{geom.o})"
+        log(f"  ragged {where}: {res.line()}")
         if not res.passed:
             raise AssertionError(f"probe {name} disagrees with its plain "
-                                 f"version at the ragged geometry: "
+                                 f"version at {where}: "
                                  + "; ".join(res.failures))
         worst[name] = res.max_rel_err
     return worst
@@ -1662,7 +1672,9 @@ def probe_kernel_entries(rows):
     for the times and the bound (every input in ``per_case``): per call
     (``ms``, ``plain_ms``, ``library_ms``) and by device time alone
     (``device_ms``, ``library_device_ms``), beside ``launch_floor_ms``;
-    ``k2`` and ``k5`` also their largest error at the ragged geometry."""
+    ``k2``, ``k5``, ``kf``, ``kg`` and ``p4`` also their largest error at
+    their ragged shapes; ``device_function``: the function of
+    ``csrc/dcn_probes.cu`` that the probe's entry launches."""
     entries = []
     for name, row in rows.items():
         probe = probes.PROBES[name]
@@ -1672,6 +1684,7 @@ def probe_kernel_entries(rows):
             "source": "centerfusiondetect3d_tpu_torch/csrc/"
                       + probes.SOURCE,
             "replaces": probe.replaces, "path": "tools/probe_dcn.py",
+            "device_function": probe.device,
             "launches": row["launches"], "max_abs_err": row["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

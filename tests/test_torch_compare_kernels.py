@@ -182,14 +182,16 @@ def test_probe_calls_give_both_trees_the_tool_inputs(name):
     """Each probe input of ``tools/probe_dcn.py`` (P5's windows their own,
     a tile probe's three inputs at both geometries) goes to both trees'
     wrappers and to this tree's yardstick where there is one (none for
-    ``k5``); on CPU tensors the wrappers run their plain versions, so a
-    tree compared with itself gives equal outputs, and the yardstick
-    agrees within its order's rounding."""
+    ``k5``, ``kf``, ``kg``); on CPU tensors the wrappers run their plain
+    versions, so a tree compared with itself gives equal outputs, and the
+    yardstick agrees within its order's rounding (``p4``'s, a bf16
+    ``baddbmm`` with a float32 result, has no CPU kernel: its card test
+    holds it)."""
     from centerfusiondetect3d_tpu_torch.ops import probes
 
     calls = ck.probe_calls(name, probes, "cpu")
     short = name[6:]
-    if short in ("p1", "p2"):
+    if short in ("p1", "p2", "p4"):
         labels = [label for label, _, _ in probe_dcn.p5_cases(
             short, ck.SEED, "cpu")]
     else:
@@ -199,8 +201,8 @@ def test_probe_calls_give_both_trees_the_tool_inputs(name):
     for label, this, other, library in calls:
         got = this()
         assert torch.equal(got, other()), label
-        assert (library is None) == (name == "probe_k5"), label
-        if library is not None:
+        assert (library is None) == (short in ("k5", "kf", "kg")), label
+        if library is not None and short != "p4":
             assert ck.rel_err(library(), got) <= 1e-6, label
 
 

@@ -61,7 +61,7 @@ def _bits(t):
 
 def test_the_probes_with_one_pytorch_call_have_a_yardstick():
     assert [n for n, p in PROBES.items() if p.library is not None] == [
-        "k2", "p1", "p2"]
+        "k2", "p1", "p2", "p4"]
 
 
 @pytest.mark.parametrize("case", probe_dcn.CASES)
