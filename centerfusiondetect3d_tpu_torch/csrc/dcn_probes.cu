@@ -8,12 +8,13 @@
 // kernel (K1, centerfusiondetect3d_tpu/ops/pallas_dcn.py:117) for the TPU
 // compiler. Here each probe is one entry point with its own launch count
 // (ops/probes.py), built from these kernels:
-//   window_sum_kernel   k1, k3, kc, ka: unweighted window sums of a tile
+//   tile_sum_kernel     k1, k3, kc, ka: unweighted window sums of a tile,
+//                       broadcast to O
 //   row_window_kernel   p1, p2: P5's windows, summed over a run of rows
 //   broadcast_kernel    k2: the offset field's dy, broadcast to O
 //   shift_if_max_kernel p3: a whole-array min/max
-//   hat_sampler_kernel  kb, k4 (= kd), ke: the hat-weighted sampler of
-//                       channel 0
+//   hat_channel0_kernel kb, k4 (= kd), ke: the hat-weighted sampler of
+//                       channel 0, broadcast to O
 //   hat_cols_kernel     kf (= kg): the hat-weighted sampler of every channel
 //   hat_tap_kernel      k5: the hat-weighted tap of every channel,
 //                       contracted with bf16 taps on the tensor cores
@@ -26,26 +27,27 @@
 // (B, HP, WP, C), HP = n_rb*BR + 2*pad, WP = W + 2*pad; off f32
 // (B, 18, n_rb*BR, W) with dy in channel 4 and dx in channel 5; mask f32
 // (B, 9, n_rb*BR, W); w bf16 (9, C, O); out f32 (B, n_rb*BR, W, O), or C
-// channels for kf and kg. A thread block of the sampling probes is one
-// (b, rb) tile of BR x W pixels, the Pallas grid's unit: the tile's loop
-// bounds come from the min and max of its clipped dy and dx, reduced in
-// shared memory first; then threads run over (pixel, channel) and sum in
-// f32 registers in the scripts' order (gy outer, gx inner), with the
-// products and sums rounded where the scripts round them (no fused
-// multiply-add), so the plain version and the kernel differ only where a
-// sum runs in another order. The wrapper checks that every window lies
-// inside x.
+// channels for kf and kg. A tile is one (b, rb) program of the Pallas grid,
+// BR x W pixels, and its loop bounds come from the min and max of its clipped
+// dy and dx (tile_bounds, reduced in shared memory by every block that needs
+// them). The sampling probes sum in f32 registers in the scripts' order (gy
+// outer, gx inner), with the products and sums rounded where the scripts
+// round them (no fused multiply-add), so the plain version and the kernel
+// differ only where a sum runs in another order. The wrapper checks that
+// every window lies inside x.
 //
 // What bounds them: at the scripts' shapes a probe moves about 100 KB and
 // does at most a few MFLOP, well under a microsecond of the card's memory
 // or arithmetic; the launch itself (a few microseconds) bounds every one.
-// So most tile probes keep the plainest correct design: one block per
-// tile, 256 threads, no staging beyond the tile bounds. Where one block a
-// tile put the work through 4 of 132 SMs, the kernel runs over the output
-// instead: P5's windows (p1, p2: row_window_kernel), k2's broadcast
-// (broadcast_kernel), k5's tap and contraction (hat_tap_kernel, a block
-// per 16 pixels of a tile), kf's sampler (hat_cols_kernel) and p4's
-// contraction (contract_kernel, a block per 16 pixels and 32 columns).
+// One block a tile, the Pallas grid's unit, put a probe through 4 of 132
+// SMs, so every tile probe runs over the output instead, each block with its
+// own tile's bounds: k1, k3, kc, ka (tile_sum_kernel) a block per 32 pixels
+// of a tile, k4, kd, ke, kb (hat_channel0_kernel) per 16, k5 (hat_tap_kernel)
+// per 16, kf and kg (hat_cols_kernel) per pixels of about 128 threads, k2
+// (broadcast_kernel) over each batch's pixels; P5's windows (p1, p2:
+// row_window_kernel) and p4's contraction (contract_kernel, a block per 16
+// pixels and 32 columns) likewise. Only p3's whole-array min/max
+// (shift_if_max_kernel) keeps one block.
 
 #include <algorithm>
 #include <type_traits>
@@ -101,11 +103,13 @@ __device__ void block_min_max(float& lo, float& hi) {
 
 // The loop bounds of tile (b, rb), the scripts' bounds(): ylo =
 // floor(min dy), yhi = floor(max dy) + 1 over the tile's br x w pixels of
-// the clipped offset field (B, 18, h, w); xlo, xhi likewise from dx.
+// the clipped offset field (B, 18, h, w); xlo, xhi likewise from dx, or 0
+// where the caller has no x loop (kCols false: dx is not read).
 struct Bounds {
   int ylo, yhi, xlo, xhi;
 };
 
+template <bool kCols = true>
 __device__ Bounds tile_bounds(const float* __restrict__ off, int h, int w,
                               int br, int b, int rb) {
   const size_t plane = (size_t)h * w;
@@ -114,13 +118,17 @@ __device__ Bounds tile_bounds(const float* __restrict__ off, int h, int w,
   float ymin = CUDART_INF_F, ymax = -CUDART_INF_F;
   float xmin = CUDART_INF_F, xmax = -CUDART_INF_F;
   for (int i = threadIdx.x; i < br * w; i += blockDim.x) {
-    const float vy = clip(dy[i]), vx = clip(dx[i]);
+    const float vy = clip(dy[i]);
     ymin = fminf(ymin, vy);
     ymax = fmaxf(ymax, vy);
-    xmin = fminf(xmin, vx);
-    xmax = fmaxf(xmax, vx);
+    if (kCols) {
+      const float vx = clip(dx[i]);
+      xmin = fminf(xmin, vx);
+      xmax = fmaxf(xmax, vx);
+    }
   }
   block_min_max(ymin, ymax);
+  if (!kCols) return {(int)floorf(ymin), (int)floorf(ymax) + 1, 0, 0};
   block_min_max(xmin, xmax);
   return {(int)floorf(ymin), (int)floorf(ymax) + 1, (int)floorf(xmin),
           (int)floorf(xmax) + 1};
@@ -133,76 +141,7 @@ struct Tiles {
   __host__ __device__ int hp() const { return h() + 2 * pad; }
   __host__ __device__ int wp() const { return w + 2 * pad; }
   __host__ __device__ int pixels() const { return br * w; }
-  // offset of pixel (r, c) of tile (b, rb) in a (B, h, w, n) array
-  __device__ size_t at(int b, int rb, int r, int c, int n) const {
-    return (((size_t)b * h() + rb * br + r) * w + c) * n;
-  }
 };
-
-// ------------------------------------------------------- window sums
-
-enum class Reduce {
-  kSumChannels,  // k1: the channel sum, rounded to bf16, broadcast
-  kChannel0,     // k3, kc: channel 0, broadcast
-  kCount,        // ka: 1 per (gy, gx), broadcast
-};
-enum class Loop { kFixed, kTileY, kTileYX };
-
-// Tile (b, rb) of br x w pixels sums, over gy and gx, the windows
-// x[b, row0 + rb*row_step + gy + r, col0 + gx + c, :] of an x of
-// (batch, xh, xw, xc). Fixed loops run gy = lo ... hi, gx = 0; tile loops
-// take the tile's bounds from off (batch, 18, off_h, w).
-struct Windows {
-  int batch, n_rb, br, w;
-  int xh, xw, xc;
-  int nc;  // output channels
-  int row0, row_step, col0;
-  int lo, hi;
-};
-
-template <Reduce R, Loop L>
-__global__ void __launch_bounds__(kThreads)
-window_sum_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
-                  float* __restrict__ out, Windows g) {
-  const int b = blockIdx.x / g.n_rb, rb = blockIdx.x % g.n_rb;
-  int ylo = g.lo, yhi = g.hi, xlo = 0, xhi = 0;
-  if (L != Loop::kFixed) {
-    const Bounds bd = tile_bounds(off, g.n_rb * g.br, g.w, g.br, b, rb);
-    ylo = bd.ylo;
-    yhi = bd.yhi;
-    if (L == Loop::kTileYX) {
-      xlo = bd.xlo;
-      xhi = bd.xhi;
-    }
-  }
-  const bf16* xb =
-      R == Reduce::kCount ? nullptr : x + (size_t)b * g.xh * g.xw * g.xc;
-  for (int p = threadIdx.x; p < g.br * g.w; p += blockDim.x) {
-    const int r = p / g.w, c = p % g.w;
-    float acc = 0.f;
-    for (int gy = ylo; gy <= yhi; ++gy) {
-      for (int gx = xlo; gx <= xhi; ++gx) {
-        if (R == Reduce::kCount) {
-          acc += 1.f;
-          continue;
-        }
-        const bf16* px = xb + ((size_t)(g.row0 + rb * g.row_step + gy + r)
-                               * g.xw + (g.col0 + gx + c)) * g.xc;
-        if (R == Reduce::kSumChannels) {
-          float s = 0.f;
-          for (int k = 0; k < g.xc; ++k) s += load(px + k);
-          acc += s;
-        } else {
-          acc += load(px);
-        }
-      }
-    }
-    if (R == Reduce::kSumChannels) acc = round_bf16(acc);
-    float* o = out + (((size_t)b * g.n_rb * g.br + rb * g.br + r) * g.w + c)
-                         * g.nc;
-    for (int j = 0; j < g.nc; ++j) o[j] = acc;
-  }
-}
 
 // ------------------------------------------------------- P5's windows
 
@@ -299,58 +238,6 @@ shift_if_max_kernel(const float* __restrict__ in, float* __restrict__ out,
     out[i] = hi > 0.5f ? in[i] + shift : 0.f;
 }
 
-// ------------------------------------------------- hat-weighted sampler
-
-// The sum over gy in [ylo, yhi] and gx in [xlo, xhi] of hat(gy - dy) *
-// hat(gx - dx) * x[b, base + gy + pad + r, pad + gx + c, ch] for one pixel
-// and channel, base = rb*BR with the row-block term and 0 without; without
-// the x loop (kb) the term is hat(gy - dy) * x[..., pad + c, ch]. xb is
-// x[b].
-template <bool kRowBlock, bool kXLoop>
-__device__ float hat_sum(const bf16* __restrict__ xb, const Tiles& t, int rb,
-                         int r, int c, int ch, float dy, float dx, int ylo,
-                         int yhi, int xlo, int xhi) {
-  const int base = kRowBlock ? rb * t.br : 0;
-  float acc = 0.f;
-  for (int gy = ylo; gy <= yhi; ++gy) {
-    const float wy = hat((float)gy - dy);
-    const bf16* row = xb + (size_t)(base + gy + t.pad + r) * t.wp() * t.c;
-    if (!kXLoop) {
-      acc = __fadd_rn(acc, __fmul_rn(wy, load(row + (t.pad + c) * t.c + ch)));
-      continue;
-    }
-    for (int gx = xlo; gx <= xhi; ++gx) {
-      const float wyx = __fmul_rn(wy, hat((float)gx - dx));
-      const int col = t.pad + gx + c;
-      acc = __fadd_rn(acc, __fmul_rn(wyx, load(row + (size_t)col * t.c + ch)));
-    }
-  }
-  return acc;
-}
-
-// kb, k4/kd, ke: the tile's bounds, gy cut to [kYMin, kYMax]; channel 0
-// broadcast to O
-template <bool kRowBlock, bool kXLoop, int kYMin, int kYMax>
-__global__ void __launch_bounds__(kThreads)
-hat_sampler_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
-                   float* __restrict__ out, Tiles t) {
-  const int b = blockIdx.x / t.n_rb, rb = blockIdx.x % t.n_rb;
-  const Bounds bd = tile_bounds(off, t.h(), t.w, t.br, b, rb);
-  const int ylo = max(bd.ylo, kYMin), yhi = min(bd.yhi, kYMax);
-  const bf16* xb = x + (size_t)b * t.hp() * t.wp() * t.c;
-  const size_t plane = (size_t)t.h() * t.w;
-  for (int p = threadIdx.x; p < t.pixels(); p += blockDim.x) {
-    const int r = p / t.w, c = p % t.w;
-    const size_t pix = (size_t)(rb * t.br + r) * t.w + c;
-    const float dy = clip(off[((size_t)b * 18 + 4) * plane + pix]);
-    const float dx = clip(off[((size_t)b * 18 + 5) * plane + pix]);
-    const float acc = hat_sum<kRowBlock, kXLoop>(
-        xb, t, rb, r, c, 0, dy, dx, ylo, yhi, bd.xlo, bd.xhi);
-    float* o = out + t.at(b, rb, r, c, t.o);
-    for (int j = 0; j < t.o; ++j) o[j] = acc;
-  }
-}
-
 // ------------------------------------------ k5's tap and its contraction
 
 // The raw bits of kVec bf16 channels: one 16- or 4-byte load of 8 (k5) or 2
@@ -409,7 +296,8 @@ __device__ __forceinline__ void fetch_row(Channels<kVec> (&r)[kBox],
   }
 }
 
-// acc += (wy * wx[j]) * r[j] for j < n, in order, rounded as hat_sum does
+// acc += (wy * wx[j]) * r[j] for j < n, in order, each product and sum
+// rounded on its own (__fmul_rn / __fadd_rn), as the plain versions round
 template <int kVec>
 __device__ __forceinline__ void sum_row(const Channels<kVec> (&r)[kBox],
                                         float wy, const float (&wx)[kBox],
@@ -477,8 +365,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// k5: per pixel of tile (b, rb) the k4 sum of every channel, in hat_sum's
-// order and rounding (gy outer, gx inner, __fmul_rn / __fadd_rn, every term of
+// k5: per pixel of tile (b, rb) the k4 sum of every channel, in the plain
+// version's order and rounding (gy outer, gx inner, __fmul_rn / __fadd_rn, every term of
 // the tile's box: a term of weight zero stays, so 0 * inf is NaN as in the
 // script), times mask channel 3, rounded to bf16 once; then contracted with
 // w[3] (C, O) in f32. One block a tile would put the work through 4 of 132
@@ -586,9 +474,9 @@ hat_tap_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
 
 // kf (= kg): per pixel of tile (b, rb) and channel, the sum over the tile's
 // box, gx cut to [kKfXMin, kKfXMax], of hat(gy - dy) * hat(gx - dx) * x,
-// with hat_sum's rounding (__fmul_rn / __fadd_rn) and every term kept (0 *
-// inf is NaN, as in the plain version). One block a tile
-// (hat_sampler_kernel) put this through 4 of 132 SMs, one 2-byte load and
+// with the plain version's rounding (__fmul_rn / __fadd_rn) and every term
+// kept (0 * inf is NaN, as in the plain version). One block a tile (the old
+// all-channel sampler) put this through 4 of 132 SMs, one 2-byte load and
 // two integer divisions a term. Here the grid is (group of px_block pixels,
 // rb, b), and each block reduces its tile's bounds itself (tile_bounds). What
 // bounds the kernel is each thread's chain of terms (up to 18 x 18 on the
@@ -675,6 +563,176 @@ hat_cols_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
     float* o = out + ((size_t)b * plane + tile0 + p) * t.c + v * kVec;
     if (valid && part == 0) store_cols<kVec>(o, acc);
   }
+}
+
+// ----------------------------------------- the broadcast tile probes
+
+// k4 (= kd), ke, kb, and k1, k3, kc, ka: one value a pixel of tile (b, rb),
+// broadcast to the O outputs. One block a tile (the Pallas grid's unit)
+// would put these through 4 of 132 SMs, and O serial float stores a pixel
+// would bound them (as they bound k2's first kernel), so the grid runs over
+// the output, (group of pixels, rb, b), as in hat_cols_kernel, and each block
+// reduces its own tile's bounds (tile_bounds; only dy where the probe has no
+// x loop). The pixels' threads are adjacent
+// lanes of a warp, and after the sum they store the pixel's broadcast
+// together, lane j the vectors j, j + lanes, ...: V is float4 where the
+// wrapper found O whole in float4s and out on 16 bytes (ops/probes.py:
+// broadcast_width; the entry checks it again), else float.
+
+// k4/kd, ke, kb: per pixel of tile (b, rb) the sum over gy in [ylo, yhi] (ke:
+// cut to [max(ylo, -2), min(yhi, 2)]) and gx in [xlo, xhi] of hat(gy - dy) *
+// hat(gx - dx) * x[b, [rb*BR] + gy + pad + r, pad + gx + c, 0], with the
+// plain version's rounding (__fmul_rn / __fadd_rn) and every term kept (0 *
+// inf is NaN, as in the plain version). kb has no row-block term and no x
+// loop: its term is hat(gy - dy) * x[..., pad + c, 0], which sum_box computes
+// with nx = 1 and wx[0] = 1 (__fmul_rn(wy, 1) is wy exactly). One thread's
+// chain of up to 18 x 18 terms on the wide input would bound the kernel, so
+// a pixel takes kHatSplit adjacent lanes: part s sums its own run of the
+// box's rows in order (the rows cut into runs of ceil(ny / kHatSplit)) with
+// sum_box, the row weights hat(gx - dx) once in registers and the next row's
+// loads in flight, and the parts' sums are added in one fixed order by
+// shuffles, ((part 0 + part 1) + part 2) + ... (within the probes' 1e-5 of
+// the plain version's one run; bitwise reproducible). No integer division
+// runs per term. Timed against 2 and 4 lanes a pixel, 64 and 256 threads a
+// block, and the pixel's dy and dx read before the bounds, 8 lanes were the
+// fastest on the wide input (3 rows of 18 terms a lane) and the narrow one,
+// and as fast on the script's but for kb's, whose two rows leave six lanes
+// idle (PERF.md §6).
+constexpr int kHatSplit = 8;                         // lanes a pixel
+constexpr int kHatThreads = 128;                     // threads a block
+constexpr int kHatPixels = kHatThreads / kHatSplit;  // pixels a block
+
+template <typename V>
+__device__ __forceinline__ void store_broadcast(float* o, int n, float v,
+                                                int lane, int lanes) {
+  V vv;
+  splat(v, vv);
+  V* ov = reinterpret_cast<V*>(o);
+  const int vectors = n / (int)(sizeof(V) / sizeof(float));
+  for (int j = lane; j < vectors; j += lanes) ov[j] = vv;
+}
+
+template <bool kRowBlock, bool kXLoop, int kYMin, int kYMax, typename V>
+__global__ void __launch_bounds__(kHatThreads)
+hat_channel0_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
+                    float* __restrict__ out, Tiles t) {
+  static_assert(32 % kHatSplit == 0, "a pixel's lanes within one warp");
+  const int b = blockIdx.z, rb = blockIdx.y, p0 = blockIdx.x * kHatPixels;
+  const int tile_px = t.pixels();
+  const size_t plane = (size_t)t.h() * t.w, tile0 = (size_t)rb * tile_px;
+  const float* dy = off + ((size_t)b * 18 + 4) * plane + tile0;
+  const float* dx = dy + plane;
+  const Bounds bd = tile_bounds<kXLoop>(off, t.h(), t.w, t.br, b, rb);
+  const int ylo = max(bd.ylo, kYMin), yhi = min(bd.yhi, kYMax);
+  const int chunk = (max(0, yhi - ylo + 1) + kHatSplit - 1) / kHatSplit;
+  const int nx = kXLoop ? bd.xhi - bd.xlo + 1 : 1;
+  const int lane = threadIdx.x & 31, part = lane % kHatSplit;
+  const int first = lane - part;  // the lane of part 0
+  const int p = p0 + (int)threadIdx.x / kHatSplit;
+  const bool valid = p < tile_px;
+  float acc[1] = {0.f};
+  const int lo = ylo + part * chunk, hi = min(yhi, lo + chunk - 1);
+  if (valid && lo <= hi) {
+    const int r = p / t.w, c = p - r * t.w;
+    const float py = clip(dy[p]), px = kXLoop ? clip(dx[p]) : 0.f;
+    const int row = (kRowBlock ? rb * t.br : 0) + t.pad + r;
+    const int col = t.pad + c + (kXLoop ? bd.xlo : 0);
+    const bf16* at = x + (((size_t)b * t.hp() + row) * t.wp() + col) * t.c;
+    float wx[kBox];  // hat(gx - dx) for gx = xlo + j; kb: 1
+#pragma unroll
+    for (int j = 0; j < kBox; ++j)
+      wx[j] = kXLoop ? hat((float)(bd.xlo + j) - px) : 1.f;
+    sum_box(at, (ptrdiff_t)t.wp() * t.c, t.c, lo, hi, py, wx, nx, acc);
+  }
+  // every lane runs the shuffles; each gets the same sum
+  float sum = __shfl_sync(0xffffffffu, acc[0], first);
+#pragma unroll
+  for (int j = 1; j < kHatSplit; ++j)
+    sum = __fadd_rn(sum, __shfl_sync(0xffffffffu, acc[0], first + j));
+  if (valid)
+    store_broadcast<V>(out + ((size_t)b * plane + tile0 + p) * t.o, t.o, sum,
+                       part, kHatSplit);
+}
+
+// k1, k3, kc, ka: per pixel (r, c) of tile (b, rb) one window sum of x at
+// rows row0 + rb*row_step + gy + r and column col0 + c, broadcast to O.
+// k3 (row_step 0) and kc (row_step BR) sum channel 0 over the tile's gy
+// range. With dy clipped to +-8 that range lies in [-8, 9], kBox rows that
+// stay inside x (the wrapper's pad >= 9), so a thread loads all kBox of them
+// before the tile's bounds are known, in flight while the block reduces
+// them, and then sums those in [ylo, yhi] in gy order, as the plain version
+// does. k1 (gy = 0 alone; no offsets read) sums the C channels of its window
+// in channel order within one thread, 16-byte loads of 8 channels where C %
+// 8 == 0 and x lies on 16 bytes (kVec 8; the entry decides), and rounds to
+// bf16: another order of an inexact float32 sum could flip that rounding by
+// one bf16 ulp. ka stores the size of the tile's box, (yhi - ylo + 1) (xhi -
+// xlo + 1), with no x loads (bitwise the plain version's). A pixel takes
+// kSumLanes adjacent lanes, each of which computes the same sum (their loads
+// meet at one address) and stores its share of the broadcast. Timed against
+// loading only the tile's rows once its bounds are known, 1 or 8 lanes a
+// pixel, 64 or 256 threads a block and k1 with one channel a load on every
+// x, this design was the fastest (PERF.md §6).
+enum class Reduce {
+  kSumChannels,  // k1
+  kChannel0,     // k3, kc
+  kCount,        // ka
+};
+
+// rows row0 + rb*row_step + gy + r, columns col0 + c of x (B, HP, WP, C)
+struct Windows {
+  int row0, row_step, col0;
+};
+
+constexpr int kSumLanes = 4;                         // lanes a pixel
+constexpr int kSumThreads = 128;                     // threads a block
+constexpr int kSumPixels = kSumThreads / kSumLanes;  // pixels a block
+constexpr int kGyMin = -(int)kClip;                  // the first gy of kBox
+
+template <Reduce R, typename V, int kVec>
+__global__ void __launch_bounds__(kSumThreads)
+tile_sum_kernel(const bf16* __restrict__ x, const float* __restrict__ off,
+                float* __restrict__ out, Tiles t, Windows win) {
+  const int b = blockIdx.z, rb = blockIdx.y;
+  const int lane = (int)threadIdx.x % kSumLanes;
+  const int p = blockIdx.x * kSumPixels + (int)threadIdx.x / kSumLanes;
+  const bool valid = p < t.pixels();
+  const int r = p / t.w, c = p - r * t.w;
+  const bf16* at = nullptr;  // (gy, channel) = (0, 0) of the pixel's window
+  if (R != Reduce::kCount)
+    at = x + (((size_t)b * t.hp() + win.row0 + rb * win.row_step + r)
+              * t.wp() + win.col0 + c) * t.c;
+  const ptrdiff_t row_step = (ptrdiff_t)t.wp() * t.c;
+  bf16 rows[kBox];  // k3, kc: channel 0 at gy = kGyMin + j
+  if (R == Reduce::kChannel0 && valid) {
+#pragma unroll
+    for (int j = 0; j < kBox; ++j) rows[j] = at[(kGyMin + j) * row_step];
+  }
+  Bounds bd{0, 0, 0, 0};
+  if (R != Reduce::kSumChannels)
+    bd = tile_bounds<R == Reduce::kCount>(off, t.h(), t.w, t.br, b, rb);
+  if (!valid) return;
+  float acc = 0.f;
+  if constexpr (R == Reduce::kCount) {
+    acc = (float)((bd.yhi - bd.ylo + 1) * (bd.xhi - bd.xlo + 1));
+  } else if constexpr (R == Reduce::kChannel0) {
+#pragma unroll
+    for (int j = 0; j < kBox; ++j)
+      if (kGyMin + j >= bd.ylo && kGyMin + j <= bd.yhi)
+        acc += __bfloat162float(rows[j]);
+  } else {
+    for (int k = 0; k < t.c; k += kVec) {
+      Channels<kVec> ch;
+      ch.fetch(at + k);
+      float v[kVec];
+      ch.unpack(v);
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) acc += v[q];
+    }
+    acc = round_bf16(acc);
+  }
+  store_broadcast<V>(out + ((size_t)b * t.h() * t.w + (size_t)rb * t.pixels()
+                            + p) * t.o,
+                     t.o, acc, lane, kSumLanes);
 }
 
 // ------------------------------------------------------- p4's contraction
@@ -833,14 +891,6 @@ Tiles make_tiles(int batch, int n_rb, int br, int w, int c, int o, int pad) {
 
 int launched() { return (int)cudaGetLastError(); }
 
-template <Reduce R, Loop L>
-int launch_windows(const void* x, const float* off, float* out,
-                   const Windows& g, cudaStream_t stream) {
-  window_sum_kernel<R, L><<<g.batch * g.n_rb, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), off, out, g);
-  return launched();
-}
-
 // out (rows, span) from x as row_window_kernel says; vec 4 (float4) or 1,
 // chosen by the wrapper (ops/probes.py:row_windows) and refused here where
 // a window row of x or out would not be 16-byte aligned and whole in float4s
@@ -862,23 +912,6 @@ int launch_row_windows(const float* x, float* out, int row_stride, int col0,
   else
     row_window_kernel<float, kCopy><<<grid, kRowThreads, 0, stream>>>(
         x, out, g);
-  return launched();
-}
-
-// the windows of a tile probe of tiles t: rows row0 + rb*row_step + gy + r,
-// columns col0 + gx + c of x (B, HP, WP, C); O outputs
-Windows tile_windows(const Tiles& t, int row0, int row_step, int col0) {
-  return Windows{t.batch, t.n_rb, t.br, t.w, t.hp(), t.wp(), t.c, t.o,
-                 row0, row_step, col0, 0, 0};
-}
-
-template <bool kRowBlock, bool kXLoop, int kYMin = -kOpen,
-          int kYMax = kOpen>
-int launch_hat(const void* x, const float* off, float* out, const Tiles& t,
-               cudaStream_t stream) {
-  hat_sampler_kernel<kRowBlock, kXLoop, kYMin, kYMax>
-      <<<t.batch * t.n_rb, kThreads, 0, stream>>>(
-          static_cast<const bf16*>(x), off, out, t);
   return launched();
 }
 
@@ -934,6 +967,60 @@ int launch_cols_checked(const void* x, const float* off, float* out,
   return launch_cols<1>(x, off, out, t, stream);
 }
 
+// vec 4 (float4 stores of a broadcast) or 1, as the wrapper chose it
+// (ops/probes.py:broadcast_width): 4 only where O is whole in float4s and out
+// lies on 16 bytes
+bool broadcast_ok(const float* out, int o, int vec) {
+  const bool aligned = (reinterpret_cast<size_t>(out) & 15) == 0 && o % 4 == 0;
+  return vec == 1 || (vec == 4 && aligned);
+}
+
+// positive sizes and a pad that covers gy, gx in [-kClip, kClip + 1]: the
+// window sums load all kBox rows of that range whatever the offsets are
+bool tiles_ok(const Tiles& t) {
+  return t.batch >= 1 && t.n_rb >= 1 && t.br >= 1 && t.w >= 1 && t.c >= 1
+      && t.o >= 1 && t.pad >= (int)kClip + 1;
+}
+
+// k4/kd, ke, kb on tiles t: a block per kHatPixels pixels of a tile; gy cut
+// to [kYMin, kYMax]
+template <bool kRowBlock, bool kXLoop, int kYMin = -kOpen,
+          int kYMax = kOpen>
+int launch_hat(const void* x, const float* off, float* out, const Tiles& t,
+               int vec, cudaStream_t stream) {
+  if (!tiles_ok(t) || !broadcast_ok(out, t.o, vec))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((t.pixels() + kHatPixels - 1) / kHatPixels, t.n_rb,
+                  t.batch);
+  const bf16* xb = static_cast<const bf16*>(x);
+  if (vec == 4)
+    hat_channel0_kernel<kRowBlock, kXLoop, kYMin, kYMax, float4>
+        <<<grid, kHatThreads, 0, stream>>>(xb, off, out, t);
+  else
+    hat_channel0_kernel<kRowBlock, kXLoop, kYMin, kYMax, float>
+        <<<grid, kHatThreads, 0, stream>>>(xb, off, out, t);
+  return launched();
+}
+
+// k1, k3, kc, ka on tiles t: a block per kSumPixels pixels of a tile; kVec
+// channels a load (k1)
+template <Reduce R, int kVec = 1>
+int launch_sums(const void* x, const float* off, float* out, const Tiles& t,
+                const Windows& win, int vec, cudaStream_t stream) {
+  if (!tiles_ok(t) || !broadcast_ok(out, t.o, vec))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((t.pixels() + kSumPixels - 1) / kSumPixels, t.n_rb,
+                  t.batch);
+  const bf16* xb = static_cast<const bf16*>(x);
+  if (vec == 4)
+    tile_sum_kernel<R, float4, kVec><<<grid, kSumThreads, 0, stream>>>(
+        xb, off, out, t, win);
+  else
+    tile_sum_kernel<R, float, kVec><<<grid, kSumThreads, 0, stream>>>(
+        xb, off, out, t, win);
+  return launched();
+}
+
 // k5 on tiles t: a block per kTapPixels pixels of a tile, w3 = w[3]
 template <int kVec>
 int launch_tap(const void* x, const float* off, const float* mask,
@@ -958,76 +1045,74 @@ int launch_tap(const void* x, const float* off, const float* mask,
 }  // namespace
 
 // Tile probes (P1-P3): x bf16 (B, HP, WP, C), off, mask f32, w bf16, out
-// f32; a null pointer for an input the probe does not read. Each returns
-// cudaGetLastError() after its launch.
+// f32; a null pointer for an input the probe does not read; vec the vector
+// width that the wrapper chose (ops/probes.py), refused where the tensors do
+// not allow it. Each returns cudaGetLastError() after its launch.
 #define TILE_PROBE(name)                                                   \
   extern "C" int cfd_probe_##name(                                         \
       const void* x, const float* off, const float* mask, const void* w,   \
       float* out, int batch, int n_rb, int br, int wd, int c, int o,       \
-      int pad, cudaStream_t stream)
+      int pad, int vec, cudaStream_t stream)
 #define TILES make_tiles(batch, n_rb, br, wd, c, o, pad)
 
-TILE_PROBE(k1) {  // the channel sum at rows rb*BR + 3 + r, columns 2 + c
-  return launch_windows<Reduce::kSumChannels, Loop::kFixed>(
-      x, off, out, tile_windows(TILES, 3, br, 2), stream);
+// k1, k3, k4 (= kd), ka, kb, kc, ke: as tile_sum_kernel and
+// hat_channel0_kernel say; vec 4 (float4 stores) or 1, as broadcast_ok says
+TILE_PROBE(k1) {  // the channel sum at rows rb*BR + 3 + r, columns 2 + c;
+                  // 8 channels a load where C % 8 == 0 and x is on 16 bytes
+  const Windows win{3, br, 2};
+  if (c % 8 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0)
+    return launch_sums<Reduce::kSumChannels, 8>(x, off, out, TILES, win, vec,
+                                                stream);
+  return launch_sums<Reduce::kSumChannels, 1>(x, off, out, TILES, win, vec,
+                                              stream);
 }
 TILE_PROBE(k3) {  // no row-block term
-  return launch_windows<Reduce::kChannel0, Loop::kTileY>(
-      x, off, out, tile_windows(TILES, pad, 0, pad), stream);
+  return launch_sums<Reduce::kChannel0>(x, off, out, TILES,
+                                        Windows{pad, 0, pad}, vec, stream);
 }
 TILE_PROBE(k4) {
-  return launch_hat<true, true>(x, off, out, TILES, stream);
+  return launch_hat<true, true>(x, off, out, TILES, vec, stream);
 }
 TILE_PROBE(ka) {
-  return launch_windows<Reduce::kCount, Loop::kTileYX>(
-      x, off, out, tile_windows(TILES, pad, br, pad), stream);
+  return launch_sums<Reduce::kCount>(x, off, out, TILES,
+                                     Windows{pad, br, pad}, vec, stream);
 }
 TILE_PROBE(kb) {  // no row-block term, no x loop
-  return launch_hat<false, false>(x, off, out, TILES, stream);
+  return launch_hat<false, false>(x, off, out, TILES, vec, stream);
 }
 TILE_PROBE(kc) {
-  return launch_windows<Reduce::kChannel0, Loop::kTileY>(
-      x, off, out, tile_windows(TILES, pad, br, pad), stream);
+  return launch_sums<Reduce::kChannel0>(x, off, out, TILES,
+                                        Windows{pad, br, pad}, vec, stream);
 }
 TILE_PROBE(kd) {  // k4's function: its device code
-  return launch_hat<true, true>(x, off, out, TILES, stream);
+  return launch_hat<true, true>(x, off, out, TILES, vec, stream);
 }
 TILE_PROBE(ke) {  // gy cut to [-2, 2]
-  return launch_hat<true, true, -2, 2>(x, off, out, TILES, stream);
+  return launch_hat<true, true, -2, 2>(x, off, out, TILES, vec, stream);
+}
+
+// kf (every channel, gx cut to GX_RANGE = [-9, 10]) and kg (kf's function:
+// its roll never wraps; kf's device code): as hat_cols_kernel says, vec
+// as launch_cols_checked says.
+TILE_PROBE(kf) {
+  return launch_cols_checked(x, off, out, TILES, vec, stream);
+}
+TILE_PROBE(kg) {
+  return launch_cols_checked(x, off, out, TILES, vec, stream);
 }
 
 #undef TILES
 #undef TILE_PROBE
 
-// kf (every channel, gx cut to GX_RANGE = [-9, 10]) and kg (kf's function:
-// its roll never wraps; kf's device code): as hat_cols_kernel says, vec
-// as launch_cols_checked says. The tile arguments are the tile probes'.
-#define COLS_PROBE(name)                                                   \
-  extern "C" int cfd_probe_##name(                                         \
-      const void* x, const float* off, const float*, const void*,          \
-      float* out, int batch, int n_rb, int br, int wd, int c, int o,       \
-      int pad, int vec, cudaStream_t stream) {                             \
-    return launch_cols_checked(x, off, out,                                \
-                               make_tiles(batch, n_rb, br, wd, c, o, pad), \
-                               vec, stream);                               \
-  }
-COLS_PROBE(kf)
-COLS_PROBE(kg)
-#undef COLS_PROBE
-
-// k2: out (B, H*W, O) = dy broadcast to O, as broadcast_kernel says; vec 4
-// (float4 stores) or 1, chosen by the wrapper (ops/probes.py:k2_width) and
-// refused here where O is not whole in float4s or out is off 16 bytes.
-// The tile arguments are the tile probes'.
+// k2: out (B, H*W, O) = dy broadcast to O, as broadcast_kernel says; vec
+// as broadcast_ok says. The tile arguments are the tile probes'.
 extern "C" int cfd_probe_k2(const void*, const float* off, const float*,
                             const void*, float* out, int batch, int n_rb,
                             int br, int wd, int, int o, int, int vec,
                             cudaStream_t stream) {
   const int hw = n_rb * br * wd;
-  if (batch < 1 || hw < 1 || o < 1)
+  if (batch < 1 || hw < 1 || o < 1 || !broadcast_ok(out, o, vec))
     return (int)cudaErrorInvalidValue;
-  const bool aligned = (reinterpret_cast<size_t>(out) & 15) == 0 && o % 4 == 0;
-  if (vec != 1 && !(vec == 4 && aligned)) return (int)cudaErrorInvalidValue;
   const int vectors = o / vec;
   const int bx = std::min(vectors, kThreads);
   const int by = std::max(1, std::min(kThreads / bx, hw));

@@ -60,11 +60,15 @@ Each wrapper checks device, dtype, shape, contiguity and that every window
 it reads lies inside x (interpret mode clamps an out-of-range start and the
 TPU does not; the wrappers raise). On a CPU tensor it runs the plain version;
 on a CUDA tensor it launches its kernel or raises (no fallback), and its
-``.launches`` counts the launches. The wrappers of ``k2``, ``p1`` and
-``p2`` pick their kernels' store width, those of ``k5``, ``kf`` and ``kg``
-their load width, from the tensors' shapes and addresses (``k2_width``,
-``row_windows``, ``k5_width``, ``kf_width``); the C entries check the
-choice again and refuse a wrong one (``p4``'s entry picks its own).
+``.launches`` counts the launches. Each wrapper picks its kernel's vector
+width from the tensors' shapes and addresses, and the C entry checks the
+choice again and refuses a wrong one: the nine probes that broadcast one
+value a pixel to O (``k1``...``k4``, ``ka``...``ke``) store float4s where O
+is whole in float4s and out lies on 16 bytes (``broadcast_width``); ``p1``
+and ``p2`` load and store float4s where every window row allows it
+(``row_windows``); ``k5`` loads 8 channels (``k5_width``), ``kf`` and ``kg``
+2 (``kf_width``). ``k1``'s entry picks its own load width (8 channels where
+C % 8 == 0 and x lies on 16 bytes), as ``p4``'s does.
 ``PROBES`` lists the sixteen, each with its yardstick where one PyTorch
 call computes its function (``Probe.library``: ``k2``, ``p1``, ``p2``,
 ``p4``, timed beside the kernel by ``chip_smoke.py``; the port never calls
@@ -421,11 +425,10 @@ def _check_tile(geom: Geometry, x=None, off=None, mask=None, w=None):
 # C entry points: name -> ctypes argument types before the stream
 _TILE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
 _SIGNATURES = {
-    **{f"cfd_probe_{n}": _TILE_ARGS for n in (
-        "k1", "k3", "k4", "ka", "kb", "kc", "kd", "ke")},
-    # k2, k5, kf, kg: the vector width
-    **{f"cfd_probe_{n}": _TILE_ARGS + [ctypes.c_int]
-       for n in ("k2", "k5", "kf", "kg")},
+    # the tile probes: the tile arguments, then the vector width
+    **{f"cfd_probe_{n}": _TILE_ARGS + [ctypes.c_int] for n in (
+        "k1", "k2", "k3", "k4", "k5", "ka", "kb", "kc", "kd", "ke", "kf",
+        "kg")},
     **{f"cfd_probe_{n}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
        for n in ("p1", "p2")},
     "cfd_probe_p3": [ctypes.c_void_p] * 2 + [ctypes.c_int],
@@ -452,9 +455,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def k2_width(out) -> int:
-    """``k2``'s store width: 4 (float4) where out (B, H, W, O) holds whole
-    float4s a pixel and starts on 16 bytes, else 1."""
+def broadcast_width(out) -> int:
+    """The store width of the nine probes that broadcast one value a pixel
+    to O (``k1``...``k4``, ``ka``...``ke``): 4 (float4) where out (B, H, W,
+    O) holds whole float4s a pixel and starts on 16 bytes, else 1."""
     return 4 if out.shape[-1] % 4 == 0 and out.data_ptr() % 16 == 0 else 1
 
 
@@ -472,9 +476,9 @@ def kf_width(x) -> int:
     return 2 if x.shape[-1] % 2 == 0 and x.data_ptr() % 4 == 0 else 1
 
 
-def _k2_args(named, out):
-    """(vec,) of the ``k2`` entry."""
-    return (k2_width(out),)
+def _broadcast_args(named, out):
+    """(vec,) of the entries of the nine broadcast probes."""
+    return (broadcast_width(out),)
 
 
 def _k5_args(named, out):
@@ -488,11 +492,12 @@ def _kf_args(named, out):
 
 
 def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
-                all_channels: bool = False, extra: Optional[Callable] = None):
+                extra: Callable, all_channels: bool = False):
     """The wrapper of tile probe ``name``: takes ``inputs`` (of x, off,
     mask, w) and the geometry; returns float32 (B, H, W, O), or
     (B, H, W, C) with ``all_channels``. ``extra(named, out)`` gives the C
-    arguments after the geometry (``k2``, ``k5``: the vector width)."""
+    arguments after the geometry (the vector width), and is kept as the
+    wrapper's ``.extra``."""
 
     def wrapper(*tensors, geom: Geometry = SCRIPT_GEOMETRY):
         if len(tensors) != len(inputs):
@@ -508,7 +513,7 @@ def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
         _run(out, f"cfd_probe_{name}",
              *(_ptr(named.get(k)) for k in ("x", "off", "mask", "w")),
              out.data_ptr(), g.batch, g.n_rb, g.br, g.w, g.c, g.o, g.pad,
-             *(() if extra is None else extra(named, out)))
+             *extra(named, out))
         wrapper.launches += 1
         return out
 
@@ -519,24 +524,26 @@ def _tile_probe(name: str, plain: Callable, inputs: Tuple[str, ...],
                        "launches.")
     wrapper.launches = 0
     wrapper.inputs = inputs
+    wrapper.extra = extra
     return wrapper
 
 
-probe_k1 = _tile_probe("k1", probe_k1_plain, ("x",))
-probe_k2 = _tile_probe("k2", probe_k2_plain, ("off",), extra=_k2_args)
-probe_k3 = _tile_probe("k3", probe_k3_plain, ("x", "off"))
-probe_k4 = _tile_probe("k4", probe_k4_plain, ("x", "off"))
+_XO = ("x", "off")
+probe_k1 = _tile_probe("k1", probe_k1_plain, ("x",), _broadcast_args)
+probe_k2 = _tile_probe("k2", probe_k2_plain, ("off",), _broadcast_args)
+probe_k3 = _tile_probe("k3", probe_k3_plain, _XO, _broadcast_args)
+probe_k4 = _tile_probe("k4", probe_k4_plain, _XO, _broadcast_args)
 probe_k5 = _tile_probe("k5", probe_k5_plain, ("x", "off", "mask", "w"),
-                       extra=_k5_args)
-probe_ka = _tile_probe("ka", probe_ka_plain, ("off",))
-probe_kb = _tile_probe("kb", probe_kb_plain, ("x", "off"))
-probe_kc = _tile_probe("kc", probe_kc_plain, ("x", "off"))
-probe_kd = _tile_probe("kd", probe_kd_plain, ("x", "off"))
-probe_ke = _tile_probe("ke", probe_ke_plain, ("x", "off"))
-probe_kf = _tile_probe("kf", probe_kf_plain, ("x", "off"),
-                       all_channels=True, extra=_kf_args)
-probe_kg = _tile_probe("kg", probe_kg_plain, ("x", "off"),
-                       all_channels=True, extra=_kf_args)
+                       _k5_args)
+probe_ka = _tile_probe("ka", probe_ka_plain, ("off",), _broadcast_args)
+probe_kb = _tile_probe("kb", probe_kb_plain, _XO, _broadcast_args)
+probe_kc = _tile_probe("kc", probe_kc_plain, _XO, _broadcast_args)
+probe_kd = _tile_probe("kd", probe_kd_plain, _XO, _broadcast_args)
+probe_ke = _tile_probe("ke", probe_ke_plain, _XO, _broadcast_args)
+probe_kf = _tile_probe("kf", probe_kf_plain, _XO, _kf_args,
+                       all_channels=True)
+probe_kg = _tile_probe("kg", probe_kg_plain, _XO, _kf_args,
+                       all_channels=True)
 
 
 def row_windows(x, out, col0: int, lo: int, hi: int):
@@ -695,25 +702,25 @@ _P1, _P2, _P3, _P5 = (f"scripts/{s}.py" for s in (
 EXACT, SUMS, BF16_TAP = 0.0, 1e-5, 8e-3
 PROBES: Dict[str, Probe] = {p.name: p for p in (
     Probe("k1", probe_k1, probe_k1_plain, _P1, "k1_4d_dyn_slice", 62,
-          "window_sum_kernel", SUMS),
+          "tile_sum_kernel", SUMS),
     Probe("k2", probe_k2, probe_k2_plain, _P1, "k2_field_slice", 71,
           "broadcast_kernel", EXACT, probe_k2_library),
     Probe("k3", probe_k3, probe_k3_plain, _P1, "k3_dyn_fori_1d", 77,
-          "window_sum_kernel", SUMS),
+          "tile_sum_kernel", SUMS),
     Probe("k4", probe_k4, probe_k4_plain, _P1, "k4_nested_fori", 93,
-          "hat_sampler_kernel", SUMS),
+          "hat_channel0_kernel", SUMS),
     Probe("k5", probe_k5, probe_k5_plain, _P1, "k5_matmul_reshape", 120,
           "hat_tap_kernel", BF16_TAP),
     Probe("ka", probe_ka, probe_ka_plain, _P2, "ka_nested_trivial", 64,
-          "window_sum_kernel", EXACT),
+          "tile_sum_kernel", EXACT),
     Probe("kb", probe_kb, probe_kb_plain, _P2, "kb_hat_slice_1d", 80,
-          "hat_sampler_kernel", SUMS),
+          "hat_channel0_kernel", SUMS),
     Probe("kc", probe_kc, probe_kc_plain, _P2, "kc_pid_slice_1d", 95,
-          "window_sum_kernel", SUMS),
+          "tile_sum_kernel", SUMS),
     Probe("kd", probe_kd, probe_kd_plain, _P2, "kd_linearized", 110,
-          "hat_sampler_kernel", SUMS),
+          "hat_channel0_kernel", SUMS),
     Probe("ke", probe_ke, probe_ke_plain, _P2, "ke_static_when_inner_fori",
-          131, "hat_sampler_kernel", SUMS),
+          131, "hat_channel0_kernel", SUMS),
     Probe("kf", probe_kf, probe_kf_plain, _P3, "kf_static_gx_when", 97,
           "hat_cols_kernel", SUMS),
     Probe("kg", probe_kg, probe_kg_plain, _P3, "kg_dynamic_roll", 117,

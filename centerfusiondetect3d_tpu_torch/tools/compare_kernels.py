@@ -17,6 +17,10 @@
     python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
         --other _compare/parent --kernel probe_kf --kernel probe_kg \\
         --kernel probe_p4
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel probe_k4 --kernel probe_kd \\
+        --kernel probe_ke --kernel probe_kb --kernel probe_ka \\
+        --kernel probe_k3 --kernel probe_kc --kernel probe_k1
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
@@ -40,9 +44,10 @@ outputs are held against each other in a layout-free form (im2col's
 columns through each tree's ``weight_gradient``, as dweight (O, C, 3, 3);
 the other outputs as they come) within 1e-4 (float32) or 8e-3 (bf16)
 relative to the largest magnitude. The probe kernels (``ops/probes.py``:
-``probe_k2``, ``probe_k5``, ``probe_kf`` and ``probe_kg`` on the three
-inputs of a tile probe at both of ``probes.GEOMETRIES``, ``probe_p1``,
-``probe_p2`` and ``probe_p4`` on P5's inputs) run instead on
+the twelve tile probes ``probe_k1``...``probe_k5`` and
+``probe_ka``...``probe_kg`` on the three inputs of a tile probe at both of
+``probes.GEOMETRIES``, ``probe_p1``, ``probe_p2`` and ``probe_p4`` on P5's
+inputs) run instead on
 ``tools/probe_dcn.py``'s inputs of them, in both trees, whose outputs must
 agree within the probe's ``Probe.rtol`` (0: bitwise);
 beside them their yardstick (``Probe.library`` of this tree, where there
@@ -140,8 +145,9 @@ def dtype_of(name: str):
 
 KERNELS = ("dcn_fwd", "dcn_fwd_bf16", *dcn.BACKWARD_KERNELS,
            *dcn.BACKWARD_KERNELS_BF16, *BACKWARD)
-PROBE_KERNELS = ("probe_k2", "probe_k5", "probe_kf", "probe_kg",
-                 "probe_p1", "probe_p2", "probe_p4")
+PROBE_KERNELS = ("probe_k1", "probe_k2", "probe_k3", "probe_k4", "probe_k5",
+                 "probe_ka", "probe_kb", "probe_kc", "probe_kd", "probe_ke",
+                 "probe_kf", "probe_kg", "probe_p1", "probe_p2", "probe_p4")
 
 
 def load_other(root: str):

@@ -98,9 +98,13 @@ On the card it:
    scripts' inputs and two seeded draws at the scripts' geometry and a
    second one, held against its plain version (``ops/probes.py``), and K1
    at the probes' shapes through ``dcn_fwd_bf16``; every kernel must have
-   launched; then ``k2``, ``k5``, ``kf`` and ``kg`` at a ragged geometry
-   (45 pixels a tile, C = 24, O = 6) and ``p4`` at a ragged K and N (24,
-   20), each against its plain version, outside those counts. Then each
+   launched; then the twelve tile probes at a ragged geometry (45 pixels a
+   tile, C = 24, O = 6: no whole float4 of O) and ``p4`` at a ragged K and
+   N (24, 20), each against its plain version, outside those counts. The
+   tile probes run over the output in ``tile_sum_kernel`` (``k1``, ``k3``,
+   ``kc``, ``ka``), ``hat_channel0_kernel`` (``k4``, ``kd``, ``ke``,
+   ``kb``), ``broadcast_kernel`` (``k2``), ``hat_tap_kernel`` (``k5``) and
+   ``hat_cols_kernel`` (``kf``, ``kg``). Then each
    kernel and its plain version are timed per call on
    each of its inputs at the scripts' geometry, and each kernel by its
    device time alone, beside the bound of those inputs and the launch
@@ -1522,8 +1526,8 @@ def check_probes(device, timed: bool):
     holds every probe kernel against its plain version (and K1 at the
     probes' shapes, ``dcn_fwd_bf16``, against its plain version) and every
     probe must pass; on the card each of the sixteen kernels must have
-    launched. Then ``k2``, ``k5``, ``kf``, ``kg`` and ``p4`` are held
-    against their plain versions at their ragged shapes
+    launched. Then the twelve tile probes and ``p4`` are held against
+    their plain versions at their ragged shapes
     (``check_ragged_probes``), outside those counts. On the card each
     kernel and its plain version are then timed per call, and each kernel
     by its device time alone (``time_device``), on each of its inputs at
@@ -1604,17 +1608,23 @@ def check_probes(device, timed: bool):
     return rows
 
 
+# the probes held at their ragged shapes: every tile probe, and p4
+RAGGED_PROBES = ("k1", "k2", "k3", "k4", "k5", "ka", "kb", "kc", "kd", "ke",
+                 "kf", "kg", "p4")
+
+
 def check_ragged_probes(device):
-    """``k2``, ``k5``, ``kf`` and ``kg`` at ``probes.RAGGED_GEOMETRY``, the
-    edges of their kernels (45 pixels a tile, C = 24, O = 6), on
-    ``tools/probe_dcn.py``'s three inputs, and ``p4`` at ``probes.RAGGED_P4``
-    (K = 24 padded to 32, N = 20 masked), each held against its plain
-    version within its ``rtol`` (``k2`` bitwise); raises on a mismatch.
+    """The twelve tile probes at ``probes.RAGGED_GEOMETRY``, the edges of
+    their kernels (45 pixels a tile, C = 24, O = 6: float stores of the
+    broadcast), on ``tools/probe_dcn.py``'s three inputs, and ``p4`` at
+    ``probes.RAGGED_P4`` (K = 24 padded to 32, N = 20 masked), each held
+    against its plain version within its ``rtol`` (``k2`` and ``ka``
+    bitwise); raises on a mismatch.
     Called after the probe path's launch counts are read, so these launches
     are not counted there. Returns each kernel's largest relative error."""
     geom = probes.RAGGED_GEOMETRY
     worst = {}
-    for name in ("k2", "k5", "kf", "kg", "p4"):
+    for name in RAGGED_PROBES:
         probe = probes.PROBES[name]
         res = probe_dcn.Result(name, probe.script_name, probe.rtol)
         if name == "p4":
@@ -1672,8 +1682,8 @@ def probe_kernel_entries(rows):
     for the times and the bound (every input in ``per_case``): per call
     (``ms``, ``plain_ms``, ``library_ms``) and by device time alone
     (``device_ms``, ``library_device_ms``), beside ``launch_floor_ms``;
-    ``k2``, ``k5``, ``kf``, ``kg`` and ``p4`` also their largest error at
-    their ragged shapes; ``device_function``: the function of
+    the twelve tile probes and ``p4`` also their largest error at their
+    ragged shapes; ``device_function``: the function of
     ``csrc/dcn_probes.cu`` that the probe's entry launches."""
     entries = []
     for name, row in rows.items():

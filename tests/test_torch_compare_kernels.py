@@ -181,9 +181,9 @@ def test_overlap_refuses_the_probe_kernels():
 def test_probe_calls_give_both_trees_the_tool_inputs(name):
     """Each probe input of ``tools/probe_dcn.py`` (P5's windows their own,
     a tile probe's three inputs at both geometries) goes to both trees'
-    wrappers and to this tree's yardstick where there is one (none for
-    ``k5``, ``kf``, ``kg``); on CPU tensors the wrappers run their plain
-    versions, so a tree compared with itself gives equal outputs, and the
+    wrappers and to this tree's yardstick where there is one (``k2``,
+    ``p1``, ``p2``, ``p4``; none for the other tile probes); on CPU
+    tensors the wrappers run their plain versions, so a tree compared with itself gives equal outputs, and the
     yardstick agrees within its order's rounding (``p4``'s, a bf16
     ``baddbmm`` with a float32 result, has no CPU kernel: its card test
     holds it)."""
@@ -201,17 +201,21 @@ def test_probe_calls_give_both_trees_the_tool_inputs(name):
     for label, this, other, library in calls:
         got = this()
         assert torch.equal(got, other()), label
-        assert (library is None) == (short in ("k5", "kf", "kg")), label
+        assert (library is None) == (short not in ("k2", "p1", "p2",
+                                                   "p4")), label
         if library is not None and short != "p4":
             assert ck.rel_err(library(), got) <= 1e-6, label
 
 
-@pytest.mark.parametrize("name", ["probe_k2", "probe_k5"])
+@pytest.mark.parametrize("name", [
+    "probe_k2", "probe_k5", "probe_k4", "probe_kd", "probe_ke", "probe_kb",
+    "probe_ka", "probe_k3", "probe_kc", "probe_k1"])
 def test_the_redesigned_probes_are_kernels_of_the_tool(name):
     """The parser takes them (the refusal is the directory's, not the
     kernel's), and their calls run the plain versions on the CPU."""
     from centerfusiondetect3d_tpu_torch.ops import probes
 
+    assert name in ck.PROBE_KERNELS
     with pytest.raises(SystemExit, match="inside"):
         ck.main(["--other", ck.ROOT, "--kernel", name])
     probe = probes.PROBES[name[6:]]

@@ -9,7 +9,7 @@ versions ``probe_k2_plain`` and ``probe_k5_plain`` are held there against
 the scripts' ``k2`` and ``k5`` run in interpret mode, with the loader and
 the tolerances of ``tests/test_torch_probes.py``, on the three inputs of
 ``tools/probe_dcn.py``; the wrappers' choice of vector width
-(``k2_width``, ``k5_width``) and the width they hand the C entries are
+(``broadcast_width``, ``k5_width``) and the width they hand the C entries are
 checked on tensors on and off 16 bytes.
 
 The ``cuda`` cases hold both kernels against their plain versions on the
@@ -86,10 +86,12 @@ def _offset_view(shape, dtype, elements: int):
 
 
 @pytest.mark.parametrize("o,skew,vec", [(16, 0, 4), (32, 0, 4), (6, 0, 1),
-                                        (16, 1, 1), (16, 4, 4)])
+                                        (16, 1, 1), (16, 4, 4), (4, 0, 4),
+                                        (5, 0, 1), (16, 2, 1), (12, 8, 4),
+                                        (6, 4, 1)])
 def test_k2_stores_float4_where_o_and_out_allow_it(o, skew, vec):
     out = _offset_view((2, 16, 24, o), torch.float32, skew)
-    assert probes.k2_width(out) == vec
+    assert probes.broadcast_width(out) == vec
 
 
 @pytest.mark.parametrize("c,skew,vec", [(16, 0, 8), (8, 0, 8), (24, 0, 8),
@@ -115,7 +117,7 @@ def test_the_wrappers_hand_the_entries_their_width(geom, skew):
     k2, k5 = WIDTHS[_geom_id(g)]
     out = _offset_view((g.batch, g.h, g.w, g.o), torch.float32, skew)
     x = _offset_view((g.batch, g.hp, g.wp, g.c), torch.bfloat16, skew)
-    assert probes._k2_args({}, out) == ((1 if skew else k2),)
+    assert probes._broadcast_args({}, out) == ((1 if skew else k2),)
     assert probes._k5_args({"x": x}, out) == ((1 if skew else k5),)
 
 
