@@ -12,7 +12,8 @@
 //                       broadcast to O
 //   row_window_kernel   p1, p2: P5's windows, summed over a run of rows
 //   broadcast_kernel    k2: the offset field's dy, broadcast to O
-//   shift_if_max_kernel p3: a whole-array min/max
+//   shift_if_max_kernel p3: a whole-array min/max (NaN-propagating) and a
+//                       select, x read once into registers
 //   hat_channel0_kernel kb, k4 (= kd), ke: the hat-weighted sampler of
 //                       channel 0, broadcast to O
 //   hat_cols_kernel     kf (= kg): the hat-weighted sampler of every channel
@@ -47,7 +48,8 @@
 // (broadcast_kernel) over each batch's pixels; P5's windows (p1, p2:
 // row_window_kernel) and p4's contraction (contract_kernel, a block per 16
 // pixels and 32 columns) likewise. Only p3's whole-array min/max
-// (shift_if_max_kernel) keeps one block.
+// (shift_if_max_kernel) keeps one block: its inputs are 8 KB, and a second
+// block would need a grid-wide barrier that costs more than the work.
 
 #include <algorithm>
 #include <type_traits>
@@ -223,19 +225,103 @@ broadcast_kernel(const float* __restrict__ off, float* __restrict__ out,
 
 // ------------------------------------------------------- p3's field read
 
-// x + trunc(min x) where max x > 0.5, else 0; one block
-__global__ void __launch_bounds__(kThreads)
+// min and max that return NaN where either operand is NaN (fminf and fmaxf
+// return the other operand), as jnp.min, jnp.max, torch.min and torch.max do
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+constexpr int kP3Threads = 256;
+constexpr int kP3Regs = 4;  // vectors a thread keeps in registers
+
+__device__ __forceinline__ void fold(float v, float& lo, float& hi) {
+  lo = min_nan(lo, v);
+  hi = max_nan(hi, v);
+}
+__device__ __forceinline__ void fold(const float4& v, float& lo, float& hi) {
+  fold(v.x, lo, hi);
+  fold(v.y, lo, hi);
+  fold(v.z, lo, hi);
+  fold(v.w, lo, hi);
+}
+__device__ __forceinline__ float select(float v, bool on, float shift) {
+  return on ? v + shift : 0.f;
+}
+__device__ __forceinline__ float4 select(const float4& v, bool on,
+                                         float shift) {
+  return make_float4(select(v.x, on, shift), select(v.y, on, shift),
+                     select(v.z, on, shift), select(v.w, on, shift));
+}
+
+// x + trunc(min x) where max x > 0.5, else 0, over n floats; one block. Each
+// thread reads its vectors of kVec floats (float4 or float) once and keeps
+// the first kP3Regs in registers (the whole of x up to kP3Threads * kP3Regs
+// vectors; any further vector is read again for the select), plus one of
+// the n % kVec tail floats. The min and max propagate NaN: a NaN anywhere
+// makes max x > 0.5 false and the output zeros. The cast to int32
+// saturates (-inf gives -2^31), as torch's cast does on the card.
+template <int kVec>
+__global__ void __launch_bounds__(kP3Threads)
 shift_if_max_kernel(const float* __restrict__ in, float* __restrict__ out,
                     int n) {
+  using V = typename std::conditional<kVec == 4, float4, float>::type;
+  const V* vin = reinterpret_cast<const V*>(in);
+  V* vout = reinterpret_cast<V*>(out);
+  const int nv = n / kVec, t = threadIdx.x;
   float lo = CUDART_INF_F, hi = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    lo = fminf(lo, in[i]);
-    hi = fmaxf(hi, in[i]);
+  V r[kP3Regs];
+#pragma unroll
+  for (int k = 0; k < kP3Regs; ++k) {
+    const int i = t + k * kP3Threads;
+    if (i < nv) {
+      r[k] = __ldg(vin + i);
+      fold(r[k], lo, hi);
+    }
   }
-  block_min_max(lo, hi);
-  const float shift = (float)(int)lo;  // the int32 cast: toward zero
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[i] = hi > 0.5f ? in[i] + shift : 0.f;
+  for (int i = t + kP3Regs * kP3Threads; i < nv; i += kP3Threads)
+    fold(__ldg(vin + i), lo, hi);
+  const int tail = nv * kVec + t;
+  float last = 0.f;
+  if (tail < n) {
+    last = __ldg(in + tail);
+    fold(last, lo, hi);
+  }
+
+  __shared__ float s_lo[kP3Threads / 32], s_hi[kP3Threads / 32];
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min_nan(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max_nan(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if ((t & 31) == 0) {
+    s_lo[t >> 5] = lo;
+    s_hi[t >> 5] = hi;
+  }
+  __syncthreads();
+  lo = s_lo[0];
+  hi = s_hi[0];
+#pragma unroll
+  for (int i = 1; i < kP3Threads / 32; ++i) {
+    lo = min_nan(lo, s_lo[i]);
+    hi = max_nan(hi, s_hi[i]);
+  }
+
+  const bool on = hi > 0.5f;
+  const float shift = (float)__float2int_rz(lo);
+#pragma unroll
+  for (int k = 0; k < kP3Regs; ++k) {
+    const int i = t + k * kP3Threads;
+    if (i < nv) vout[i] = select(r[k], on, shift);
+  }
+  for (int i = t + kP3Regs * kP3Threads; i < nv; i += kP3Threads)
+    vout[i] = select(__ldg(vin + i), on, shift);
+  if (tail < n) out[tail] = select(last, on, shift);
 }
 
 // ------------------------------------------ k5's tap and its contraction
@@ -1167,10 +1253,19 @@ extern "C" int cfd_probe_p2(const float* x, float* out, int row_stride,
 }
 
 // p3: out = x + trunc(min x) where max x > 0.5, else 0; x f32 of n
-// elements, one block
-extern "C" int cfd_probe_p3(const float* x, float* out, int n,
+// elements, one block. vec 4 (float4 loads and stores) or 1, chosen by the
+// wrapper (ops/probes.py:p3_width) and refused here where x or out does not
+// start on 16 bytes
+extern "C" int cfd_probe_p3(const float* x, float* out, int n, int vec,
                             cudaStream_t stream) {
-  shift_if_max_kernel<<<1, kThreads, 0, stream>>>(x, out, n);
+  if (n < 1 || (vec != 4 && vec != 1) ||
+      (vec == 4 && ((reinterpret_cast<size_t>(x) & 15) != 0 ||
+                    (reinterpret_cast<size_t>(out) & 15) != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4)
+    shift_if_max_kernel<4><<<1, kP3Threads, 0, stream>>>(x, out, n);
+  else
+    shift_if_max_kernel<1><<<1, kP3Threads, 0, stream>>>(x, out, n);
   return launched();
 }
 

@@ -1,10 +1,10 @@
 """Host data pipeline: batching, shuffling, host-to-device transfer.
 
 The port of ``centerfusiondetect3d_tpu/data/pipeline.py`` without its thread
-pool, prefetch queue and sharding: ``Loader`` builds each batch on the
-calling thread from any dataset with ``__len__`` and ``get_item(index,
-rng)``, in the JAX package's index order and with its per-item
-augmentation seeds, and
+pool, prefetch queue, ``peek``, sharding and ``pad_to_batch``: ``Loader``
+builds each batch on the calling thread from any dataset with ``__len__``
+and ``get_item(index, rng)``, in the JAX package's index order and with its
+per-item augmentation seeds, and
 ``to_device`` moves a stacked batch to the card from pinned memory, laying
 the NHWC maps of the items out NCHW.
 """
@@ -33,26 +33,39 @@ def stack_items(items) -> Dict[str, np.ndarray]:
 
 
 class Loader:
-    """Iterable over stacked batches of ``batch_size`` items (the last,
-    partial batch is dropped), shuffled per epoch from ``seed + epoch`` as
-    the JAX package's loader does. ``augment`` (default ``shuffle``, as
-    there) builds item ``i`` of epoch ``e`` with ``get_item(i,
-    np.random.RandomState((seed + e) * 1_000_003 + i))``, the JAX loader's
-    per-item seed; without it ``get_item(i, None)``. Iterating ends the
-    epoch: ``epoch`` advances by one.
+    """Iterable over stacked batches of ``batch_size`` items, shuffled per
+    epoch from ``seed + epoch`` as the JAX package's loader does; the last,
+    partial batch is dropped unless ``drop_last`` is false (validation
+    keeps it). ``augment`` (default ``shuffle``, as there) builds item ``i``
+    of epoch ``e`` with ``get_item(i, np.random.RandomState((seed + e) *
+    1_000_003 + i))``, the JAX loader's per-item seed; without it
+    ``get_item(i, None)``. The item keys in ``drop_keys`` (by default
+    ``meta``, which only validation reads) are left out of the batches.
+    Iterating ends the epoch: ``epoch`` advances by one.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, augment: Optional[bool] = None):
+                 seed: int = 0, drop_last: bool = True, drop_keys=("meta",),
+                 augment: Optional[bool] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.augment = shuffle if augment is None else bool(augment)
         self.seed = seed
+        self.drop_last = drop_last
+        self.drop_keys = set(drop_keys or ())
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _build(self, index: int, sample_seed: int):
+        rng = np.random.RandomState(sample_seed) if self.augment else None
+        item = self.dataset.get_item(index, rng)
+        for key in self.drop_keys:
+            item.pop(key, None)
+        return item
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         indices = np.arange(len(self.dataset))
@@ -61,9 +74,8 @@ class Loader:
         base = (self.seed + self.epoch) * 1_000_003
         for b in range(len(self)):
             chunk = indices[b * self.batch_size:(b + 1) * self.batch_size]
-            yield stack_items([self.dataset.get_item(
-                int(i), np.random.RandomState(base + int(i))
-                if self.augment else None) for i in chunk])
+            yield stack_items([self._build(int(i), base + int(i))
+                               for i in chunk])
         self.epoch += 1
 
 

@@ -1,7 +1,7 @@
 """Build a kernel source under ``csrc/`` with nvcc and load it with ctypes.
 
 Each source has a plain ``extern "C"`` entry point and includes no PyTorch
-header, so one ``nvcc`` call builds it in seconds. The shared library goes to
+header (``jpeg_decode.cu`` links nvJPEG, ``LINK_FLAGS``), so one ``nvcc`` call builds it in seconds. The shared library goes to
 ``_build/`` beside the package (git-ignored), named after a hash of the
 source, the headers beside it (``csrc/*.cuh``) and the flags, so a changed
 source or header builds anew and an unchanged one is loaded as it is. nvcc writes to a temporary name that is then moved into
@@ -32,6 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# libraries a source links against, after NVCC_FLAGS
+LINK_FLAGS = {"jpeg_decode.cu": ("-lnvjpeg",)}
 
 
 @dataclass
@@ -84,8 +86,9 @@ def load_kernel_libraries(sources) -> Dict[str, KernelLibrary]:
 def _build_and_load(src: Path) -> KernelLibrary:
     headers = b"".join(h.read_bytes()
                        for h in sorted(src.parent.glob("*.cuh")))
+    flags = NVCC_FLAGS + LINK_FLAGS.get(src.name, ())
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     so_path = BUILD_DIR / f"{src.stem}_{digest}.so"
     log_path = so_path.with_suffix(".log")
@@ -95,7 +98,7 @@ def _build_and_load(src: Path) -> KernelLibrary:
         tmp = so_path.with_name(f".{so_path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [find_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True, check=False)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

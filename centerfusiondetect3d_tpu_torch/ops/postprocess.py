@@ -29,8 +29,10 @@ def post_process(y: Dict[str, torch.Tensor], trans_mat, output_size, calibs,
     y = dict(y)
     out_h, out_w = output_size
     ref = y["scores"]
+    # float32 matrices, promoted as JAX promotes them for a float64 model
     trans_mat = torch.as_tensor(trans_mat, dtype=torch.float32,
-                                device=ref.device)
+                                device=ref.device).to(
+        torch.promote_types(torch.float32, ref.dtype))
 
     def affine(points):  # (B, ..., 2) -> (B, ..., 2)
         if trans_mat.dim() == 2:

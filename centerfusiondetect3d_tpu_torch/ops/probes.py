@@ -53,7 +53,8 @@ Every output channel of ``k1``...``k4`` and ``ka``...``ke`` holds the same
 value (channel 0 broadcast to O). The P5 probes take their own arrays:
 ``p1`` x[g:g+rows, g+1:g+1+cols, :]; ``p2`` the sum over i in [lo, hi) of
 x[i:i+rows, :]; ``p3`` x + trunc(min x) where max x > 0.5, else 0 (the int32
-cast truncates toward zero); ``p4`` bf16(x[2:10, 1:17, :] * bf16(2))
+cast truncates toward zero; a NaN anywhere gives 0, as ``jnp.max`` and
+``torch.max`` propagate it); ``p4`` bf16(x[2:10, 1:17, :] * bf16(2))
 reshaped to (128, 64) and contracted with w in float32.
 
 Each wrapper checks device, dtype, shape, contiguity and that every window
@@ -66,8 +67,8 @@ choice again and refuses a wrong one: the nine probes that broadcast one
 value a pixel to O (``k1``...``k4``, ``ka``...``ke``) store float4s where O
 is whole in float4s and out lies on 16 bytes (``broadcast_width``); ``p1``
 and ``p2`` load and store float4s where every window row allows it
-(``row_windows``); ``k5`` loads 8 channels (``k5_width``), ``kf`` and ``kg``
-2 (``kf_width``). ``k1``'s entry picks its own load width (8 channels where
+(``row_windows``), ``p3`` where x and out lie on 16 bytes (``p3_width``);
+``k5`` loads 8 channels (``k5_width``), ``kf`` and ``kg`` 2 (``kf_width``). ``k1``'s entry picks its own load width (8 channels where
 C % 8 == 0 and x lies on 16 bytes), as ``p4``'s does.
 ``PROBES`` lists the sixteen, each with its yardstick where one PyTorch
 call computes its function (``Probe.library``: ``k2``, ``p1``, ``p2``,
@@ -357,7 +358,8 @@ def probe_p4_library(x, w):
 
 def probe_p3_plain(x):
     """Plain ``p3``: x + trunc(min x) if max x > 0.5, else zeros (the
-    float -> int32 cast truncates toward zero)."""
+    float -> int32 cast truncates toward zero). ``max`` propagates NaN, so
+    a NaN anywhere gives zeros, as the script's ``jnp.max`` does."""
     lo = x.min().to(torch.int32).float()
     return torch.where(x.max() > 0.5, x + lo, torch.zeros_like(x))
 
@@ -431,7 +433,7 @@ _SIGNATURES = {
         "kg")},
     **{f"cfd_probe_{n}": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
        for n in ("p1", "p2")},
-    "cfd_probe_p3": [ctypes.c_void_p] * 2 + [ctypes.c_int],
+    "cfd_probe_p3": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2,
     "cfd_probe_p4": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
     + [ctypes.c_float],
 }
@@ -604,6 +606,12 @@ def probe_p2(x, lo: int, hi: int):
     return out
 
 
+def p3_width(x, out) -> int:
+    """``p3``'s load and store width: 4 (float4s, the n % 4 tail floats)
+    where x and out start on 16 bytes, else 1."""
+    return 4 if x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+
+
 def probe_p3(x):
     """The ``p3`` kernel on a float32 x, as :func:`probe_p3_plain` (which
     runs instead on CPU tensors)."""
@@ -613,7 +621,8 @@ def probe_p3(x):
     if _device(x).type == "cpu":
         return probe_p3_plain(x)
     out = torch.empty_like(x)
-    _run(x, "cfd_probe_p3", x.data_ptr(), out.data_ptr(), x.numel())
+    _run(x, "cfd_probe_p3", x.data_ptr(), out.data_ptr(), x.numel(),
+         p3_width(x, out))
     probe_p3.launches += 1
     return out
 

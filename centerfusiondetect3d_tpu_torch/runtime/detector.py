@@ -29,6 +29,7 @@ import torch
 from ..config import ConfigNode
 from ..data.nuscenes_eval import detections_to_results
 from ..data.radar import paint_rows_host, prepare_radar_points
+from ..data.transforms import warp_image
 from ..geometry.affine import get_affine_transform, stack_inverse_transforms
 from ..models.detector import build_model
 from ..ops.decode import fusion_decode
@@ -48,7 +49,8 @@ def _warp_or_crop(img: np.ndarray, trans: np.ndarray, in_h: int, in_w: int):
     An integer translation (the standard nuScenes serving geometry: a
     1600x900 frame decoded at 800x450 leaves a 1-row vertical crop) is an
     exact copy of a window, done here with a slice. Any other affine goes to
-    ``cv2.warpAffine`` (bilinear), imported only here.
+    ``data/transforms.py:warp_image`` (``cv2.warpAffine``'s bilinear warp
+    with a zero border, in numpy).
     """
     a = np.asarray(trans, np.float64)
     tx, ty = a[0, 2], a[1, 2]
@@ -67,15 +69,7 @@ def _warp_or_crop(img: np.ndarray, trans: np.ndarray, in_h: int, in_w: int):
         out = np.zeros((in_h, in_w, 3), img.dtype)
         out[y0:y1, x0:x1] = img[y0 - tyi:y1 - tyi, x0 - txi:x1 - txi]
         return out
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            "warping a frame by a non-integer affine needs the 'opencv-python' "
-            "package (cv2); frames whose size maps onto the network input by "
-            "an integer crop, such as 800x450 for a 448x800 input, do not"
-        ) from e
-    return cv2.warpAffine(img, a[:2], (in_w, in_h), flags=cv2.INTER_LINEAR)
+    return warp_image(img, a, (in_w, in_h))
 
 
 class Detector:

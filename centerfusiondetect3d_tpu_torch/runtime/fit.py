@@ -1,8 +1,8 @@
-"""The training loop: the reference Trainer on one CUDA card.
+"""The training loop and validation: the reference Trainer on one CUDA card.
 
 The port of ``centerfusiondetect3d_tpu/runtime/fit.py:Trainer`` (reference
-``src/lib/trainer.py:20-127`` and its Lightning callbacks) as far as the
-training epochs go: per epoch the frozen-or-not decision of
+``src/lib/trainer.py:20-127`` and its Lightning callbacks), single process:
+per epoch the frozen-or-not decision of
 ``MODEL.FREEZE_BACKBONE`` / ``MODEL.DEFREEZE``, the epoch's learning rate in
 every parameter group, one ``train_step`` per batch, running-average
 meters, a step timer that waits for the device, ``history["train"]``, the
@@ -10,31 +10,53 @@ non-finite-loss guard of ``TRAIN.NONFINITE_TOLERANCE``, and checkpoints:
 ``MODEL.LOAD_DIR`` (a reference ``.pt`` file) is loaded by ``init_state``,
 with its epoch and optimizer state under ``TRAIN.RESUME``, and
 ``training/checkpoint.py:save_checkpoint`` writes ``OUTPUT_DIR/ckpts`` at
-every ``TRAIN.SAVE_INTERVALS`` epoch and at the last one.
+every ``TRAIN.SAVE_INTERVALS`` epoch and at the last one. At every
+``TRAIN.VAL_INTERVALS`` epoch it writes a crash-guard checkpoint, then
+validates (``val``): an eval-mode forward over ``dataset_val`` (the last,
+partial batch included), ``fusion_decode`` and ``post_process`` with each
+image's inverse affine from its ``meta``, the loss meters, per-image
+results, then ``dataset_val.run_eval`` (the submission JSON and NDS
+scoring, ``data/nuscenes_eval.py``) and ``log_valid_result``. Scoring is
+best-effort as in the JAX package: an exception there is logged, not
+raised. ``test`` is ``val``.
 
 The model computes in the precision the config asks for
 (``MIXED_PRECISION``, true in every shipped config: a bf16 model with float32
 parameters, optimizer state and BatchNorm statistics, as the JAX package
-trains), and checkpoints hold float32 tensors either way. The Trainer raises
-instead of training otherwise than the config says: before the first step,
-on a run whose epochs reach a ``TRAIN.VAL_INTERVALS`` epoch (validation is
-not ported). Not ported yet (ROADMAP.md, Queue 1): validation,
-``MetricsLogger``, ``DeviceHealthMonitor`` and loss plots; the training
-profile is ``tools/profile_training.py``.
+trains), in training and in validation, and checkpoints hold float32
+tensors either way. A run that reaches a ``TRAIN.VAL_INTERVALS`` epoch
+without a ``dataset_val`` raises before its first step.
+
+One documented difference from the JAX package: under ``TRAIN.RESUME`` a
+``.pt`` checkpoint restores the optimizer state too (``init_state``); the
+JAX package resumes a ``.pt`` with a fresh optimizer and only the epoch, as
+the reference's ``loadModel`` does. The port's ``.pt`` is its only
+checkpoint format, and it carries the optimizer.
+
+Not ported yet (ROADMAP.md, Queue 1): ``MetricsLogger``,
+``DeviceHealthMonitor``, loss plots, the FLOPs report (``profile``), the
+``DEBUG`` visualizer and multi-process validation; the training profile is
+``tools/profile_training.py``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..data.nuscenes_eval import detections_to_results
 from ..data.pipeline import Loader, to_device
+from ..geometry.affine import stack_inverse_transforms
 from ..losses import GenericLoss
 from ..models import build_model
+from ..ops.decode import fusion_decode
+from ..ops.postprocess import post_process
 from ..training import learning_rate, make_optimizer, train_step
 from ..training.checkpoint import load_torch_file, load_weights, save_checkpoint
 from ..utils.device import resolve_device
@@ -44,8 +66,10 @@ from .synthetic import seeded_weights
 
 class Trainer:
     """Builds the model and loss of ``config`` on ``device`` (the CUDA card
-    unless the caller names another) and trains it on ``dataset_train``
-    (any object with ``__len__`` and ``get_item(index, rng)``).
+    unless the caller names another), trains it on ``dataset_train`` and
+    validates it on ``dataset_val`` (any objects with ``__len__`` and
+    ``get_item(index, rng)``; ``dataset_val`` scores through its
+    ``run_eval`` and ``log_valid_result`` where it has them).
 
     ``on_step(epoch, step, frozen, metrics)``, when given, is called after
     every step with the step's metrics as floats. The model follows
@@ -53,14 +77,17 @@ class Trainer:
     float32 parameters when it is true.
     """
 
-    def __init__(self, config, dataset_train=None, device=None,
-                 logger: Optional[logging.Logger] = None,
+    def __init__(self, config, dataset_train=None, dataset_val=None,
+                 device=None, logger: Optional[logging.Logger] = None,
                  on_step: Optional[Callable] = None):
         self.config = config
         self.device = resolve_device(device)
         self.model = build_model(config).to(self.device)
         self.loss_fn = GenericLoss(config)
         self.dataset_train = dataset_train
+        self.dataset_val = dataset_val
+        self.summaries: Optional[Dict] = None  # the last val's NDS summaries
+        self.val_seconds: List[dict] = []  # per val: forward, scoring
         self.logger = logger or logging.getLogger("cfd3d.trainer")
         self.on_step = on_step
         self.history: Dict[str, Dict[str, list]] = {"train": {}, "val": {}}
@@ -116,7 +143,7 @@ class Trainer:
         cfg = self.config
         if self.optimizer is None:
             self.init_state()
-        self._refuse_validation()
+        self._refuse_validation_without_data()
         loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
                         shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED,
                         augment=True)
@@ -152,28 +179,129 @@ class Trainer:
             interval = int(cfg.TRAIN.SAVE_INTERVALS)
             if ((interval > 0 and (epoch + 1) % interval == 0)
                     or epoch + 1 == cfg.TRAIN.EPOCHS):
-                path = save_checkpoint(os.path.join(cfg.OUTPUT_DIR, "ckpts"),
-                                       self.model, self.optimizer, epoch,
-                                       self.history)
-                self.logger.info("saved %s", path)
+                self._save(epoch)
+            if self._validates(epoch):
+                # crash guard: persist before validation
+                # (modelWithLoss.py:329-341)
+                self._save(epoch)
+                self.val()
         return self.history
 
-    def _refuse_validation(self):
-        """Validation inside the Trainer is not ported: a run whose epochs
-        reach a ``TRAIN.VAL_INTERVALS`` epoch raises before its first step
-        rather than skip the validation."""
-        cfg = self.config
-        interval = int(cfg.TRAIN.VAL_INTERVALS)
-        if interval <= 0:
+    def _save(self, epoch: int) -> str:
+        path = save_checkpoint(os.path.join(self.config.OUTPUT_DIR, "ckpts"),
+                               self.model, self.optimizer, epoch,
+                               self.history)
+        self.logger.info("saved %s", path)
+        return path
+
+    def _validates(self, epoch: int) -> bool:
+        interval = int(self.config.TRAIN.VAL_INTERVALS)
+        return interval > 0 and (epoch + 1) % interval == 0
+
+    def _refuse_validation_without_data(self):
+        """A run whose epochs reach a ``TRAIN.VAL_INTERVALS`` epoch needs
+        ``dataset_val``: without one it raises before its first step rather
+        than fail after training."""
+        if self.dataset_val is not None:
             return
-        due = [e for e in range(self.start_epoch, int(cfg.TRAIN.EPOCHS))
-               if (e + 1) % interval == 0]
+        due = [e for e in range(self.start_epoch,
+                                int(self.config.TRAIN.EPOCHS))
+               if self._validates(e)]
         if due:
-            raise NotImplementedError(
-                f"TRAIN.VAL_INTERVALS={interval} asks for validation after "
-                f"epoch {due[0]}, and validation inside the Trainer is not "
-                "ported yet; set TRAIN.VAL_INTERVALS to 0 (or past "
-                "TRAIN.EPOCHS) to train without it")
+            raise ValueError(
+                f"TRAIN.VAL_INTERVALS={self.config.TRAIN.VAL_INTERVALS} asks "
+                f"for validation after epoch {due[0]}, and the Trainer has "
+                "no dataset_val; pass one, or set TRAIN.VAL_INTERVALS to 0 "
+                "(or past TRAIN.EPOCHS) to train without it")
+
+    # ------------------------------------------------------------- eval
+    def _eval_step(self, batch, trans_mat):
+        """Eval-mode forward, decode, post-process and loss of one device
+        batch; returns (processed detections, loss, loss parts)."""
+        cfg = self.config
+        outputs = [self.model(batch["image"], batch.get("pc_dep"),
+                              batch.get("calib"), batch.get("pc_hm"))]
+        dets = fusion_decode(outputs, cfg.MODEL.OUTPUT_SIZE, k=cfg.MODEL.K,
+                             norm2d=cfg.MODEL.NORM_2D)
+        processed = post_process(dets, trans_mat, cfg.MODEL.OUTPUT_SIZE,
+                                 batch["calib"])
+        loss, parts = self.loss_fn(outputs, batch, train=False)
+        return processed, loss, parts
+
+    def val(self, loader: Optional[Loader] = None) -> Dict[int, list]:
+        """Validation and NDS scoring, single process (the JAX package's
+        ``Trainer.val`` without its multi-process sharding, FLOPs report and
+        ``DEBUG`` visualizer). Returns the per-image results; the scoring
+        summaries land in ``summaries``."""
+        cfg = self.config
+        if loader is None:
+            if self.dataset_val is None:
+                raise ValueError("Trainer.val needs a dataset_val or a loader")
+            loader = Loader(self.dataset_val, cfg.TEST.BATCH_SIZE,
+                            shuffle=False, drop_last=False, drop_keys=())
+        if self.optimizer is None:
+            self.init_state()
+        t0 = time.perf_counter()
+        results: Dict[int, list] = {}
+        seen = 0
+        meters = defaultdict(AverageMeter)
+        oh, ow = cfg.MODEL.OUTPUT_SIZE
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                for batch in loader:
+                    meta = batch.pop("meta", None)
+                    nimg = batch["image"].shape[0]
+                    if meta is not None:
+                        centers = np.asarray(meta["center"], np.float32)
+                        scales = np.asarray(meta["scale"], np.float32)
+                    else:
+                        h, w = self.dataset_val.default_resolution
+                        centers = np.tile(np.array([w / 2, h / 2], np.float32),
+                                          (nimg, 1))
+                        scales = np.full((nimg,), max(h, w), np.float32)
+                    # per-image inverse matrices (postProcess.py:31-43)
+                    trans_mat = torch.from_numpy(stack_inverse_transforms(
+                        centers, scales, (ow, oh))).to(self.device)
+                    processed, loss, parts = self._eval_step(
+                        to_device(batch, self.device), trans_mat)
+                    meters["total"].update(float(loss))
+                    for k, v in parts.items():
+                        meters[k].update(float(v))
+                    if meta is not None:
+                        img_ids = np.asarray(meta["img_id"]).tolist()
+                    else:
+                        idxs = list(range(seen, seen + nimg))
+                        ids = getattr(self.dataset_val, "images", None)
+                        img_ids = ([ids[j] for j in idxs] if ids is not None
+                                   else idxs)
+                    seen += nimg
+                    results.update(detections_to_results(
+                        {k: v.cpu().numpy() for k, v in processed.items()},
+                        img_ids))
+        finally:
+            self.model.train()
+        t1 = time.perf_counter()
+        for k, m in meters.items():
+            self.history["val"].setdefault(k, []).append(m.avg)
+        self.logger.info("val %s", " ".join(
+            f"{k} {m.avg:.4f}" for k, m in sorted(meters.items())))
+        if self.dataset_val is not None and hasattr(self.dataset_val,
+                                                    "run_eval"):
+            try:
+                _, summaries = self.dataset_val.run_eval(results,
+                                                         cfg.OUTPUT_DIR)
+                if summaries:
+                    self.summaries = summaries
+                    self.dataset_val.log_valid_result(self.logger, summaries)
+            except Exception as e:  # scoring is best-effort, as in JAX
+                self.logger.warning("run_eval failed: %s", e)
+        self.val_seconds.append({"forward": t1 - t0,
+                                 "scoring": time.perf_counter() - t1})
+        return results
+
+    def test(self, loader: Optional[Loader] = None) -> Dict[int, list]:
+        return self.val(loader)
 
     def _guard_nonfinite(self, total: float, epoch: int, step: int):
         """Raise after ``TRAIN.NONFINITE_TOLERANCE`` consecutive non-finite

@@ -68,8 +68,9 @@ def seeded_weights(model: torch.nn.Module, seed: int) -> None:
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
         heads = model.detectHead_0
         heads.heatmap[-1].bias.fill_(-4.6)
-        for name in ("depth", "depth2"):
-            getattr(heads, name)[-1].bias.fill_(-math.log(20.0))
+        for name in ("depth", "depth2"):  # depth2: radar models only
+            if hasattr(heads, name):
+                getattr(heads, name)[-1].bias.fill_(-math.log(20.0))
         heads.dimension[-1].bias.copy_(torch.tensor([1.5, 1.6, 4.0]))
 
 

@@ -147,7 +147,8 @@ KERNELS = ("dcn_fwd", "dcn_fwd_bf16", *dcn.BACKWARD_KERNELS,
            *dcn.BACKWARD_KERNELS_BF16, *BACKWARD)
 PROBE_KERNELS = ("probe_k1", "probe_k2", "probe_k3", "probe_k4", "probe_k5",
                  "probe_ka", "probe_kb", "probe_kc", "probe_kd", "probe_ke",
-                 "probe_kf", "probe_kg", "probe_p1", "probe_p2", "probe_p4")
+                 "probe_kf", "probe_kg", "probe_p1", "probe_p2", "probe_p3",
+                 "probe_p4")
 
 
 def load_other(root: str):
@@ -177,7 +178,7 @@ def probe_calls(name: str, other_probes, device):
     short = name[len("probe_"):]
     this, other = probes.PROBES[short], other_probes.PROBES[short]
     lib = this.library
-    if short in ("p1", "p2", "p4"):
+    if short in ("p1", "p2", "p3", "p4"):
         return [(label, (lambda a=a: this.kernel(*a)),
                  (lambda a=a: other.kernel(*a)),
                  None if lib is None else (lambda a=a: lib(*a)))

@@ -7,11 +7,18 @@
 On the card it:
 
 1. prints the torch and CUDA versions and the card's name and power limit,
-   builds the DCNv2 kernels from ``csrc/`` (``dcn_fwd.cu``, ``dcn_bwd.cu``,
-   ``dcn_fwd_bf16.cu``; the forward ones share ``dcn_fwd_common.cuh``) with
-   one nvcc each, all in parallel, and prints the
-   build time and ptxas' register, shared memory and spill lines (with
-   ``dcn_probes.cu``, the probe kernels of phase 15);
+   whether the CUDA toolkit ships nvJPEG and whether PIL and imageio are
+   importable, builds the DCNv2 kernels from ``csrc/`` (``dcn_fwd.cu``,
+   ``dcn_bwd.cu``, ``dcn_fwd_bf16.cu``; the forward ones share
+   ``dcn_fwd_common.cuh``) with one nvcc each, all in parallel, and prints
+   the build time and ptxas' register, shared memory and spill lines (with
+   ``dcn_probes.cu``, the probe kernels of phase 15, and
+   ``jpeg_decode.cu``, the nvJPEG decoder); then holds the card's decoder
+   against cv2's decode of three ``mini_val`` JPEGs (``DECODE_REFERENCE``:
+   per-channel and 4x4-cell means within ``DECODE_TOL`` levels;
+   ``DECODE_CROPS``: 16x16 crops, each pixel within ``DECODE_PIXEL_TOL``
+   and their mean within ``DECODE_PIXEL_MEAN_TOL``), after holding its
+   colour kernel (``ycc_to_bgr``) bitwise against its plain version;
 2. builds ``Detector`` at the full width of ``configs/Centerfusion_Middle.yaml``
    (DLA-34 with DeformConv nodes, 448x800 input, 6 cameras, K=100, frustum
    middle fusion, device radar paint) in float32 (``MIXED_PRECISION False``)
@@ -111,23 +118,47 @@ On the card it:
    floor (the device time alone of a kernel that does nothing); where one
    PyTorch call computes the probe's function (``Probe.library``: ``k2``,
    ``p1``, ``p2``, ``p4``), that call is timed the same two ways beside it;
-16. prints a ``{"kernels": [...]}`` line and, last, the
+   ``p3`` is also held bitwise against its plain version on a ragged
+   length, an x off 16 bytes, and NaN and -inf inputs
+   (``check_p3_repair``), outside the counts;
+16. runs the port's ``main.py`` on the repo's nuScenes-format data
+   (``output/campaign_r5/data``, ``DATA_ROOT``) at the campaign's settings
+   (``CAMPAIGN_OPTS``: DLA-34 at full width with 16 DeformConv nodes,
+   middle fusion, 128x224, K 32, batch 16, bf16) for 2 epochs (the first
+   frozen) with a validation and NDS scoring after each, then with ``EVAL
+   True`` on the last checkpoint (``main_py_path``): every image is decoded
+   on the card (nvJPEG and ``ycc_to_bgr``), a checkpoint is written before
+   each validation, each validation launches ``dcn_fwd_bf16`` once per node
+   per batch and scores every val image itself (what an earlier one scored
+   is cleared first: NDS from its own summaries and its own
+   ``metrics_summary.json``), and it prints each validation's mAP and NDS,
+   ms per step, decode and warp ms per image, and validation and scoring
+   seconds; where the card's machine has cv2, the val images are also
+   decoded by the CPU decoder, timed and held pixel by pixel to the
+   decoder's limits; last, ``Detector``'s warp of six raw 1600x900 frames
+   to serving's 448x800 (``_warp_or_crop``'s non-integer branch) is timed;
+17. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
 rehearsal runs the same path at 64x128 with 2 cameras (and a training batch
 of 4 in 2 microbatches) on the CPU, where the DCN ops are the plain versions
-(the bf16 phases and the probes included); its last line is
+(the bf16 phases and the probes included), and phase 16 on a handful of
+images decoded with cv2 (``TINY_SPLITS``, 64x128); its last line is
 ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
+import glob
+import importlib.util
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,7 +170,12 @@ import torch
 import torch.nn.functional as F
 
 from centerfusiondetect3d_tpu_torch.config import load_config
+from centerfusiondetect3d_tpu_torch import main as cfd_main
+from centerfusiondetect3d_tpu_torch.data import image_io
+from centerfusiondetect3d_tpu_torch.data.image_io import read_image
 from centerfusiondetect3d_tpu_torch.data.pipeline import stack_items, to_device
+from centerfusiondetect3d_tpu_torch.data.transforms import warp_image
+from centerfusiondetect3d_tpu_torch.geometry.affine import get_affine_transform
 from centerfusiondetect3d_tpu_torch.losses import GenericLoss
 from centerfusiondetect3d_tpu_torch.models import build_model
 from centerfusiondetect3d_tpu_torch.models.layers import DeformConvNode
@@ -148,7 +184,8 @@ from centerfusiondetect3d_tpu_torch.ops.cuda_build import load_kernel_libraries
 from centerfusiondetect3d_tpu_torch.ops.rasterize import (
     paint_rects_device_batch,
 )
-from centerfusiondetect3d_tpu_torch.runtime.detector import Detector
+from centerfusiondetect3d_tpu_torch.runtime.detector import (
+    Detector, _warp_or_crop)
 from centerfusiondetect3d_tpu_torch.runtime.fit import Trainer
 from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     FP32_OPTS,
@@ -224,10 +261,352 @@ IM2COL = ("dcn_im2col", "dcn_im2col_bf16")
 # end, each written once and read once
 MAP_ENTRY_BYTES = 32
 MAP_PIXEL_BYTES = 16
+# the repo's nuScenes-format data (git-tracked), relative to this script
+DATA_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "output", "campaign_r5", "data")
+# cv2.imread's decode of three mini_val JPEGs (448x256, baseline 4:2:0):
+# per BGR channel the mean, then the means of a 4x4 grid of cells (row by
+# row, each cell's B, G, R); and in DECODE_CROPS, 16x16 crops of it (top
+# row, left column, then its pixels as BGR uint8 row by row, in base64):
+# two where the chroma changes most, one at a corner.
+# tests/test_torch_image_io.py checks both against cv2. The card's decoder
+# must come within DECODE_TOL of each mean, within DECODE_PIXEL_TOL of
+# every pixel of the crops and within DECODE_PIXEL_MEAN_TOL on average
+# over them: it upsamples and converts as libjpeg does, and only its
+# inverse DCT rounds otherwise (PERF.md, PR 16).
+DECODE_TOL = 1.0
+DECODE_PIXEL_TOL = 4
+DECODE_PIXEL_MEAN_TOL = 0.5
+CROP = 16
+DECODE_REFERENCE = {
+    "samples/CAM_FRONT/c1img0.jpg": (
+        (124.524, 117.328, 110.52),
+        ((159.764, 142.928, 116.782, 159.731, 142.566, 117.236, 159.903,
+          142.877, 116.71, 160.077, 142.617, 116.919),
+         (139.597, 128.618, 112.019, 138.025, 127.913, 111.851, 137.721,
+          127.604, 111.454, 138.901, 128.468, 112.038),
+         (94.537, 91.319, 117.856, 89.915, 87.57, 115.846, 105.001, 101.76,
+          106.314, 112.159, 108.024, 106.333),
+         (99.184, 101.025, 101.654, 99.31, 101.298, 101.868, 99.107, 101.275,
+          101.658, 99.447, 101.384, 101.787))),
+    "samples/CAM_FRONT/c1img1.jpg": (
+        (125.292, 117.925, 110.353),
+        ((159.675, 142.829, 116.949, 159.934, 142.764, 117.459, 159.431,
+          142.475, 116.809, 159.845, 142.557, 117.541),
+         (139.41, 128.741, 111.794, 138.353, 127.33, 111.575, 139.467,
+          128.709, 111.909, 136.674, 126.248, 112.2),
+         (109.21, 104.933, 109.932, 90.271, 86.754, 114.726, 117.741,
+          113.108, 106.895, 97.207, 94.687, 110.22),
+         (99.134, 101.41, 101.958, 99.534, 101.426, 101.849, 99.251, 101.159,
+          101.889, 99.532, 101.675, 101.937))),
+    "samples/CAM_FRONT/c1img2.jpg": (
+        (126.506, 117.479, 107.478),
+        ((159.619, 142.507, 116.939, 159.755, 142.404, 116.993, 159.806,
+          142.636, 117.176, 159.454, 142.803, 116.916),
+         (139.575, 128.974, 112.405, 134.833, 105.988, 86.545, 139.177,
+          126.244, 109.085, 139.504, 128.997, 111.948),
+         (113.37, 109.462, 107.772, 83.961, 77.178, 106.15, 119.013, 111.874,
+          103.345, 119.556, 114.711, 106.853),
+         (98.963, 101.046, 101.999, 99.215, 101.662, 101.907, 99.304, 101.77,
+          101.706, 98.998, 101.417, 101.916))),
+}
+DECODE_CROPS = {
+    "samples/CAM_FRONT/c1img0.jpg": (
+        (144, 144, "HhyeHhyeHh2bHB6aHB6aGh+ZHCGUHh+XIB2iHxyaICOLAQZjGBp4Ghx6"
+                   "Ghp4Fhh3HhyeHhugHhyeHB2dHB6aHB+ZHiGUHh+XHxqfHxqbISSNAwhl"
+                   "GRt5HB58Hx5+HB1/Hh2dHhyeHhqhIBugIB2bIR6ZIx6XIx6ZJhuhJR2a"
+                   "JieJBAhgFhh3Fxh6Fxd7FhZ6HB6aHB2dHhqiIBmiIR2bIx6ZIx6ZJRyb"
+                   "JhigJRuXJyaGBAleGBp5GBqAGRuBGhmAGCCZGB+aGhqiHBmkHh2dIB6a"
+                   "IxudIxqgJBehIxuYIyWDAQhdFRh6FhmBFhmBFBd/GCGWGCCXGBuhGhqi"
+                   "HB6bHh6aIRueIxqgJBqiJR2ZJiiGBQteGBt2Ghx7Ghx7GRt6GiKTGiGU"
+                   "Gh6bGh2dGh+ZHB+ZHh2dIBueHxieIx+WKiqICQ1cGx1rHh5sICBsIiJw"
+                   "HiGUHiGUHB+ZHB6aGh+ZHB+ZHB6bHh2dIBucJCGVKSiEAwRODg5KDAo+"
+                   "DQo8Dgo+IhyZIh2YIB2YHR6YGx2ZGx2ZGx2aHRyaJCCdIRyPLCaFFA9U"
+                   "ameOdHGHeG+Ed2+AJhqiJhuhIh6cIR+bHR6eGx6eGR+eGx+cIB6ZJCCR"
+                   "MCmKFQ5RcW6Hd3R2fHR0f3ZzIhWmIhWmHxqfGxycFxufFhufFB2dFh6a"
+                   "GyCaISGTKCWICAZIc3aFdXlue3dsfHZrJhqiJBqiIh6bHyCYGyCaGSGa"
+                   "GSGYGSKXFx6NIyaOLSmICglHbXN+bXRneXltg351JyCPJyGOJiSIJCaF"
+                   "ICaFICaFICaHICaHJyyHKyyCKid2EhJIbHV/bHVrbnJtb21sEAxTEA1S"
+                   "EA5QDxBNDxBMDxBNDw5SDw5SCwpKDw1JEw1GGBU8ZmpvcXlvdnZ2dXJ0"
+                   "bWp5bWp6bWl8bWl8bWt3b2l6cWWDcWOFbmKAeWqJd2iHdGh6e3Zzc3Fn"
+                   "dGxte3J1dHNldHJodHBrdnBrdnFoeG9remtzeml2fGx3fGx3dGNwfnB2"
+                   "eXFqe3RreG5ue3By"),
+        (144, 48, "fXtjfHlkf3ZpfHJyc21+FBFCJySHIR+bGh6bGB6dHB6bHB6aHh6aHB6a"
+                   "HCCXHCCXfndmfndmf3RsfHF0dG6BFhFEKSSHIR+bGB6dFx6dGh6bHB6a"
+                   "Hh6aHh6aHCCXHCCXfXRrfnJsf3JwfG93dm2CGBFEKyOHIh6bGh2dGB2e"
+                   "GhyeHByeIBueIBueHh2bHh6afXFxfnByfm9zfG55dmyDGBFEKySFIh+a"
+                   "HB2dGhygHBugHhugIRqhIRqgIBydHh2bfW9zfW91fnB2e297dm2CGBJD"
+                   "LSWEJB+YHh2bGhyeHhugIBugIRqhIRqhIBueIBydfHFzfHF0fXF3fHB8"
+                   "dW6DGBJDKyWEIx+WHh6aGh6bHh2dIBueIRqgIRqgIRydIB2be3Vwe3Vw"
+                   "fHR0e3N6dG+EFxNEKyWEIR+WHCCXGh+ZHh+ZIB6ZIR2bIR2bIR2aIB6a"
+                   "enhtenhte3dyenN6cm+FFhJGKSSHIR+XHB+ZGCCXHCCWHiCWIR6ZIR2a"
+                   "IB6ZHh6aeXtod3toeHZueHN8bWqEFRFMKCGKIh+dHCCdGCCZGx+VHiCW"
+                   "IR+aIR+aHh6aHh6aeXtodnxpd3RvcW14bWiHEQtMKSOQIBueGBubFx2a"
+                   "GR+WGR2UHByYHh6aHiCdHR+bdHRmdHlqdnJxb2t3enWVDghJMiuaGRSZ"
+                   "GRufGh+gHSGeGx2ZHBubHhyeHR2fGxyceXhucnNqfHh3cmx3YV54FhNL"
+                   "HxiBJyKjGhyeGR6fHh+fIB+fHxyhHhugGxqfGhubdnNvcm5tdXBvcm1v"
+                   "c3B/GhlBLiqDJCGUHSCaFxuYGRmbHxyhIhyjHxmgGxudHR+cdG1weHJz"
+                   "fHVyc29qa2xqGRszKipwIySGIieUHSGYHRycIRyhIRqhHhmeHh2bHyKc"
+                   "enB2bGFkeXBnhIBubXFeanF0ERVGCAxdGSCBHiKSJCKdIh2eHxmcIRyd"
+                   "ISGXHiCWdmpwfnFzfHNpeHRhdHlebHRpY2iBXGCTDhRXHyJzLCuHKiWI"
+                   "JyGGLCiIKiuFIiZ/"),
+        (0, 0, "qY93qY93qpF3q5J4q5V5rJd4rJh5rZp5rJt6rJt6rpt6rZp5rpl5rZh4"
+                   "rZh5q5Z6qY93qY93qpF3qZJ4q5V5rJZ6rJh5rJl4q5p5q5p5rJl4rJl4"
+                   "rJd3rJd3rJd4q5Z6qI52qY93qJF3qpN5q5V5q5Z6q5d4q5d4qpl4qZh3"
+                   "qpd2qpd2qZZ1qZZ1q5Z3qpV5qI52qY93qJF3qpN5qpV5qpV5qpZ3qpZ3"
+                   "qJd2p5Z1qZZ1qJV0qJV0qJV0qpV2qZV2po91p5B2qJF3qZJ4qZR4qpV5"
+                   "qZV2qZV2ppR1ppR1ppV0ppV0qJR1qJR1qZV2qZV2po91p5B2qJF3qZJ4"
+                   "qJN3qZR4qZV2qZV2ppR1ppR1ppV0p5Z1qZV2qZV2qZV2qZV2ppF2ppF2"
+                   "ppF2p5J3qJN3qJN3p5V4p5V4pZN0ppR1p5V2qJZ3qZd4qJZ3qJZ3qJZ3"
+                   "ppF2ppF2ppF2ppF2p5J2qJN3ppR3p5V4pZN0ppR1qJZ3qZd4qph5qZd4"
+                   "qZd4qJZ3pJJ1pJJ1pJJ1pJJ1pZN2pZN2ppR3ppR3p5V4qJZ5qZd6qph7"
+                   "qZp6qJl5p5h4p5h4o5F0o5F0o5F0pJJ1pJJ1pZN2ppR3ppR3p5V4qJZ5"
+                   "qZd6q5l8qZp6qZp6qJl5qJl5opBzopBzopBzo5F0pJF2pZJ3pZJ3ppN4"
+                   "p5R5qJV6p5d6qJh7qZl8qZl8p5p6qJl5opBzopBzopBzo5F0o5B1pJF2"
+                   "pJF2pZJ3ppN4p5R5ppZ5p5d6qJh7pph7ppl5pph7oZJyoZJyoZF0oZF0"
+                   "o5B1o5B1o5B1o5B1pZJ3ppN4pZR5ppV6pJZ5pJZ5pJZ5pJZ5opNzopNz"
+                   "oZF0oZF0oo90oo90o5B1o5B1pZJ3pZJ3o5J3pJN4opR3o5V4oZZ4o5V4"
+                   "oJNzn5JyoZF0oZF0o5B1o5B1o492o492pZF4pZF4o5J3o5J3oZN2oZN2"
+                   "oJV3opR3n5Jyn5JyoZF0oZF0oZF0oZF0pJF2opF2pZJ3o5J3o5J3o5N2"
+                   "oZN2oZN2n5R2n5R2"),
+    ),
+    "samples/CAM_FRONT/c1img1.jpg": (
+        (144, 80, "e3ttenlrf3lsfnlqfXxocnN3ExBIJCJ7HR+FGhyMGxiTGxeUGxmQGxqO"
+                   "GhmRGhmReHpueXltf3hvfnhre3xocnN3Ew9KJiF8HR+DGh2KGhiTGxeU"
+                   "GxqOGxuNGhqOGhqQenlvendvf3dwfndue3trcnF6Ew1OJh+AHx6GGxuN"
+                   "GxiTHRiTHxuMHxyKHRqNHRqNeXhueXdtfndufnhte3trcnB8EgpQJR2C"
+                   "HxyKGxmQHReUHxiRIRuKIRyJHxuMHxqNeXlnenllgHpngHpne3xocnF7"
+                   "EgpRJRuFHxmOGxiTHReUHxiRIhuKIhyHIhqMHxqNeHhmenllgHtmgHxk"
+                   "fXxncnF6EgtOJRyEHxqNGxiTHRiRHxmOIhuKIhyJIhmOHxmQeXVqe3Vo"
+                   "gHlmgHxkfX1lcnR1Eg9HJSB7HR2HGxyMGxyMHRuMHxyKHxqNHxeTHRaV"
+                   "e3NsfXRrgndpgXpnf3todHJ4FA5HJSF6HR6GGh2KGxyKGx2JHRyKHRqN"
+                   "GxeUGxeVfHNve3FqgXVrg3dtgXhvcmp7Fw9QJB59HBuJGBiMGhyMGh2K"
+                   "HB6KGRuLGRqSGBaRfHVsgXhvhXlvgXRsfXFveW2DFgpMLySEHxmKIiCX"
+                   "FhaIGxyMHyCQEBCEHyCYGBaRfXprgHxqgHdpfnJofnNvgHSIFQlDJhpy"
+                   "IxuGHBeKIRyPIyCUFA+IHhqXFhWTHBuZc3RkeXlngntsg3ptg3hwem93"
+                   "HBM7Fw9OLih6JCB/HRh7JB6JIBePJR2aIBmYGRWSdXxvdnpvf3lufnVn"
+                   "fHVigHpvbWtxbW2FCww4EBFLLipxJh90LCCKJBaMGg+JIxqTcHhtbnZs"
+                   "fHpwgnptfndjeXRffX1xbXFya2+BcHKREQ85FA5JMCR2LSB8KiB9KiWB"
+                   "cH1tanZqc3RrfXdsgHhnfnhlfntscXJpaWxwbG55aGh6cW2KGBE8EQ48"
+                   "ExU9ChA1b3pqbnhrd3hvfXhvfndof3hnd3JjeXdtendzcm9xeXV6cG12"
+                   "b2x8cXGBZmt0aXF4"),
+        (144, 176, "IRqTIRiQIBiNIR6FAgZXExppFRZ4GReBGBN8HRxsBw0wa3N6cnR0eXVw"
+                   "gnhxgXZuGhOMHhiPHxeMIh+GAAZVFx9sExN3Ew57GBB7HhpsERc6bHR7"
+                   "dnh4fXl0gnhxfnNrIyCTHxyPGxeIISCHAQVWFxtsFRJ5GxSDIBWDGhNo"
+                   "DhE3am94dnZ2d3RsgHhrh35wGRqKGBiKHRqNIB6IBgleGBpuGxZ5HRN9"
+                   "IBV9IhlqDxA2c3WAeXl5enVsf3hpgHhnFxeLGxuRJB+YGBWDAwNdFxhp"
+                   "IBt3HhNzHhFtLCFpDg0vcXF9dHJyfHZvhX5tfndkHR2RFxeLHhyTHhyG"
+                   "CwxdFxddIB1lJR9mJRthKyNYFBErd3Z/enV3d3FsgHdtgnlrGx+PFhyH"
+                   "GRmDISJ9AgdGDxVCCw01DAwwERAyFhMtGxwmcXByfXZ5e3Byf3Nxhnp0"
+                   "ExSGIyaSHRyEIyF6FBdOXWSFbnSHbnJ9c3WAc3N5cXFxfHt3d3FygHV4"
+                   "gXR2e25sGxmRIByTJByOJh57EQ9KaWuKdXeCbHFwc3Z0dXdxd3hveHZu"
+                   "eXRxfXNzf3J0f3NxIBmMHhWJJRuGKyF7EgtEamiFcHB2enx2d3hveXhu"
+                   "eHhseXdse3Vue3VwfXRxf3RwKSKDKiGCLiN/LyNvHBRDe3WOcXB0dHFs"
+                   "eHVweHVteHZreHdpendpendpfHZrfHVsDgtJEAtIEgtEFxA9GhQtcWx1"
+                   "eHVweXdseHVtd3Rsd3Vrd3ZoeXZnenhmfHZpfHZraG55bXN6cnZ7fH5+"
+                   "dHRofHxqfHxkd3ZheXZoeHNqdnRqd3Vqd3dleHhmenZrfXZtcXdsc3pr"
+                   "c3ZmeHpmenthdHNXf35iendieHRpeHJrdnNrdnRpd3dleHhme3Zte3Zt"
+                   "cW5qdnZwdXNpdnNlf3tpgXtog3xrd3FmeHFueHBxdnFwdXNrd3dleHhm"
+                   "eXdte3Vud3BtdXBtdnBpeXJpe3JoenJld25kgXdwenBweHBxdnFwd3Rs"
+                   "eXZnenhme3dsfHdu"),
+        (240, 432, "XmJnXmFmXmFmXmFmXmFmXmBoXWBoW2FoXGFqWmFqW19qXV9qXl5qYF1s"
+                   "Yl1sYl1sXWFmXmFmXmFmXmFmXmBoXWBoXV9pWWBpWV9qV2BqWmBrXGBr"
+                   "Xl9tXl5sYF1sYl1sXGBlXWFmXmFmX2JnX2FpXWBoXWBoWWFoWF9oV2Bp"
+                   "WmFqXGFqXmBrX19rYF5qYl5qW19kXGBlXmFmX2JnX2FpXmFpXWBoW2Fo"
+                   "WGBnV2FoWmJpW2NqX2JqYGJqYWBpYl9oW15mXF9nXmBoX2FpX2FpXmFp"
+                   "XWFmW2FmWWJmWmNnW2RoXGVpYGRpYGNoYWFnYmBmW15mXF9nXmBoXmBo"
+                   "X2FpX2JnXmJnXGJnWmNnW2RnW2RnXGZmYGVmYGRlYWNkYmFjW11nXF5o"
+                   "XV9nXmBoXmFmX2JnXmJnXGNmXGVoXGZmXGZmXGdlX2VkYGVkYWNjYWNj"
+                   "XF5oXF5oXV9nXV9nXmFmX2JnX2RnX2RnX2dnXGdlXGdlW2ZjX2ZjXmVi"
+                   "YWRiYWRiXF9nXF9nXV9nXV9nXmFmX2JnX2RnX2RnXmZmXWVkW2ZkWmVi"
+                   "XWRhXWRfYGRfYGRfW15mWV9mW15mXF9kXF9kXWBkXmNmXmNkXWVkXWVk"
+                   "WmViWmViXmVgXWRfXmRfYGRfW19kWF5jWl5jWV1iW15jXF9jXWBkXWJj"
+                   "XWVkXWVkWmViWmViXmViXWRhXmNhXmNhWV9kWF9iWl5jWV5hW15iXF9j"
+                   "XWFiXGFiXmRjXGRjWmVjXGViXmViXWRhXmNhXmNhWWBjWWFhW2BjW2Bh"
+                   "XGBhXmBhXWFiXGFiXWJjXGRjXGRjXGRjXmRjXWNiXmNiXWJhWmFkWmJi"
+                   "XGFiXWJjYGJjX2FiXWFiXGFiXWJjW2NjXGRjXGRjXmRjXWNiXWFiXWJh"
+                   "WWFhWmJhXWNiXmRjYWNkYGJjXWFiW2BhXGFiW2NjW2NjXGRkXmNkXWJj"
+                   "XWBkXWFiV2FhWGNhXmRjX2VkYmRlYGJjXWFiWl9gXGFiWmJiW2NjXGRk"
+                   "XmNmXWJlXWBkXF9j"),
+    ),
+    "samples/CAM_FRONT/c1img2.jpg": (
+        (144, 192, "GhyCHByAIR56IR56HB1/GBuDGBqGJyB1JA4xUyssbi8afTISfC4RejAU"
+                   "dC4Wcy8YGBuDGhyAIR95Ix55HB1/GBuDGBmHJx92JhAzVy0ucTAbgTQU"
+                   "gTIRgDIVdC4Wci4XFxqHGBqGHxx/IR19HBuCGBqGGhmHKB92KA4yWSos"
+                   "cSwYgjEQgjANhDMSeS8Tdi8UExqHFRuGHhyAHxx/GhuDGBuEHBmHKh91"
+                   "Kg82Wywvci0cgTEUgS4PgzESfC8VezEZER2DExyDHB59Hh58GB2AGByC"
+                   "HBqEKiBzJwwzVioxbiwhfS4ZfCkTeysUdigXeCwaExyDFRyDHh1/Hx19"
+                   "HB1/HByAHxuCLiByJQoxUygxaywkeTEfei8ZezAadS0ceS4eGBqGHBmH"
+                   "IxmDJRqAIRuAIRuAJRt/MSFvLBE4UiszYCkibC0ZbS0UcTIWbS8Xby0a"
+                   "HBuDHhqDJRqAJxx9Ix18IR56Ix55LiNrJRE0QCMsQRkURBgHRBgASBwE"
+                   "RhkERRcFHSF5HCF2ISF1IyFzHSJxGyNwGyNwIyhlFxUzGA8Zh3d4hnNr"
+                   "hXZmiXpqiHhsgnRoBwxDBw5ADA1ADQ5BCg9ABhBABRBECxM7FRcpgoGD"
+                   "cWxreHJtd3VqdXNofHhzendyb3B0cXFxdnB1d3B3cnJ4cHN7b3KBcnN9"
+                   "cm5pgXtwdm1kg3xzeXVqfXtxenFue3NzdnVhenRhfnJmgHRqfHZreXdt"
+                   "eXV0enVyioF0fHFjf3Vrf3ZtenVsdHFpfXJ0fXBye3NmfHJogW9ugnBx"
+                   "f3NvfXRxe3J1fXJ0eWxkiHlwem1rfHJycm5pcm1qfnJ4fW91d3FkeHFo"
+                   "fm5vf25xfHBuenFueHBxenBwhnlxdGdfd2treHJzb25qenZ1em50eW5x"
+                   "cnVlc3VpeHFueXJveHVtdnVrdnNudnNrdm5hgHdteHNwamhncnZwbnBq"
+                   "enJzem9xbnRjb3RldHJqdnNrdXRqc3VpcnNqdHNpdnJncGxhcXFrbm9r"
+                   "bXJpcHNqcWxpe3Rx"),
+        (128, 192, "Hww/HQw/HQtAGwtAGwtBGwpDHQhGKAw6OxUhYi0jdDAZeC0Tei8Zdi0X"
+                   "ei4XfC4XJSN1IyR0ISR1ISN3ISN3ISJ6IyB8MCVtKxIsWSwocTAbeC4S"
+                   "eC8Zdi0Zei4XfC8VHx13Hx12HR13HB13HB13HB14HRt7LCBsKxEvWSwp"
+                   "cTAbeC4SeDAYdi0Xei8VfC8VIB2AIB5+Hx6AHR6AHx5+Hx6AHx2BLSJy"
+                   "KxAxWSsqcS8ceC4SeDAYdi4WejAUfC8UHhqEHhqDHBuDGhuDHBuCHBuC"
+                   "HhqDLCByKxAyVysscS8ceC4SejAWeC4UfDATfDATHRqHHRqHGxuHGxuH"
+                   "GxuFGxuFHRqHKyF0KQ8zVysscS8ceC4SejAYeC4UfDATfDATGhqGGhmH"
+                   "GBmHGBqGGBuEGhqEHBmGKh91KQ8zVSsscS8deC4SejAYeC4WfDATfDAT"
+                   "GhqEGBqGFxqGFxqGGBuEGBuEGhqGKh91KBAzVSsscS8deC0TejAYeC4W"
+                   "fC8UfDATGhyCGBuDFxuEFxyDFxyDGBuDGhqEKiBzKBAzVSsscS8deC0T"
+                   "ei8ZeC4WfC8UfDATGhyAGB2AFxyCFxyCFxyCGByCGhuDKiFyKBAyVSss"
+                   "cS8deC0Tei8ZeC0XfC8UfC8UGhyAGB5/Fx2AFx5/GB5/GB5/GhyCKiFx"
+                   "KBAyVSsscS8deC0Tei8ZeC0XfC8VfC8UHByAGh59GB5/Fx5/GB5/Gh1/"
+                   "HBuCKiFxKRExVSwqcS8deC0Tei8ZeC0XfC8VfC8UHByAGh1/GB2AGB5/"
+                   "GB5/Gh1/HBuCKiFxKRExVysqcS8deC0TejAYeC4WfC8UfC8UHBuCHByA"
+                   "GhyCGB2AGB2AGhyAHBuDLCByKRAyVysscS8ceC4SejAYeC4WfC8UfDAT"
+                   "HBuDHBuDGhuDGhuDGhuDGhuDHBuDLCByKRAyVysscS8ceC4SejAYeC4U"
+                   "fDATfDATHBuDHBuDHhuCHByAGhyCGhuDHBqEKiBzKBAzVSsscS8cei4R"
+                   "ezEVeC4UejAUejAU"),
+        (0, 432, "pJNyo5Rzo5Rzo5RzpJNypJNypJNypZRzppV0ppV0ppZyppZyqJVyqJVy"
+                   "qZdyqZdypJNyo5RzpZRzpZRzpZRzpZRzpZRzppV0ppV0ppV0qJVyp5Rx"
+                   "p5RxqJVyqJZxqJZxppJzpZN0qJR1qJR1qJR1qJR1qZZ1qZZ1qZZ1qZZ1"
+                   "qZVyqJRxp5Nwp5Nwp5RvqJVwppJzp5N0qZV2qZV2qpZ3qpZ3qpd2q5h3"
+                   "q5Z2qpV1qJRxp5NwppJvppJvppJvp5RvppF1qZN3qpR4q5V5rJd4rJd4"
+                   "rJd4rZh5rJd3q5Z2q5R0qZJyp5Bwp5Fup5FuqJJvp5J3qJN4q5R6rJZ6"
+                   "rJZ6rJd4rZh5rZh5rJd3q5Z2qZR0qZJyqJFxp5Bwp5Bwp5FupZF4ppN4"
+                   "qpV6rJd7rJd7rJd7q5d4rJh5qpd2qpd2qJV0qJNzp5JzppFypZBxpZBw"
+                   "o5J4pZR6qZV8qpd8qph7qZd6qZd4qZd4qpd2qJd2qZZ1p5N0ppJzpZB0"
+                   "pI9zo45yo5N8pJR9p5Z8p5Z7p5d6p5d6ppd3ppd3qJZ3ppd3qJZ3p5V4"
+                   "pZN2o5B1oo90oo90pJN+pJR9pZV+pph8pph8pZd6pJd3pZZ2ppd3ppd3"
+                   "ppZ5pZR5o5J3oZB2oI53n412opR+o5V+pJZ/pJh8pJh8o5h6opd3o5Z2"
+                   "o5Z2pJd3pZd6pJZ6opJ7oJB5no14no14opR+o5V+pJZ/pJh8pJh8o5h6"
+                   "oZZ2oJV1o5Z2pJZ5pZd7pZZ8pJN+oZB9oI98n418o5J9pJR9pZV+pZd7"
+                   "pZd7pJZ5o5Z2opV1ppd3p5d6qJd8qJZ/ppKApJB/o45/oo1+opF8opJ7"
+                   "o5N8o5V5o5V5o5V4opV1pJV1pZZ2ppZ5p5Z8p5V+ppKApI+Ao42Bo42B"
+                   "o5B7o5F6o5F6o5J3o5J3o5N2pJV1ppR1ppR3p5V4qJR7p5J9po9/pY5/"
+                   "pYyCpYyCopB5oY94oZB2oZB1opF2pZN2pZN2ppR3pZJ3ppJ5ppF7ppF8"
+                   "pY99pox+poyApoyA"),
+    ),
+}
+# the campaign's settings (output/campaign_r5/config.yaml) as overrides, its
+# absolute paths aside; then this phase's cuts: 2 epochs, the first frozen,
+# each validated (the campaign: EPOCHS 0 as written, DEFREEZE 2,
+# VAL_INTERVALS 30)
+CAMPAIGN_OPTS = [
+    "WORKERS", "4", "DATASET.TRAIN_SPLIT", "mini_train",
+    "DATASET.VAL_SPLIT", "mini_val", "DATASET.RADAR_PC", "True",
+    "MODEL.FUSION_STRATEGY", "'middle'", "MODEL.FRUSTUM", "True",
+    "MODEL.DLA.NODE", "DeformConv", "MODEL.FREEZE_BACKBONE", "True",
+    "MODEL.K", "32", "MODEL.INPUT_SIZE", "(128, 224)",
+    "TRAIN.BATCH_SIZE", "16", "TRAIN.WARM_EPOCHS", "2", "TRAIN.LR_STEP",
+    "[55]", "TEST.BATCH_SIZE", "16", "MIXED_PRECISION", "True",
+]
+MAIN_PY_CUTS = ["TRAIN.EPOCHS", "2", "MODEL.DEFREEZE", "0",
+                "TRAIN.VAL_INTERVALS", "1", "TRAIN.SAVE_INTERVALS", "10"]
+# the CPU rehearsal's handful of images and its size
+TINY_SPLITS = {"mini_train": 8, "mini_val": 4}
+# a raw nuScenes camera frame and serving's input, (H, W)
+RAW_FRAME = (900, 1600)
+SERVE_INPUT = (448, 800)
+TINY_OPTS = ["MODEL.INPUT_SIZE", "(64, 128)", "TRAIN.BATCH_SIZE", "4",
+             "TEST.BATCH_SIZE", "4"]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def decoder_facts():
+    """Whether the CUDA toolkit ships nvJPEG, and whether PIL and imageio
+    are importable (neither is used: the card decodes with nvJPEG and its
+    own colour kernel)."""
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    libs = sorted(glob.glob(os.path.join(cuda, "lib64", "libnvjpeg.so*")))
+    facts = [f"libnvjpeg: {', '.join(map(os.path.basename, libs)) or 'none'}"
+             f" in {cuda}/lib64"]
+    for name in ("PIL", "imageio"):
+        found = importlib.util.find_spec(name) is not None
+        facts.append(f"{name} {'importable' if found else 'absent'}")
+    return facts
+
+
+def decode_stats(img: np.ndarray):
+    """(per-channel means, 4x4 grid of per-channel cell means, flattened
+    row by row) of an HWC image whose sides divide by 4, in float64."""
+    h, w, c = img.shape
+    a = img.astype(np.float64)
+    cells = a.reshape(4, h // 4, 4, w // 4, c).mean((1, 3))
+    return a.mean((0, 1)), cells.reshape(4, -1)
+
+
+def crop_literal(name: str):
+    """``DECODE_CROPS[name]`` as ((top, left), (CROP, CROP, 3) uint8)."""
+    return [((y, x), np.frombuffer(base64.b64decode(b64), np.uint8).reshape(
+        CROP, CROP, 3)) for y, x, b64 in DECODE_CROPS[name]]
+
+
+def decode_vs_reference(device) -> dict:
+    """Decodes the ``DECODE_REFERENCE`` JPEGs on ``device``
+    (``data/image_io.py:read_image``); raises unless every mean is within
+    ``DECODE_TOL`` of cv2's and the ``DECODE_CROPS`` pixels within
+    ``DECODE_PIXEL_TOL`` each and ``DECODE_PIXEL_MEAN_TOL`` on average.
+    Returns the largest mean difference, the largest and the mean pixel
+    difference, in levels."""
+    worst, diffs = 0.0, []
+    for name, (means, cells) in DECODE_REFERENCE.items():
+        img = read_image(os.path.join(DATA_ROOT, "nuscenes", name), device)
+        got_means, got_cells = decode_stats(img)
+        diff = max(float(np.abs(got_means - np.array(means)).max()),
+                   float(np.abs(got_cells - np.array(cells)).max()))
+        if not diff <= DECODE_TOL:
+            raise AssertionError(f"decoding {name} on {device}: a mean "
+                                 f"{diff:.3f} levels from cv2's (limit "
+                                 f"{DECODE_TOL})")
+        worst = max(worst, diff)
+        for (y, x), want in crop_literal(name):
+            got = img[y:y + CROP, x:x + CROP].astype(np.int16)
+            diffs.append(np.abs(got - want))
+    diffs = np.stack(diffs)
+    res = {"mean_levels": worst, "pixel_max": int(diffs.max()),
+           "pixel_mean": float(diffs.mean()),
+           "pixel_equal": float((diffs == 0).mean())}
+    if not (res["pixel_max"] <= DECODE_PIXEL_TOL
+            and res["pixel_mean"] <= DECODE_PIXEL_MEAN_TOL):
+        raise AssertionError(f"decoding on {device}: the crops' pixels "
+                             f"{res['pixel_max']} levels at most and "
+                             f"{res['pixel_mean']:.3f} on average from "
+                             f"cv2's (limits {DECODE_PIXEL_TOL}, "
+                             f"{DECODE_PIXEL_MEAN_TOL})")
+    return res
+
+
+def ycc_kernel_vs_plain(device) -> int:
+    """Holds ``ycc_to_bgr``'s kernel bitwise against its plain version on
+    the planes nvJPEG decodes from the ``DECODE_REFERENCE`` JPEGs (4:2:0)
+    and on the same planes cut to odd sizes, 4:2:2 and grey; returns the
+    number of cases. Outside the launch counts."""
+    cases = 0
+    for name in DECODE_REFERENCE:
+        data = np.fromfile(os.path.join(DATA_ROOT, "nuscenes", name), np.uint8)
+        y, cb, cr = image_io.decode_planes(data, device, name=name)
+        h, w = y.shape
+        for planes in ((y, cb, cr),  # 4:2:0 as decoded
+                       (y[:h - 3, :w - 5], cb[:(h - 2) // 2, :(w - 4) // 2],
+                        cr[:(h - 2) // 2, :(w - 4) // 2]),  # odd sizes
+                       (y[::2], cb, cr),  # 4:2:2
+                       (y, None, None)):  # grey
+            planes = tuple(None if t is None else t.contiguous()
+                           for t in planes)
+            got = image_io.ycc_to_bgr(*planes).cpu()
+            want = image_io.ycc_to_bgr_plain(*(
+                None if t is None else t.cpu() for t in planes))
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"ycc_to_bgr kernel != plain on {name} "
+                                     f"{tuple(planes[0].shape)}: {bad} bytes")
+            cases += 1
+    return cases
 
 
 def nvidia_smi() -> str:
@@ -1558,6 +1937,7 @@ def check_probes(device, timed: bool):
             for r in results if r.name in probes.PROBES}
     for name, rel in check_ragged_probes(device).items():
         rows[name]["ragged_max_rel_err"] = rel
+    rows["p3"]["repair_cases"] = check_p3_repair(device)
     if not timed:
         return rows
     geom = probes.SCRIPT_GEOMETRY
@@ -1676,6 +2056,311 @@ def rank_probes(rows):
                      key=lambda n: -rows[n]["probe_path_gap_ms"]))
 
 
+def check_p3_repair(device):
+    """``p3`` held bitwise (int32 bits) against its plain version outside
+    the probe path's counts: the script's input, a length that is not a
+    multiple of 4 (2047), an x off 16 bytes, and a NaN (zeros) and a -inf
+    (the saturating int32 cast) among ones. Returns the cases held."""
+    ones = torch.ones(2048, device=device)
+    ragged = torch.from_numpy(np.random.RandomState(SEED).randn(2048).astype(
+        np.float32)).to(device) + 0.7
+    nan, minus_inf = ones.clone(), ones.clone()
+    nan[700] = float("nan")
+    minus_inf[1024] = float("-inf")
+    cases = {"script": ones.view(16, 128), "ragged 2047": ragged[:2047],
+             "off 16 bytes": ragged[1:], "nan": nan, "-inf": minus_inf}
+    for label, x in cases.items():
+        got, want = probes.probe_p3(x), probes.probe_p3_plain(x)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"p3 differs from its plain version on "
+                                 f"{label}")
+        if label == "nan" and bool(got.any()):
+            raise AssertionError("p3 on a NaN input is not all zeros")
+    log(f"  p3 bitwise against plain on: {', '.join(cases)}")
+    return list(cases)
+
+
+def tiny_root(tmp: str) -> str:
+    """A DATASET.ROOT beside ``DATA_ROOT`` whose annotation files hold the
+    first ``TINY_SPLITS`` images of each split (the rehearsal's handful);
+    images, point clouds and tables are links into the repo's data."""
+    src = os.path.join(DATA_ROOT, "nuscenes")
+    dst = os.path.join(tmp, "data", "nuscenes")
+    os.makedirs(os.path.join(dst, "annotations"))
+    for name in ("samples", "v1.0-mini"):
+        os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    for name in ("radar_pc", "lidar_pc"):
+        os.symlink(os.path.join(src, "annotations", name),
+                   os.path.join(dst, "annotations", name))
+    for split, n in TINY_SPLITS.items():
+        with open(os.path.join(src, "annotations", f"{split}.json")) as f:
+            coco = json.load(f)
+        coco["images"] = coco["images"][:n]
+        ids = {im["id"] for im in coco["images"]}
+        coco["annotations"] = [a for a in coco["annotations"]
+                               if a["image_id"] in ids]
+        with open(os.path.join(dst, "annotations", f"{split}.json"),
+                  "w") as f:
+            json.dump(coco, f)
+    return os.path.join(tmp, "data")
+
+
+def split_size(root: str, split: str) -> int:
+    with open(os.path.join(root, "nuscenes", "annotations",
+                           f"{split}.json")) as f:
+        return len(json.load(f)["images"])
+
+
+SUBMISSION = "results_nuscenes_det_mini_val.json"
+EVAL_OUTPUT = "nuscenes_eval_det_output_mini_val"
+
+
+def scoring_record(trainer) -> dict:
+    """What the validation just run by ``trainer`` scored: the images of its
+    submission, its ``range_all`` mAP and NDS as ``Trainer.summaries`` holds
+    them and the NDS of the ``metrics_summary.json`` it wrote (None where
+    it wrote none)."""
+    out = trainer.config.OUTPUT_DIR
+    rec = {"tokens": None, "map": None, "nds": None, "nds_file": None}
+    if os.path.exists(os.path.join(out, SUBMISSION)):
+        with open(os.path.join(out, SUBMISSION)) as f:
+            rec["tokens"] = sorted(json.load(f)["results"])
+    if trainer.summaries is not None:
+        rec["map"] = trainer.summaries["range_all"]["mean_ap"]
+        rec["nds"] = trainer.summaries["range_all"]["nd_score"]
+    summary = os.path.join(out, EVAL_OUTPUT, "range_all",
+                           "metrics_summary.json")
+    if os.path.exists(summary):
+        with open(summary) as f:
+            rec["nds_file"] = json.load(f)["nd_score"]
+    return rec
+
+
+def main_py_path(device, rehearsal: bool, card):
+    """Phase 16: the port's ``main.py`` on the repo's nuScenes-format data
+    (``DATA_ROOT``), as a user runs it: 2 epochs of training at the
+    campaign's settings in bf16 (the first frozen), validated with NDS after
+    each, then ``EVAL True`` on the last checkpoint. Images are decoded on
+    ``device`` (nvJPEG on the card, cv2 in the rehearsal). Checks that every
+    train image of each epoch and every val image of each validation went
+    through the decoder, that a checkpoint was written before each
+    validation, that each validation launched the bf16 DCN forward kernel
+    once per node per batch and no other DCN kernel, and that each scored
+    every val image itself: the previous submission and summaries are
+    cleared before it (``Trainer.val`` logs a scoring failure and goes on),
+    and after it its submission holds the val images, the EVAL run's the
+    same, and ``Trainer.summaries`` and its ``metrics_summary.json`` give
+    one finite NDS in [0, 1]. Returns its report."""
+    real_val = Trainer.val
+    vals = []
+
+    def counted_val(self, loader=None):
+        out = self.config.OUTPUT_DIR
+        ckpts = os.path.join(out, "ckpts")
+        record = {"ckpts": sorted(os.listdir(ckpts))
+                  if os.path.isdir(ckpts) else []}
+        # Trainer.val logs a scoring failure and goes on: clear what an
+        # earlier validation scored, so that each is read from its own
+        if os.path.exists(os.path.join(out, SUBMISSION)):
+            os.remove(os.path.join(out, SUBMISSION))
+        shutil.rmtree(os.path.join(out, EVAL_OUTPUT), ignore_errors=True)
+        self.summaries = None
+        reset_launch_counts()
+        decoded = image_io.decode_jpeg.launches
+        results = real_val(self, loader)
+        record["launches"] = launch_counts()
+        record["decoded"] = image_io.decode_jpeg.launches - decoded
+        record["results"] = len(results)
+        record["seconds"] = self.val_seconds[-1]
+        record.update(scoring_record(self))
+        vals.append(record)
+        return results
+
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_main_") as tmp:
+        root = tiny_root(tmp) if rehearsal else DATA_ROOT
+        n_train = split_size(root, "mini_train")
+        n_val = split_size(root, "mini_val")
+        opts = (["--device", device, "DATASET.ROOT", repr(root + "/"),
+                 "OUTPUT_DIR", repr(tmp)] + CAMPAIGN_OPTS + MAIN_PY_CUTS
+                + (TINY_OPTS if rehearsal else []))
+        Trainer.val = counted_val
+        try:
+            decoded = image_io.decode_jpeg.launches
+            converted = image_io.ycc_to_bgr.launches
+            t0 = time.perf_counter()
+            trainer = cfd_main.main(opts + ["NAME", "smoke_train"])
+            train_s = time.perf_counter() - t0
+            decoded_train = image_io.decode_jpeg.launches - decoded
+            converted = image_io.ycc_to_bgr.launches - converted
+            ckpt = os.path.join(trainer.config.OUTPUT_DIR, "ckpts",
+                                "model_last.pt")
+            t0 = time.perf_counter()
+            ev = cfd_main.main(opts + ["NAME", "smoke_eval", "EVAL", "True",
+                                       "MODEL.LOAD_DIR", repr(ckpt)])
+            eval_s = time.perf_counter() - t0
+        finally:
+            Trainer.val = real_val
+        cfg = trainer.config
+        epochs = int(cfg.TRAIN.EPOCHS)
+        n_nodes = sum(isinstance(m, DeformConvNode)
+                      for m in trainer.model.modules())
+        batches = -(-n_val // int(cfg.TEST.BATCH_SIZE))
+        if not rehearsal and decoded_train != epochs * (n_train + n_val):
+            raise AssertionError(f"the train run decoded {decoded_train} "
+                                 f"images on the card, expected {epochs} x "
+                                 f"({n_train} + {n_val})")
+        if converted != decoded_train:
+            raise AssertionError(f"the train run decoded {decoded_train} "
+                                 f"images and launched ycc_to_bgr "
+                                 f"{converted} times")
+        if len(vals) != epochs + 1:
+            raise AssertionError(f"{len(vals)} validations, expected one per "
+                                 f"epoch and one EVAL")
+        for i, rec in enumerate(vals):
+            if rec["results"] != n_val:
+                raise AssertionError(f"validation {i} gave results for "
+                                     f"{rec['results']} of {n_val} images")
+            if rec["tokens"] is None or len(rec["tokens"]) != n_val:
+                raise AssertionError(f"validation {i} wrote no submission of "
+                                     f"{n_val} val images")
+            if rec["tokens"] != vals[0]["tokens"]:
+                raise AssertionError(f"validation {i} scored other images "
+                                     f"than validation 0")
+            nds = rec["nds"]
+            if nds is None or not (math.isfinite(nds) and 0.0 <= nds <= 1.0):
+                raise AssertionError(f"validation {i} scored no NDS in [0, 1]"
+                                     f": {nds}")
+            if rec["nds_file"] != nds:
+                raise AssertionError(f"validation {i}: metrics_summary.json "
+                                     f"says NDS {rec['nds_file']}, the "
+                                     f"Trainer {nds}")
+            if not rehearsal and rec["decoded"] != n_val:
+                raise AssertionError(f"validation {i} decoded "
+                                     f"{rec['decoded']} images on the card, "
+                                     f"expected {n_val}")
+            want = {**{k: 0 for k in rec["launches"]},
+                    "dcn_fwd_bf16": 0 if rehearsal else n_nodes * batches}
+            if rec["launches"] != want:
+                raise AssertionError(f"validation {i} launched "
+                                     f"{rec['launches']}, expected {want}")
+        for rec in vals:
+            rec["images_scored"] = len(rec.pop("tokens"))
+        for epoch, rec in enumerate(vals[:epochs]):
+            if f"model_{epoch}.pt" not in rec["ckpts"]:
+                raise AssertionError(f"no checkpoint of epoch {epoch} before "
+                                     f"its validation: {rec['ckpts']}")
+        frozen = [st["frozen"] for st in trainer.steps]
+        per_epoch = n_train // int(cfg.TRAIN.BATCH_SIZE)
+        if frozen != [True] * per_epoch + [False] * per_epoch:
+            raise AssertionError(f"steps frozen {frozen}, expected "
+                                 f"{per_epoch} frozen then {per_epoch} not")
+        # the decoder and the warp alone, per image, on the val images
+        val_ds = ev.dataset_val
+        paths = [os.path.join(val_ds.img_dir, val_ds.coco.load_imgs(i)[0][
+            "file_name"]) for i in val_ds.images]
+        t0 = time.perf_counter()
+        imgs = [read_image(path, device) for path in paths]
+        decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+        in_h, in_w = cfg.MODEL.INPUT_SIZE
+        h, w = imgs[0].shape[:2]
+        trans = get_affine_transform(np.array([w / 2, h / 2], np.float32),
+                                     max(h, w), 0, (in_w, in_h))
+        t0 = time.perf_counter()
+        for img in imgs:
+            warp_image(img, trans, (in_w, in_h))
+        warp_ms = 1e3 * (time.perf_counter() - t0) / len(imgs)
+        cpu_decoder = (None if rehearsal
+                       or importlib.util.find_spec("cv2") is None
+                       else decode_vs_cpu_decoder(paths, imgs))
+    raw_warp_ms = raw_frame_warp_ms(1 if rehearsal else 3)
+    steps = {ph: [1e3 * st["seconds"] for st in trainer.steps
+                  if st["frozen"] == (ph == "frozen")]
+             for ph in ("frozen", "unfrozen")}
+    report = {
+        "images": {"train": n_train, "val": n_val}, "epochs": epochs,
+        "dcn_nodes": n_nodes, "validations": vals,
+        "map": [r["map"] for r in vals], "nds": [r["nds"] for r in vals],
+        "ms_per_step": {ph: statistics.mean(v) for ph, v in steps.items()},
+        "ms_steps": steps, "decode_ms_per_image": decode_ms,
+        "warp_ms_per_image": warp_ms, "cpu_decoder": cpu_decoder,
+        "raw_frame_warp_ms_per_batch": raw_warp_ms, "train_run_s": train_s,
+        "eval_run_s": eval_s, "decoded_train_run": decoded_train,
+    }
+    where = "" if rehearsal else f" on {card}"
+    log(f"main.py: {epochs} epochs on {n_train} train images (batch "
+        f"{cfg.TRAIN.BATCH_SIZE}, {cfg.MODEL.INPUT_SIZE[0]}x"
+        f"{cfg.MODEL.INPUT_SIZE[1]}, bf16, {n_nodes} DCN nodes), "
+        f"validated on {n_val} after each, then EVAL; "
+        f"{decoded_train} images decoded in the train run")
+    log("  " + ", ".join(
+        f"{'EVAL' if i == epochs else f'epoch {i}'} mAP {r['map']:.4f} NDS "
+        f"{r['nds']:.4f}" for i, r in enumerate(vals))
+        + f" (seeded weights: plumbing and speed only){where}")
+    log(f"  ms per train step frozen {report['ms_per_step']['frozen']:.1f}, "
+        f"unfrozen {report['ms_per_step']['unfrozen']:.1f}; decode "
+        f"{decode_ms:.3f} ms and warp {warp_ms:.3f} ms per image; val "
+        + ", ".join(f"{r['seconds']['forward']:.2f} s + scoring "
+                    f"{r['seconds']['scoring']:.2f} s" for r in vals)
+        + f"; train run {train_s:.1f} s, EVAL run {eval_s:.1f} s{where}")
+    if cpu_decoder is not None:
+        log(f"  the val images decoded by the CPU decoder (cv2): "
+            f"{cpu_decoder['ms_per_image']:.3f} ms per image; the card's "
+            f"decode {cpu_decoder['pixel_max']} levels from it at most, "
+            f"{cpu_decoder['pixel_mean']:.4f} on average, "
+            f"{100 * cpu_decoder['pixel_equal']:.2f}% of values equal{where}")
+    log(f"  Detector's warp of six raw {RAW_FRAME[1]}x{RAW_FRAME[0]} frames "
+        f"to {SERVE_INPUT[1]}x{SERVE_INPUT[0]} (_warp_or_crop -> warp_image):"
+        f" " + ", ".join(f"{t:.1f}" for t in raw_warp_ms)
+        + f" ms a batch{where}")
+    return report
+
+
+def decode_vs_cpu_decoder(paths, imgs) -> dict:
+    """The images at ``paths`` through the CPU decoder (cv2) against
+    ``imgs``, the card's decode of them: per pixel, held to
+    ``DECODE_PIXEL_TOL`` and ``DECODE_PIXEL_MEAN_TOL``; and the CPU
+    decoder's time per image."""
+    t0 = time.perf_counter()
+    refs = [read_image(path, "cpu") for path in paths]
+    ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    worst, total, equal, n = 0, 0, 0, 0
+    for img, ref in zip(imgs, refs):
+        d = np.abs(img.astype(np.int16) - ref)
+        worst, total = max(worst, int(d.max())), total + int(d.sum())
+        equal, n = equal + int((d == 0).sum()), n + d.size
+    res = {"ms_per_image": ms, "pixel_max": worst, "pixel_mean": total / n,
+           "pixel_equal": equal / n}
+    if not (worst <= DECODE_PIXEL_TOL
+            and res["pixel_mean"] <= DECODE_PIXEL_MEAN_TOL):
+        raise AssertionError(f"the card's decode of {len(paths)} val images "
+                             f"is {worst} levels at most and "
+                             f"{res['pixel_mean']:.3f} on average from the "
+                             f"CPU decoder's (limits {DECODE_PIXEL_TOL}, "
+                             f"{DECODE_PIXEL_MEAN_TOL})")
+    return res
+
+
+def raw_frame_warp_ms(reps: int = 3) -> list:
+    """ms for ``Detector``'s warp of six seeded raw ``RAW_FRAME`` camera
+    frames to serving's ``SERVE_INPUT``: the scale of 1/2 takes
+    ``_warp_or_crop``'s non-integer branch (``warp_image``); one time per
+    rep."""
+    rng = np.random.default_rng(SEED)
+    h, w = RAW_FRAME
+    in_h, in_w = SERVE_INPUT
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for _ in range(6)]
+    trans = get_affine_transform(np.array([w / 2, h / 2], np.float32),
+                                 max(h, w), 0, (in_w, in_h))
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for frame in frames:
+            _warp_or_crop(frame, trans, in_h, in_w)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
 def probe_kernel_entries(rows):
     """The ``kernels`` line's entries of the sixteen probe kernels: launches
     on the probe path, and the script's own input at the scripts' geometry
@@ -1736,13 +2421,28 @@ def main(argv=None) -> int:
         card = nvidia_smi()
         log(f"card: {card}")
         t_build = time.perf_counter()
-        built = load_kernel_libraries(dcn.KERNEL_SOURCES + (probes.SOURCE,))
+        log("decoders: " + ", ".join(decoder_facts()))
+        built = load_kernel_libraries(dcn.KERNEL_SOURCES
+                                      + (probes.SOURCE, image_io.SOURCE))
         log(f"built {len(built)} sources with nvcc in parallel in "
             f"{time.perf_counter() - t_build:.1f} s")
         for source, lib in built.items():
             log(f"{source}: nvcc {lib.build_seconds:.1f} s -> {lib.path.name}")
             for line in lib.ptxas:
                 log(f"  ptxas: {line}")
+    if not rehearsal:
+        n_ycc = ycc_kernel_vs_plain(args.device)
+        log(f"ycc_to_bgr kernel: bitwise equal to its plain version in "
+            f"{n_ycc} cases (4:2:0 as decoded, odd sizes, 4:2:2, grey)")
+    decode_err = decode_vs_reference(args.device)
+    log(f"image decoder on {args.device}: {len(DECODE_REFERENCE)} mini_val "
+        f"JPEGs, per-channel and 4x4-cell means within "
+        f"{decode_err['mean_levels']:.3f} levels of cv2's (limit "
+        f"{DECODE_TOL}); {sum(map(len, DECODE_CROPS.values()))} 16x16 "
+        f"crops: pixels {decode_err['pixel_max']} levels at most (limit "
+        f"{DECODE_PIXEL_TOL}), {decode_err['pixel_mean']:.4f} on average "
+        f"(limit {DECODE_PIXEL_MEAN_TOL}), "
+        f"{100 * decode_err['pixel_equal']:.2f}% equal")
     log(f"phase environment: {time.perf_counter() - t0:.1f} s")
 
     # 2. the float32 detector at full width, seeded weights, warm-up run
@@ -1918,6 +2618,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     probe_rows = check_probes(args.device, timed=not rehearsal)
     log(f"phase probes: {time.perf_counter() - t0:.1f} s")
+
+    # 16. main.py on the repo's data: train, validate with NDS, EVAL
+    t0 = time.perf_counter()
+    main_py = main_py_path(args.device, rehearsal, card)
+    log(f"phase main.py: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -1937,6 +2642,7 @@ def main(argv=None) -> int:
     kernels += probe_kernel_entries(probe_rows)
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
+    log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

@@ -10,7 +10,8 @@ model's heads (float32 tolerance of ``test_torch_model.py``, 2e-3).
 (``legacy_names.npz``).
 (4) ``TRAIN.RESUME`` restores the epoch and the optimizer state: the epoch
 after a resume equals the same epoch of an uninterrupted run, in float64.
-(5) What the Trainer refuses: a ``TRAIN.VAL_INTERVALS`` epoch and a
+(5) What the Trainer refuses: a ``TRAIN.VAL_INTERVALS`` epoch without a
+``dataset_val`` and a
 ``LOAD_DIR`` that is not a ``.pt``/``.pth`` file; it trains under
 ``MIXED_PRECISION`` and saves float32 checkpoints.
 Small model: Conv nodes, 64x128.
@@ -273,7 +274,7 @@ def test_validation_epoch_raises_before_the_first_step(tmp_path):
                       num_classes=10)
     trainer = Trainer(cfg, SyntheticTrainingSet(cfg, 2, seed=6),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="TRAIN.VAL_INTERVALS"):
+    with pytest.raises(ValueError, match="TRAIN.VAL_INTERVALS.*dataset_val"):
         trainer.train()
     assert trainer.steps == []
     assert not os.path.exists(tmp_path / "ckpts")

@@ -191,7 +191,7 @@ def test_probe_calls_give_both_trees_the_tool_inputs(name):
 
     calls = ck.probe_calls(name, probes, "cpu")
     short = name[6:]
-    if short in ("p1", "p2", "p4"):
+    if short in ("p1", "p2", "p3", "p4"):
         labels = [label for label, _, _ in probe_dcn.p5_cases(
             short, ck.SEED, "cpu")]
     else:

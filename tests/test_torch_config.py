@@ -68,3 +68,25 @@ def test_smoke_overrides_mirror_centerfusion_middle_yaml():
     path = [p for p in CONFIGS if p.endswith("Centerfusion_Middle.yaml")][0]
     assert _plain(port_config.load_config(opts=MAIN_PATH_OPTS)) == _plain(
         port_config.load_config(path))
+
+
+def test_smoke_main_py_overrides_are_the_campaign_config():
+    """chip_smoke.py's phase 16 runs main.py at the campaign's settings as
+    overrides (``CAMPAIGN_OPTS``) plus its cuts (``MAIN_PY_CUTS``): with the
+    campaign's paths and the cut keys set as the YAML has them, the
+    overrides give the config of ``output/campaign_r5/config.yaml``."""
+    import chip_smoke
+
+    path = os.path.join(os.path.dirname(__file__), "..", "output",
+                        "campaign_r5", "config.yaml")
+    campaign = port_config.load_config(path)
+    cut = dict(zip(chip_smoke.MAIN_PY_CUTS[::2], chip_smoke.MAIN_PY_CUTS[1::2]))
+    assert set(cut) == {"TRAIN.EPOCHS", "MODEL.DEFREEZE",
+                        "TRAIN.VAL_INTERVALS", "TRAIN.SAVE_INTERVALS"}
+    same = []
+    for key in ("OUTPUT_DIR", "DATASET.ROOT", *cut):
+        section, _, name = key.rpartition(".")
+        node = campaign[section] if section else campaign
+        same += [key, repr(node[name])]
+    got = port_config.load_config(opts=chip_smoke.CAMPAIGN_OPTS + same)
+    assert _plain(got) == _plain(campaign)

@@ -1,12 +1,17 @@
 """The port runs where the card's machine runs it: without JAX, flax, optax,
-orbax, pyyaml, opencv or anything of the JAX package.
+orbax, pyyaml, opencv, PIL, imageio or anything of the JAX package.
 
 The machine that runs the CPU tests has all of them, so a subprocess hides
 them (``sys.modules[name] = None`` makes every import of the name fail) and
 then imports every module of the port and runs the ``chip_smoke.py``
-rehearsal, serving and training, to its last line. An AST scan checks the sources as well: the
-port never imports the JAX stack, and imports pyyaml and opencv only inside
-the functions that need them.
+rehearsal, serving, training, the probes and ``main.py``, to its last line.
+opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
+reads its JPEGs): there the subprocess lets only that module import it, and
+the rehearsal's ``main.py`` phase decodes through it. An AST scan checks the
+sources as well: the port never imports the JAX stack, PIL or imageio,
+imports pyyaml and opencv only inside the functions that need them, and
+opencv only in ``data/image_io.py``. The nvJPEG decoder
+(``csrc/jpeg_decode.cu``) is built at its first decode, never at import.
 """
 
 from __future__ import annotations
@@ -24,9 +29,11 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "centerfusiondetect3d_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
-NEVER = {"jax", "jaxlib", "flax", "optax", "orbax", "centerfusiondetect3d_tpu"}
+NEVER = {"jax", "jaxlib", "flax", "optax", "orbax", "centerfusiondetect3d_tpu",
+         "PIL", "imageio"}
 LAZY_ONLY = {"yaml", "cv2"}
-BLOCKED = sorted(NEVER | LAZY_ONLY)
+BLOCKED = sorted(NEVER | LAZY_ONLY - {"cv2"})
+CV2_ONLY_IN = PACKAGE / "data" / "image_io.py"
 
 HIDE_AND_RUN = r"""
 import importlib, io, json, pkgutil, sys, contextlib
@@ -36,6 +43,28 @@ for name in list(sys.modules):
         del sys.modules[name]
 for name in BLOCKED:
     sys.modules[name] = None
+cv2_from = []
+
+
+class Cv2Gate:  # lets only the CPU decoder's module import cv2
+    def find_spec(self, name, path=None, target=None):
+        if name != "cv2":
+            return None
+        f = sys._getframe(1)
+        while f is not None and (f.f_code.co_filename.startswith("<frozen")
+                                 or "importlib" in f.f_code.co_filename):
+            f = f.f_back
+        caller = f.f_code.co_filename if f else "?"
+        if "/cv2/" in caller:  # cv2 loading itself
+            return None
+        cv2_from.append(caller)
+        if caller != {cv2_only_in!r}:
+            raise ImportError("cv2 imported from " + caller)
+        return None
+
+
+sys.modules.pop("cv2", None)
+sys.meta_path.insert(0, Cv2Gate())
 import torch
 torch.set_num_threads(2)
 import centerfusiondetect3d_tpu_torch as pkg
@@ -50,6 +79,7 @@ loaded = sorted(n for n, m in sys.modules.items()
                 if n.split(".")[0] in BLOCKED and m is not None)
 lines = out.getvalue().strip().splitlines()
 print(json.dumps({{"rc": rc, "modules": len(mods), "loaded": loaded,
+                   "cv2_from": sorted(set(cv2_from)),
                    "phases": [l.split(":")[0] for l in lines
                               if l.startswith("phase ")],
                    "last": lines[-1]}}))
@@ -84,9 +114,41 @@ def test_sources_import_no_jax_stack(path):
             assert not at_top, f"{path.name} imports {name} at module top"
 
 
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_only_the_cpu_decoder_imports_cv2(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    if path != CV2_ONLY_IN:
+        assert "cv2" not in {name for name, _ in _imports(tree)}, path.name
+
+
+def test_jpeg_decoder_builds_at_first_decode_only(monkeypatch):
+    """Importing the decoder, a CPU read and a refused call build nothing;
+    the first nvJPEG decode asks for csrc/jpeg_decode.cu."""
+    import numpy as np
+
+    from centerfusiondetect3d_tpu_torch.data import image_io
+
+    built = []
+    monkeypatch.setattr(image_io, "load_kernel_library",
+                        lambda source: built.append(source) or (_ for _ in
+                                                                ()).throw(
+                            RuntimeError("no nvcc here")))
+    image_io.read_image(str(ROOT / "output" / "campaign_r5" / "data" /
+                            "nuscenes" / "samples" / "CAM_FRONT" /
+                            "c1img0.jpg"), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        image_io.decode_jpeg(np.zeros(8, np.uint8), "cpu")
+    assert built == []
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        image_io.decode_jpeg(np.zeros(8, np.uint8), "cuda:0")
+    assert built == ["jpeg_decode.cu"]
+
+
 def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     proc = subprocess.run(
-        [sys.executable, "-c", HIDE_AND_RUN.format(blocked=BLOCKED)],
+        [sys.executable, "-c", HIDE_AND_RUN.format(
+            blocked=BLOCKED, cv2_only_in=str(CV2_ONLY_IN))],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -94,23 +156,25 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     assert report["rc"] == 0
     assert report["modules"] >= 20
     assert report["loaded"] == [], report["loaded"]
+    assert report["cv2_from"] == [str(CV2_ONLY_IN)], report["cv2_from"]
     # serving in float32 and in bf16, then the DCN backward check, the
     # Trainer and the kernel-vs-plain train step in float32 and in bf16,
-    # then the DCN probe path
+    # then the DCN probe path and main.py on the repo's data
     assert report["phases"] == [
         "phase environment", "phase build+warm-up", "phase kernel-vs-plain",
         "phase bf16-kernel-vs-plain", "phase main path", "phase heads",
         "phase bf16 main path", "phase bf16 heads", "phase backward-vs-plain",
         "phase training", "phase step-vs-plain",
         "phase bf16-backward-vs-plain", "phase bf16 training",
-        "phase bf16 step-vs-plain", "phase probes"], report["phases"]
+        "phase bf16 step-vs-plain", "phase probes", "phase main.py"
+    ], report["phases"]
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
 
 
 def test_kernel_sources_ship_as_package_data():
     """Every CUDA source under csrc/ (the float32 and bf16 forward and the
-    backward DCN kernels, the probe kernels) is package data, so an
-    installed port can build them."""
+    backward DCN kernels, the probe kernels, the nvJPEG decoder) is package
+    data, so an installed port can build them."""
     import fnmatch
     import tomllib
 
@@ -119,7 +183,7 @@ def test_kernel_sources_ship_as_package_data():
     sources = sorted(p.relative_to(PACKAGE).as_posix()
                      for p in (PACKAGE / "csrc").iterdir())
     assert {"csrc/dcn_fwd.cu", "csrc/dcn_bwd.cu", "csrc/dcn_fwd_bf16.cu",
-            "csrc/dcn_probes.cu"} <= set(sources)
+            "csrc/dcn_probes.cu", "csrc/jpeg_decode.cu"} <= set(sources)
     for src in sources:
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
 
