@@ -118,8 +118,8 @@ def default_config() -> ConfigNode:
     c.TEST = ConfigNode()
     c.TEST.BATCH_SIZE = 1
     c.TEST.OFFICIAL_EVAL = False
-    c.TEST.FLIP_TEST = False  # flip TTA: not ported yet, must stay False
-    c.TEST.MULTI_SCALE = ()  # multi-scale TTA: not ported yet, must stay ()
+    c.TEST.FLIP_TEST = False  # flip TTA (Detector, Trainer.val)
+    c.TEST.MULTI_SCALE = ()  # multi-scale TTA (Detector.run)
     c.TEST.FAST_DECODE = True
     c.TEST.MAX_DEVICE_BATCH = 6  # ignored
     c.TEST.DEVICE_BATCH_MAP = True  # ignored

@@ -16,8 +16,11 @@
 // version.
 //
 // One nvJPEG handle and decoder state serve every call; a mutex serializes
-// the calls, since a decoder state takes one image at a time. Built by
-// ops/cuda_build.py with -lnvjpeg at first use.
+// the calls, since a decoder state takes one image at a time: its pinned
+// and device buffers serve the decode's copies and kernels on the caller's
+// stream, so a decode waits for that stream before it lets the next one
+// in, whichever stream the next one is on. Built by ops/cuda_build.py with
+// -lnvjpeg at first use.
 //
 // Status codes: 0 ok; 1-9 nvjpegStatus_t as nvJPEG returns it; 1000 + a
 // CUDA error; 2000 when the image is not the size the caller allocated for;
@@ -156,7 +159,8 @@ extern "C" int cfd_jpeg_info(const unsigned char* data, size_t len,
 
 // Decodes the JPEG in data into its planes, device buffers of width x height
 // (y) and chroma_width x chroma_height bytes (cb, cr; null for grey), on
-// stream; the copies may still run when this returns
+// stream, and waits for stream: the decoder state and data are free again
+// when this returns
 extern "C" int cfd_jpeg_decode_planes(const unsigned char* data, size_t len,
                                       unsigned char* y, unsigned char* cb,
                                       unsigned char* cr, int width,
@@ -185,7 +189,8 @@ extern "C" int cfd_jpeg_decode_planes(const unsigned char* data, size_t len,
       g_handle, g_state, data, len,
       cb != nullptr ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &image, stream);
   if (st != NVJPEG_STATUS_SUCCESS) return (int)st;
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
   return e == cudaSuccess ? 0 : 1000 + (int)e;
 }
 

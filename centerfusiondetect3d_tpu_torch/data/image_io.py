@@ -17,13 +17,28 @@ device the caller names and never falls back from one to the other:
   ``decode_jpeg.launches`` counts the decodes, ``ycc_to_bgr.launches`` the
   conversion kernel's launches.
 
-Both return an HWC uint8 host array in BGR order.
+Both return an HWC uint8 host array in BGR order (``read_image``,
+``decode_jpeg``, for the dataset). Serving keeps the card's decode on the
+card (``decode_jpeg_device``, ``load_frame``). ``load_frame`` is
+``runtime/detector.py:load_data``'s reader: on the CPU it takes the JAX
+package's ``TEST.FAST_DECODE`` half-resolution decode
+(``cv2.IMREAD_REDUCED_COLOR_2``) where the reduced image still covers the
+network input; nvJPEG has no DCT-scaled decode, so on the card it decodes
+at full resolution (decode scale 1), a documented difference
+(``ROADMAP.md``, Queue 3).
+
+The inference CLI's video and webcam reader (``video_frames``), its JPEG
+writer (``write_image``), its box and label drawing (``draw_box``) and its
+``--show-attention`` overlay (``attention_overlay``) are opencv's as well;
+they import it when called and name it when it is missing.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import os
+import threading
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +63,7 @@ STATUS = {
     2001: "components or chroma sampling other than grey, 4:4:4, 4:2:2 or "
           "4:2:0",
 }
+_COUNT = threading.Lock()  # serving decodes in the stream's worker threads
 # libjpeg's fixed-point YCbCr -> RGB (jdcolor.c: FIX(x) at 16 bits)
 ONE_HALF = 1 << 15
 FIX_1_40200, FIX_1_77200, FIX_0_34414, FIX_0_71414 = 91881, 116130, 22554, 46802
@@ -95,15 +111,52 @@ def _read_cv2(path: str) -> np.ndarray:
     return img
 
 
+def load_frame(path: str, device, input_hw: Tuple[int, int],
+               fast: bool) -> Tuple[object, float]:
+    """(frame, decode scale) for serving the image at ``path`` on
+    ``device``. CPU: as the JAX package's ``Detector.load_data`` reads it,
+    with ``fast`` (``TEST.FAST_DECODE``) a JPEG decoded at half resolution
+    (``cv2.IMREAD_REDUCED_COLOR_2``, scale 2) where that still covers
+    ``input_hw``, else in full (scale 1): an HWC BGR uint8 array. CUDA:
+    nvJPEG at full resolution (scale 1: no reduced decode there), an HWC
+    BGR uint8 tensor that stays on the card. ``FileNotFoundError`` for a
+    missing or unreadable file."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not os.path.isfile(path):
+            raise FileNotFoundError(path)
+        return decode_jpeg_device(np.fromfile(path, np.uint8), device,
+                                  name=path), 1.0
+    if device.type != "cpu":
+        raise RuntimeError(f"load_frame: no decoder for device {device}")
+    import cv2
+
+    if fast and path.lower().endswith((".jpg", ".jpeg")):
+        img = cv2.imread(path, cv2.IMREAD_REDUCED_COLOR_2)
+        if img is not None and (img.shape[0] >= input_hw[0]
+                                and img.shape[1] >= input_hw[1]):
+            return img, 2.0
+    return _read_cv2(path), 1.0
+
+
 def decode_jpeg(data: np.ndarray, device, name: str = "<bytes>"
                 ) -> np.ndarray:
     """Decodes the JPEG bytes ``data`` (uint8) on the CUDA ``device``:
     nvJPEG's planes, then ``ycc_to_bgr``; returns HWC BGR uint8 on the
     host. Raises, naming ``name`` and the status, on a file it cannot
     decode."""
+    return decode_jpeg_device(data, device, name).cpu().numpy()
+
+
+def decode_jpeg_device(data: np.ndarray, device, name: str = "<bytes>"
+                       ) -> torch.Tensor:
+    """``decode_jpeg`` whose result stays on the card: the (H, W, 3) BGR
+    uint8 tensor ``ycc_to_bgr`` wrote, on the current stream. Counted in
+    ``decode_jpeg.launches``."""
     out = ycc_to_bgr(*decode_planes(data, device, name=name))
-    decode_jpeg.launches += 1
-    return out.cpu().numpy()
+    with _COUNT:
+        decode_jpeg.launches += 1
+    return out
 
 
 decode_jpeg.launches = 0
@@ -137,11 +190,9 @@ def decode_planes(data: np.ndarray, device, name: str = "<bytes>"):
         code = _entry("cfd_jpeg_decode_planes")(
             ptr, data.size, y.data_ptr(), _ptr(cb), _ptr(cr), w.value,
             h.value, cw.value, ch.value, stream)
-        if code != 0:
-            raise RuntimeError(f"nvJPEG failed to decode {name}: "
-                               f"{status_name(code)}")
-        # the host bytes must outlive nvJPEG's work on the stream
-        torch.cuda.current_stream(device).synchronize()
+    if code != 0:  # the entry waits for the stream before it returns
+        raise RuntimeError(f"nvJPEG failed to decode {name}: "
+                           f"{status_name(code)}")
     return y, cb, cr
 
 
@@ -176,7 +227,8 @@ def ycc_to_bgr(y: torch.Tensor, cb: Optional[torch.Tensor],
             stream)
     if code != 0:
         raise RuntimeError(f"ycc_to_bgr: {status_name(code)}")
-    ycc_to_bgr.launches += 1
+    with _COUNT:
+        ycc_to_bgr.launches += 1
     return out
 
 
@@ -240,3 +292,57 @@ def ycc_to_bgr_plain(y: torch.Tensor, cb: Optional[torch.Tensor],
         luma + ((FIX_1_40200 * r + ONE_HALF) >> 16)], -1)
     return bgr.clamp(0, 255).to(torch.uint8)
 
+
+
+# ----------------------------------------------------------- the CLI's opencv
+def _cv2(what: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{what} needs opencv (the cv2 module), which is "
+                          "not installed") from e
+    return cv2
+
+
+def video_frames(source) -> Iterator[np.ndarray]:
+    """The BGR uint8 frames of a video file, or of the webcam for
+    ``source`` 0, as ``cv2.VideoCapture`` reads them."""
+    cap = _cv2("reading video").VideoCapture(source)
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                return
+            yield frame
+    finally:
+        cap.release()
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Writes the HWC BGR uint8 ``img`` to ``path`` (``cv2.imwrite``: JPEG
+    for a .jpg name); raises where it cannot."""
+    if not _cv2("writing images").imwrite(path, np.ascontiguousarray(img)):
+        raise OSError(f"cannot write {path}")
+
+
+def draw_box(img: np.ndarray, box, label: str,
+             color=(0, 255, 0)) -> None:
+    """Draws the integer box (x1, y1, x2, y2) and ``label`` above it onto
+    ``img`` in place, as the JAX package's ``inference.draw_detections``
+    does (``cv2.rectangle``, ``cv2.putText``)."""
+    cv2 = _cv2("drawing detections")
+    x1, y1, x2, y2 = box
+    cv2.rectangle(img, (x1, y1), (x2, y2), color, 2)
+    cv2.putText(img, label, (x1, max(y1 - 4, 10)), cv2.FONT_HERSHEY_SIMPLEX,
+                0.5, color, 1)
+
+
+def attention_overlay(image: np.ndarray, att_map: np.ndarray,
+                      alpha: float = 0.5) -> np.ndarray:
+    """The jet-coloured attention/depth map (H, W) uint8 blended onto the
+    HWC BGR ``image`` resized to the map's size, as the JAX package's
+    ``utils/visualize.py:attention_overlay`` computes it."""
+    cv2 = _cv2("drawing attention overlays")
+    small = cv2.resize(image, (att_map.shape[1], att_map.shape[0]))
+    heat = cv2.applyColorMap(np.asarray(att_map, np.uint8), cv2.COLORMAP_JET)
+    return cv2.addWeighted(heat, alpha, small, 1.0, 0)

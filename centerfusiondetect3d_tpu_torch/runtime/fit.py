@@ -16,7 +16,8 @@ validates (``val``): an eval-mode forward over ``dataset_val`` (the last,
 partial batch included), ``fusion_decode`` and ``post_process`` with each
 image's inverse affine from its ``meta``, the loss meters, per-image
 results, then ``dataset_val.run_eval`` (the submission JSON and NDS
-scoring, ``data/nuscenes_eval.py``) and ``log_valid_result``. Scoring is
+scoring, ``data/nuscenes_eval.py``) and ``log_valid_result``; under
+``TEST.FLIP_TEST`` the forward runs on each batch and its mirror. Scoring is
 best-effort as in the JAX package: an exception there is logged, not
 raised. ``test`` is ``val``.
 
@@ -57,6 +58,7 @@ from ..losses import GenericLoss
 from ..models import build_model
 from ..ops.decode import fusion_decode
 from ..ops.postprocess import post_process
+from ..ops.tta import flip_forward
 from ..training import learning_rate, make_optimizer, train_step
 from ..training.checkpoint import load_torch_file, load_weights, save_checkpoint
 from ..utils.device import resolve_device
@@ -216,11 +218,15 @@ class Trainer:
 
     # ------------------------------------------------------------- eval
     def _eval_step(self, batch, trans_mat):
-        """Eval-mode forward, decode, post-process and loss of one device
+        """Eval-mode forward (on the batch and its mirror under
+        ``TEST.FLIP_TEST``, ``ops/tta.py:flip_forward``, as the JAX
+        package's eval step), decode, post-process and loss of one device
         batch; returns (processed detections, loss, loss parts)."""
         cfg = self.config
-        outputs = [self.model(batch["image"], batch.get("pc_dep"),
-                              batch.get("calib"), batch.get("pc_hm"))]
+        forward = flip_forward if cfg.TEST.FLIP_TEST else (
+            lambda model, *args: model(*args))
+        outputs = [forward(self.model, batch["image"], batch.get("pc_dep"),
+                           batch.get("calib"), batch.get("pc_hm"))]
         dets = fusion_decode(outputs, cfg.MODEL.OUTPUT_SIZE, k=cfg.MODEL.K,
                              norm2d=cfg.MODEL.NORM_2D)
         processed = post_process(dets, trans_mat, cfg.MODEL.OUTPUT_SIZE,

@@ -21,6 +21,8 @@
         --other _compare/parent --kernel probe_k4 --kernel probe_kd \\
         --kernel probe_ke --kernel probe_kb --kernel probe_ka \\
         --kernel probe_k3 --kernel probe_kc --kernel probe_k1
+    python -m centerfusiondetect3d_tpu_torch.tools.compare_kernels \\
+        --other _compare/parent --kernel warp_affine
 
 OTHER is a directory inside this checkout (for example a git-ignored
 ``git archive`` of another commit) that holds the port's package. Its
@@ -51,7 +53,11 @@ inputs) run instead on
 ``tools/probe_dcn.py``'s inputs of them, in both trees, whose outputs must
 agree within the probe's ``Probe.rtol`` (0: bitwise);
 beside them their yardstick (``Probe.library`` of this tree, where there
-is one) is timed by its device time alone. With ``--overlap`` in place of
+is one) is timed by its device time alone. ``warp_affine`` (the serving
+warp, ``ops/warp.py``; a tree without that module is refused) runs on
+``warp_inputs``: six seeded 1600x900 frames and six seeded 448x256 frames
+(the repo's JPEG size), each batch to serving's 448x800, in one launch;
+the two trees' outputs must be bitwise equal. With ``--overlap`` in place of
 ``--other`` the other side is this tree's forward kernels in their
 in-block overlap variant (``ops/dcn.py:FWD_OVERLAP``; the bf16 kernel's
 256-channel tile has none and runs as it is), whose output must equal
@@ -77,13 +83,15 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from ..config import load_config
 from ..data.pipeline import stack_items, to_device
+from ..geometry.affine import get_affine_transform
 from ..losses import GenericLoss
 from ..models import DeformConvNode, build_model
-from ..ops import dcn, probes
+from ..ops import dcn, probes, warp
 from ..runtime.synthetic import (MAIN_PATH_OPTS, TRAIN_OPTS,
                                  SyntheticTrainingSet, seeded_weights)
 from ..tools import probe_dcn
@@ -149,6 +157,69 @@ PROBE_KERNELS = ("probe_k1", "probe_k2", "probe_k3", "probe_k4", "probe_k5",
                  "probe_ka", "probe_kb", "probe_kc", "probe_kd", "probe_ke",
                  "probe_kf", "probe_kg", "probe_p1", "probe_p2", "probe_p3",
                  "probe_p4")
+WARP_KERNELS = ("warp_affine",)
+WARP_OUT = (448, 800)  # serving's input (H, W)
+WARP_SOURCES = ((900, 1600), (256, 448))  # a raw camera frame, a repo JPEG
+
+
+def warp_inputs(device, n: int = 6):
+    """(label, frames, inverse matrices) of ``warp_affine``'s comparison:
+    n seeded frames of each of ``WARP_SOURCES``, each batch with serving's
+    affine to ``WARP_OUT``."""
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = []
+    for h, w in WARP_SOURCES:
+        frames = [torch.randint(0, 256, (h, w, 3), generator=gen,
+                                dtype=torch.uint8).to(device)
+                  for _ in range(n)]
+        trans = get_affine_transform(np.array([w / 2, h / 2], np.float32),
+                                     max(h, w), 0, (WARP_OUT[1], WARP_OUT[0]))
+        cases.append((f"{n} x {w}x{h} -> {WARP_OUT[1]}x{WARP_OUT[0]}",
+                      frames, warp.inverse_matrices([trans] * n)))
+    return cases
+
+
+def warp_call(module, frames, inv):
+    """A no-argument call of ``module``'s (an ``ops/warp.py``)
+    ``warp_affine`` on ``frames`` into an output batch of its own."""
+    out = torch.empty((len(frames), *WARP_OUT, 3), dtype=torch.uint8,
+                      device=frames[0].device)
+    return lambda: module.warp_affine(frames, inv, out)
+
+
+def load_other_warp(root: str):
+    """The other tree's ``ops/warp.py``, as ``cfd_other.ops.warp``; exits
+    where that tree has none."""
+    path = os.path.join(root, PACKAGE, "ops", "warp.py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"compare_kernels: {root} has no "
+                         f"{PACKAGE}/ops/warp.py to compare warp_affine with")
+    return importlib.import_module("cfd_other.ops.warp")
+
+
+def compare_warp(other_warp, device, report) -> None:
+    """Adds ``warp_affine``'s entry: per input, both trees' outputs
+    bitwise equal (else exit), then each tree per call and by device time
+    alone, in turns."""
+
+    rows = []
+    for label, frames, inv in warp_inputs(device):
+        fn_this, fn_other = (warp_call(warp, frames, inv),
+                             warp_call(other_warp, frames, inv))
+        got, want = fn_this(), fn_other()
+        if not torch.equal(got, want):
+            raise SystemExit(f"compare_kernels: warp_affine of the two trees "
+                             f"differs on {label}: "
+                             f"{int((got != want).sum())} bytes")
+        ms_other, ms_this = time_turns(fn_other, fn_this, REPS)
+        other_dev, this_dev = device_turns(fn_other, fn_this)
+        rows.append({"case": label, "ms": ms_this, "other_ms": ms_other,
+                     "device_ms": this_dev, "other_device_ms": other_dev})
+        print(f"warp_affine {label}: device alone this {this_dev:.5f} ms, "
+              f"other {other_dev:.5f} ms; per call this {ms_this:.4f} ms, "
+              f"other {ms_other:.4f} ms (bitwise equal)")
+    report["kernels"]["warp_affine"] = {"per_case": rows}
 
 
 def load_other(root: str):
@@ -397,7 +468,7 @@ def main(argv=None) -> int:
                             help="the forward kernels against their "
                                  "in-block overlap variant")
     ap.add_argument("--kernel", action="append", required=True,
-                    choices=KERNELS + PROBE_KERNELS)
+                    choices=KERNELS + PROBE_KERNELS + WARP_KERNELS)
     ap.add_argument("--batch", type=int, default=None, metavar="N",
                     help="images per node call (default: the training "
                          "microbatch, 13)")
@@ -431,7 +502,10 @@ def main(argv=None) -> int:
               "kernels": {}}
     for name in [k for k in args.kernel if k in PROBE_KERNELS]:
         report["kernels"][name] = compare_probe(name, other.probes, device)
-    names = [k for k in args.kernel if k not in PROBE_KERNELS]
+    if "warp_affine" in args.kernel:
+        compare_warp(load_other_warp(other_root), device, report)
+    names = [k for k in args.kernel
+             if k not in PROBE_KERNELS + WARP_KERNELS]
     if names:
         compare_dcn(names, None if other is None else other.dcn, args,
                     device, report)

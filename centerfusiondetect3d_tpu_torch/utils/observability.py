@@ -87,6 +87,10 @@ class StageTimer:
     def summary(self) -> Dict[str, float]:
         return {k: m.avg for k, m in self.meters.items()}
 
+    def report(self) -> str:
+        return " | ".join(f"{k} {m.avg * 1e3:.1f}ms"
+                          for k, m in self.meters.items())
+
     def reset(self):
         self.meters.clear()
         self._start.clear()

@@ -12,8 +12,9 @@ On the card it:
    ``dcn_bwd.cu``, ``dcn_fwd_bf16.cu``; the forward ones share
    ``dcn_fwd_common.cuh``) with one nvcc each, all in parallel, and prints
    the build time and ptxas' register, shared memory and spill lines (with
-   ``dcn_probes.cu``, the probe kernels of phase 15, and
-   ``jpeg_decode.cu``, the nvJPEG decoder); then holds the card's decoder
+   ``dcn_probes.cu``, the probe kernels of phase 15,
+   ``jpeg_decode.cu``, the nvJPEG decoder, and ``warp_affine.cu``, the
+   device warp of phase 17); then holds the card's decoder
    against cv2's decode of three ``mini_val`` JPEGs (``DECODE_REFERENCE``:
    per-channel and 4x4-cell means within ``DECODE_TOL`` levels;
    ``DECODE_CROPS``: 16x16 crops, each pixel within ``DECODE_PIXEL_TOL``
@@ -137,15 +138,50 @@ On the card it:
    decoded by the CPU decoder, timed and held pixel by pixel to the
    decoder's limits; last, ``Detector``'s warp of six raw 1600x900 frames
    to serving's 448x800 (``_warp_or_crop``'s non-integer branch) is timed;
-17. prints a ``{"kernels": [...]}`` line and, last, the
+17. serves image files as users run it (``serving_files_path``): holds
+   the device warp (``ops/warp.py:warp_affine``, ``csrc/warp_affine.cu``,
+   built with the others) bitwise against its plain version on six seeded
+   1600x900 frames to 448x800, six repo 448x256 JPEGs decoded on the card
+   to the same, those with a rotated, scaled and shifted affine and a
+   mixed-size batch, and times it on the six raw frames by device time
+   alone beside numpy ``warp_image`` on the host, its bound and
+   ``grid_sample``; times ``ycc_to_bgr``'s kernel; builds the bf16
+   ``Detector`` at full width and holds the batch that its ``load_data``
+   and ``pre_process`` write on the card (nvJPEG, device crops, one warp
+   launch) against the CPU path's, on six repo JPEG paths and on a batch
+   that mixes crops and warps (``check_batch_images``: bitwise on the
+   same decoded frames, within the decoders' limits of cv2's decode);
+   then, after ``SERVE_WARM`` batches of each, runs ``Detector.run``,
+   ``Detector.run_stream`` and ``run_stream`` with one worker in turns,
+   ``SERVE_ROUNDS`` times, each on ``SERVE_BATCHES`` batches of six repo
+   JPEG paths (cycling the 500) with the counts at 0: one nvJPEG decode
+   and one ``ycc_to_bgr`` an image, one ``warp_affine`` and
+   ``dcn_fwd_bf16`` once per node a batch and nothing else; every run's
+   detections equal the first run's batch by batch and in order (within
+   ``DETECTIONS_RTOL`` where not bitwise); frames/s of each with decode,
+   warp, dispatch, fetch and the stream's queue waits in ms, and the
+   stream's frames/s over run's in each round; then one batch with
+   ``TEST.FLIP_TEST``
+   (the DCN at twice the batch) and one with ``TEST.MULTI_SCALE`` (0.75,
+   1.0, 1.25), on the same module; then ``python -m
+   centerfusiondetect3d_tpu_torch.inference`` on a folder of 24 repo JPEGs
+   with one checkpoint of the served weights, serial with ``--save-dir``
+   and ``--show-attention`` (a drawn frame and two overlays an image) and
+   with ``--stream`` (``results.json`` alone), which must write the same
+   detections;
+18. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
+   ``ycc_to_bgr`` beside the DCN and probe kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
 rehearsal runs the same path at 64x128 with 2 cameras (and a training batch
 of 4 in 2 microbatches) on the CPU, where the DCN ops are the plain versions
-(the bf16 phases and the probes included), and phase 16 on a handful of
-images decoded with cv2 (``TINY_SPLITS``, 64x128); its last line is
+(the bf16 phases and the probes included), phase 16 on a handful of
+images decoded with cv2 (``TINY_SPLITS``, 64x128), and phase 17 on the
+plain warp (held bitwise against numpy ``warp_image`` on 2 frames a
+case), cv2's decode, one round of 2 batches and the CLI's ``main`` in
+this process with ``--device cpu`` on 4 JPEGs; its last line is
 ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
@@ -153,8 +189,10 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import glob
 import importlib.util
+import io
 import json
 import math
 import os
@@ -170,6 +208,7 @@ import torch
 import torch.nn.functional as F
 
 from centerfusiondetect3d_tpu_torch.config import load_config
+from centerfusiondetect3d_tpu_torch import inference as cfd_inference
 from centerfusiondetect3d_tpu_torch import main as cfd_main
 from centerfusiondetect3d_tpu_torch.data import image_io
 from centerfusiondetect3d_tpu_torch.data.image_io import read_image
@@ -179,7 +218,7 @@ from centerfusiondetect3d_tpu_torch.geometry.affine import get_affine_transform
 from centerfusiondetect3d_tpu_torch.losses import GenericLoss
 from centerfusiondetect3d_tpu_torch.models import build_model
 from centerfusiondetect3d_tpu_torch.models.layers import DeformConvNode
-from centerfusiondetect3d_tpu_torch.ops import dcn, probes
+from centerfusiondetect3d_tpu_torch.ops import dcn, probes, warp
 from centerfusiondetect3d_tpu_torch.ops.cuda_build import load_kernel_libraries
 from centerfusiondetect3d_tpu_torch.ops.rasterize import (
     paint_rects_device_batch,
@@ -199,7 +238,8 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
 )
 from centerfusiondetect3d_tpu_torch.tools import probe_dcn
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
-from centerfusiondetect3d_tpu_torch.training.checkpoint import load_torch_file
+from centerfusiondetect3d_tpu_torch.training.checkpoint import (
+    load_torch_file, save_checkpoint)
 from centerfusiondetect3d_tpu_torch.utils.observability import (
     DEVICE_LAUNCHES, time_device)
 
@@ -922,7 +962,9 @@ def model_inputs(det: Detector, frames):
     batch, _ = det.pre_process(*frames)
     dev = det.device
 
-    def t(a):
+    def t(a):  # the image batch is on the card already
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     image = t(batch["image"]).permute(0, 3, 1, 2).float()
@@ -2394,6 +2436,595 @@ def probe_kernel_entries(rows):
     return entries
 
 
+# ------------------------------------------------- phase 17: serving files
+SERVE_BATCH = 6  # cameras a batch
+SERVE_BATCHES = 100  # timed batches of each serving mode, cycling the
+# repo's 500 JPEGs: far past the stream's fill (prefetch workers + 1 = 7
+# batches on an 8-core host, depth 8)
+SERVE_WARM = 16  # untimed batches of each mode first, which fill both
+SERVE_ROUNDS = 3  # the modes in turns, this many times
+# (label, run_stream's arguments, or None for Detector.run)
+SERVE_MODES = (("run", None), ("run_stream", {}),
+               ("run_stream workers=1", {"workers": 1}))
+CLI_IMAGES = 24
+TTA_SCALES = "(0.75, 1.0, 1.25)"
+DETECTIONS_RTOL = 1e-4  # run_stream vs run, and the two CLI runs, where
+# not bitwise: of each quantity's largest magnitude
+AUGMENT = {"rotate": 12.5, "scale": 1.17, "shift": (21.25, -9.5)}
+
+
+def repo_jpegs(n: int = 0):
+    """The first n of the repo's 448x256 camera JPEGs, by name (all of
+    them for 0)."""
+    paths = sorted(glob.glob(os.path.join(DATA_ROOT, "nuscenes", "samples",
+                                          "CAM_FRONT", "*.jpg")))
+    if len(paths) < max(n, 1):
+        raise AssertionError(f"{len(paths)} repo JPEGs under {DATA_ROOT}, "
+                             f"{n} needed")
+    return paths[:n] if n else paths
+
+
+def serving_batches(n: int, start: int = 0):
+    """n batches of ``SERVE_BATCH`` repo JPEG paths from batch ``start`` on,
+    cycling through all of them."""
+    paths = repo_jpegs()
+    return [[paths[((start + i) * SERVE_BATCH + j) % len(paths)]
+             for j in range(SERVE_BATCH)] for i in range(n)]
+
+
+def raw_frames(n: int):
+    """n seeded raw ``RAW_FRAME`` camera frames (those of
+    ``raw_frame_warp_ms``)."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, 256, (*RAW_FRAME, 3), dtype=np.uint8)
+            for _ in range(n)]
+
+
+def serving_trans(h: int, w: int, out_hw, rotate=0.0, scale=1.0,
+                  shift=(0.0, 0.0)):
+    """The serving affine of an h x w frame to ``out_hw`` (H, W), with an
+    optional rotation, scale and centre shift as the dataset augments."""
+    center = np.array([w / 2 + shift[0], h / 2 + shift[1]], np.float32)
+    return get_affine_transform(center, max(h, w) * scale, rotate,
+                                (out_hw[1], out_hw[0]))
+
+
+def warp_cases(device, rehearsal: bool):
+    """(label, frames on ``device``, (n, 2, 3) affines, output (H, W)) of
+    the warp checks: six raw frames to serving's input (decode scale 1),
+    six repo JPEGs decoded on ``device`` to the same, those with a rotated,
+    scaled and shifted affine as the dataset's augmentation draws, and a
+    mixed-size batch."""
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n = 2 if rehearsal else SERVE_BATCH
+    raw = [dev(f) for f in raw_frames(n)]
+    jpegs = [image_io.load_frame(p, device, SERVE_INPUT, False)[0]
+             for p in repo_jpegs(n)]
+    jpegs = [j if isinstance(j, torch.Tensor) else dev(j) for j in jpegs]
+    rng = np.random.default_rng(SEED + 1)
+    mixed = [raw[0], jpegs[0], dev(rng.integers(0, 256, (1600, 900, 3),
+                                                dtype=np.uint8)),
+             dev(rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8))]
+    cases = []
+    for label, frames, kw in (
+            (f"raw {RAW_FRAME[1]}x{RAW_FRAME[0]}", raw, {}),
+            ("repo 448x256", jpegs, {}),
+            ("repo 448x256 augmented", jpegs, AUGMENT),
+            ("mixed sizes", mixed, {})):
+        trans = np.stack([serving_trans(*f.shape[:2], SERVE_INPUT, **kw)
+                          for f in frames])
+        cases.append((label, frames, trans, SERVE_INPUT))
+    return cases
+
+
+def check_warp(device, rehearsal: bool):
+    """Holds ``warp_affine`` bitwise against its plain version (on the
+    card: the kernel; in the rehearsal the plain version against numpy
+    ``warp_image``) on every ``warp_cases`` case; raises on any differing
+    byte, counting them. Returns the rows."""
+    rows = []
+    for label, frames, trans, out_hw in warp_cases(device, rehearsal):
+        inv = warp.inverse_matrices(trans)
+        out = torch.empty((len(frames), *out_hw, 3), dtype=torch.uint8,
+                          device=device)
+        warp.warp_affine(frames, inv, out)
+        bad = 0
+        for i, f in enumerate(frames):
+            got = out[i].cpu()
+            if rehearsal:
+                want = torch.from_numpy(warp_image(
+                    f.numpy(), trans[i], (out_hw[1], out_hw[0])))
+            else:
+                want = warp.warp_affine_plain(f.cpu(), inv[i], out_hw)
+            bad += int((got != want).sum())
+        if bad:
+            raise AssertionError(f"warp_affine on {label}: {bad} bytes "
+                                 f"differ from its plain version")
+        rows.append({"case": label, "images": len(frames),
+                     "sizes": sorted({tuple(f.shape[:2]) for f in frames}),
+                     "bytes_differing": bad})
+    return rows
+
+
+WARPED_PIXEL_TOL = DECODE_PIXEL_TOL + 1  # the card's warped decode against
+# the CPU's: a bilinear weight sum keeps the decoders' bound, and rounding
+# the two sums adds at most one level
+
+
+def check_batch_images(det: Detector, rehearsal: bool):
+    """Holds the ``image`` batch that ``det``'s ``load_data`` and
+    ``pre_process`` write (on the card: nvJPEG, crops of the device frames
+    and one ``warp_affine`` launch scattered into the batch) against the
+    CPU path's (in the rehearsal, the CPU path against itself), on six
+    repo JPEG paths and on a batch that mixes crops and warps of paths and
+    arrays: bitwise against the CPU's ``pre_process``
+    of the same decoded frames, and against the CPU's own decode (cv2,
+    ``FAST_DECODE`` False) and ``warp_image`` within ``WARPED_PIXEL_TOL``
+    and ``DECODE_PIXEL_MEAN_TOL`` (arrays, which no decoder touches,
+    bitwise). Raises on a difference; returns the rows."""
+    cfg = det.config.clone()
+    if det.on_card:  # the card decodes in full whatever FAST_DECODE says
+        cfg.defrost()
+        cfg.TEST.FAST_DECODE = False
+        cfg.freeze()
+    cpu = Detector(cfg, device="cpu", model=det.model)  # pre-processes only
+    in_h, in_w = cfg.MODEL.INPUT_SIZE
+    # a frame two rows taller than the input maps to it by (0, -1): a crop
+    if not np.allclose(serving_trans(in_h + 2, in_w, (in_h, in_w)),
+                       [[1, 0, 0], [0, 1, -1]]):
+        raise AssertionError("the crop frame's affine is no translation")
+    rng = np.random.default_rng(SEED + 2)
+    arr = lambda h, w: rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    paths = repo_jpegs(SERVE_BATCH)
+    host = lambda im: im.cpu().numpy() if isinstance(im, torch.Tensor) else im
+    rows = []
+    for label, frames in (
+            (f"{SERVE_BATCH} repo JPEG paths", paths),
+            ("crops and warps", [arr(in_h + 2, in_w), paths[0],
+                                 arr(*RAW_FRAME), paths[1], arr(720, 1280)])):
+        warps = warp.warp_affine.launches
+        imgs, scales = det.load_data(frames, return_scales=True)
+        got = host(det.pre_process(imgs, None, None, scales)[0]["image"])
+        launched = warp.warp_affine.launches - warps
+        same = cpu.pre_process([host(im) for im in imgs], None, None,
+                               scales)[0]["image"]
+        bad = int((got != same).sum())
+        ref_imgs, ref_scales = cpu.load_data(frames, return_scales=True)
+        ref = cpu.pre_process(ref_imgs, None, None, ref_scales)[0]["image"]
+        diff = np.abs(got.astype(np.int16) - ref)
+        arrays = [i for i, f in enumerate(frames) if not isinstance(f, str)]
+        row = {"case": label, "images": len(frames),
+               "warp_launches": launched,
+               "bytes_differing_same_frames": bad,
+               "vs_cpu_decode_max": int(diff.max()),
+               "vs_cpu_decode_mean": float(diff.mean()),
+               "arrays_differing": int(diff[arrays].sum()) if arrays else 0}
+        if (bad or scales != ref_scales or row["arrays_differing"]
+                or row["vs_cpu_decode_max"] > WARPED_PIXEL_TOL
+                or row["vs_cpu_decode_mean"] > DECODE_PIXEL_MEAN_TOL
+                or launched != (0 if rehearsal else 1)):
+            raise AssertionError(f"the batch of {label} against the CPU "
+                                 f"path's: {row} (scales {scales}, CPU "
+                                 f"{ref_scales})")
+        rows.append(row)
+    return rows
+
+
+def grid_for(inv, src_hw, out_hw, device):
+    """``grid_sample``'s normalized grid (align_corners False) of the
+    inverse affines ``inv`` (n, 6) from out_hw to src_hw."""
+    h, w = src_hw
+    ys, xs = torch.meshgrid(torch.arange(out_hw[0], device=device),
+                            torch.arange(out_hw[1], device=device),
+                            indexing="ij")
+    m = torch.as_tensor(inv, device=device)[:, :, None, None]
+    sx = m[:, 0] * xs + m[:, 1] * ys + m[:, 2]
+    sy = m[:, 3] * xs + m[:, 4] * ys + m[:, 5]
+    return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], -1)
+
+
+def time_warp(device):
+    """The warp of six raw frames to serving's input: the kernel per call
+    and by device time alone, its plain version on the card, numpy
+    ``warp_image`` on the host (what serving ran before), its bound
+    (bytes read and written over 3.35 TB/s) and the yardstick
+    ``grid_sample`` (bilinear, zero padding, float NCHW of the frames)."""
+    frames = raw_frames(SERVE_BATCH)
+    trans = np.stack([serving_trans(*RAW_FRAME, SERVE_INPUT)] * SERVE_BATCH)
+    inv = warp.inverse_matrices(trans)
+    srcs = [torch.from_numpy(f).to(device) for f in frames]
+    out = torch.empty((SERVE_BATCH, *SERVE_INPUT, 3), dtype=torch.uint8,
+                      device=device)
+    call = lambda: warp.warp_affine(srcs, inv, out)
+    plain = lambda: [warp.warp_affine_plain(s, m, SERVE_INPUT)
+                     for s, m in zip(srcs, inv)]
+    x = torch.stack(srcs).permute(0, 3, 1, 2).float().contiguous()
+    grid = grid_for(inv, RAW_FRAME, SERVE_INPUT, device)
+    library = lambda: F.grid_sample(x, grid, mode="bilinear",
+                                    padding_mode="zeros", align_corners=False)
+    row = {"frames": f"{SERVE_BATCH} x {RAW_FRAME[1]}x{RAW_FRAME[0]} -> "
+                     f"{SERVE_INPUT[1]}x{SERVE_INPUT[0]}",
+           "ms": time_one(call, TIMING_REPS), "device_ms": time_device(call),
+           "plain_ms": time_one(plain, 3),
+           "library_ms": time_one(library, TIMING_REPS),
+           "library_device_ms": time_device(library, 20),
+           "host_numpy_ms": raw_frame_warp_ms(3)}
+    moved = sum(s.numel() for s in srcs) + out.numel()
+    row["bound_ms"] = 1e3 * moved / PEAK_BYTES
+    row["bytes"] = moved
+    lib = library()
+    want = torch.stack([torch.from_numpy(warp_image(
+        f, trans[0], (SERVE_INPUT[1], SERVE_INPUT[0]))) for f in frames])
+    row["library_max_level_diff"] = float((lib.permute(0, 2, 3, 1).cpu()
+                                           - want.float()).abs().max())
+    return row
+
+
+def time_ycc(device):
+    """``ycc_to_bgr``'s kernel on one repo JPEG's planes (448x256, 4:2:0):
+    per call, by device time alone, its plain version on the card, and
+    its bound."""
+    data = np.fromfile(repo_jpegs(1)[0], np.uint8)
+    planes = image_io.decode_planes(data, device)
+    call = lambda: image_io.ycc_to_bgr(*planes)
+    moved = sum(p.numel() for p in planes) + 3 * planes[0].numel()
+    return {"image": "448x256 4:2:0", "ms": time_one(call, TIMING_REPS),
+            "device_ms": time_device(call),
+            "plain_ms": time_one(lambda: image_io.ycc_to_bgr_plain(*planes),
+                                 TIMING_REPS),
+            "bound_ms": 1e3 * moved / PEAK_BYTES, "bytes": moved}
+
+
+def serving_counts():
+    return {"decode": image_io.decode_jpeg.launches,
+            "ycc_to_bgr": image_io.ycc_to_bgr.launches,
+            "warp_affine": warp.warp_affine.launches, **launch_counts()}
+
+
+def reset_serving_counts():
+    image_io.decode_jpeg.launches = 0
+    image_io.ycc_to_bgr.launches = 0
+    warp.warp_affine.launches = 0
+    reset_launch_counts()
+
+
+def flat_results(results):
+    """{img_id: [items]} -> {key: float64 array of every item's value}."""
+    out = {}
+    for img_id in sorted(results):
+        for it in results[img_id]:
+            for k, v in it.items():
+                out.setdefault(k, []).append(np.ravel(np.asarray(
+                    v, np.float64)))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def same_detections(got, want, what: str) -> bool:
+    """Raises unless the two result dicts hold the same images, counts and
+    classes, and every value within ``DETECTIONS_RTOL`` of its key's
+    largest magnitude; returns whether they are bitwise equal."""
+    if ({k: len(v) for k, v in got.items()}
+            != {k: len(v) for k, v in want.items()}):
+        raise AssertionError(f"{what}: other images or counts")
+    a, b = flat_results(got), flat_results(want)
+    if sorted(a) != sorted(b) or not np.array_equal(a["class"], b["class"]):
+        raise AssertionError(f"{what}: other keys or classes")
+    bitwise = True
+    for k in a:
+        scale = max(float(np.abs(b[k]).max()), 1e-30) if b[k].size else 1.0
+        rel = float(np.abs(a[k] - b[k]).max()) / scale if a[k].size else 0.0
+        if not rel <= DETECTIONS_RTOL:
+            raise AssertionError(f"{what}: {k} off by {rel:.3e} of its "
+                                 f"largest magnitude")
+        bitwise &= bool(np.array_equal(a[k], b[k]))
+    return bitwise
+
+
+def serving_detector(device, rehearsal: bool, extra=()):
+    """The bf16 Detector at the full width of Centerfusion_Middle (the
+    rehearsal at 64x128), seeded weights, BatchNorm calibrated on six
+    synthetic frames."""
+    opts = MAIN_PATH_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"] if rehearsal
+                             else []) + list(extra)
+    det = Detector(load_config(opts=opts, num_classes=10), device=device)
+    seeded_weights(det.model, SEED)
+    calibrate_batchnorm(det, synthetic_frames(
+        2 if rehearsal else SERVE_BATCH, *((72, 128) if rehearsal
+                                           else (450, 800)), seed=SEED))
+    return det
+
+
+def tta_detector(det: Detector, extra) -> Detector:
+    """A Detector of ``det``'s config with ``extra`` overrides, serving
+    ``det``'s module (no second copy on the card)."""
+    cfg = det.config.clone()
+    cfg.defrost()
+    cfg.merge_from_list(list(extra))
+    cfg.freeze()
+    return Detector(cfg, device=det.device, model=det.model)
+
+
+def node_batches(model):
+    """A list that each DCN node's forward appends its batch to, and the
+    hooks' handles."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(int(args[0].shape[0])))
+        for m in model.modules() if isinstance(m, DeformConvNode)]
+    return seen, hooks
+
+
+def run_cli(args, rehearsal: bool):
+    """The inference CLI on ``args``: on the card ``python -m
+    centerfusiondetect3d_tpu_torch.inference`` from the checkout, in the
+    rehearsal ``inference.main`` with ``--device cpu`` in this process
+    (where the hermetic test hides the JAX stack). Returns (seconds, its
+    last line of output)."""
+    t0 = time.perf_counter()
+    if rehearsal:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cfd_inference.main(args + ["--device", "cpu"])
+        return time.perf_counter() - t0, out.getvalue().strip().splitlines()[-1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "centerfusiondetect3d_tpu_torch.inference",
+           *args]
+    proc = subprocess.run(cmd, cwd=root, env={**os.environ,
+                                              "PYTHONPATH": root},
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"inference CLI {' '.join(args[:6])} ... "
+                             f"exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return (time.perf_counter() - t0,
+            proc.stdout.strip().splitlines()[-1])
+
+
+def serving_files_path(device, rehearsal: bool, card):
+    """Phase 17: serving image files as users run it. The warp kernel
+    against its plain version (bitwise) and timed; the card's serving
+    batch against the CPU path's (``check_batch_images``);
+    ``Detector.run`` and ``Detector.run_stream`` (with the derived and
+    with one worker) in turns on ``SERVE_BATCHES`` batches of six repo
+    JPEG paths in bf16, each counted (a decode and a colour conversion per
+    image, one warp launch a batch, the bf16 DCN once per node a batch,
+    nothing else), their detections against the first run's, frames/s and
+    stages; flip and multi-scale
+    TTA on one batch each; the inference CLI on a folder, serial and
+    streamed. Returns its report."""
+    where = "" if rehearsal else f" on {card}"
+    report = {"warp_checks": check_warp(device, rehearsal)}
+    log(f"warp_affine {'plain vs warp_image' if rehearsal else 'kernel vs plain'}"
+        f": bitwise on " + ", ".join(f"{r['case']} ({r['images']} images)"
+                                     for r in report["warp_checks"]))
+    if not rehearsal:
+        report["warp_timing"] = t = time_warp(device)
+        log(f"  warp {t['frames']}: kernel {t['device_ms']:.4f} ms by device "
+            f"time alone ({t['ms']:.4f} ms a call), bound {t['bound_ms']:.4f} "
+            f"ms ({t['bytes'] / 1e6:.1f} MB), plain on the card "
+            f"{t['plain_ms']:.2f} ms, numpy warp_image on the host "
+            + "/".join(f"{v:.1f}" for v in t["host_numpy_ms"])
+            + f" ms, grid_sample {t['library_device_ms']:.4f} ms device "
+            f"alone ({t['library_ms']:.4f} a call; up to "
+            f"{t['library_max_level_diff']:.2f} levels off){where}")
+        report["ycc_timing"] = y = time_ycc(device)
+        log(f"  ycc_to_bgr {y['image']}: {y['device_ms']:.5f} ms by device "
+            f"time alone ({y['ms']:.4f} a call), bound {y['bound_ms']:.5f} "
+            f"ms, plain {y['plain_ms']:.3f} ms{where}")
+
+    det = serving_detector(device, rehearsal)
+    report["batch_checks"] = checks = check_batch_images(det, rehearsal)
+    for r in checks:
+        log(f"the serving batch of {r['case']} ({r['images']} frames, "
+            f"{r['warp_launches']} warp launch) against the CPU path's: "
+            f"bitwise on the same decoded frames; within "
+            f"{r['vs_cpu_decode_max']} levels ({r['vs_cpu_decode_mean']:.4f}"
+            f" on average; limits {WARPED_PIXEL_TOL}, "
+            f"{DECODE_PIXEL_MEAN_TOL}) of the CPU's cv2 decode and "
+            f"warp_image, arrays bitwise{where}")
+    n_nodes = sum(isinstance(m, DeformConvNode) for m in det.model.modules())
+    n_batches = 2 if rehearsal else SERVE_BATCHES
+    n_rounds = 1 if rehearsal else SERVE_ROUNDS
+    batches = serving_batches(n_batches, start=SERVE_WARM)
+
+    def serve(kw, items):
+        if kw is None:
+            return [det.run(b)["results"] for b in items]
+        return [r["results"] for r in det.run_stream(
+            iter([(b, None, None) for b in items]), **kw)]
+
+    for _, kw in SERVE_MODES:  # warm-up: fills the stream's queue and depth
+        serve(kw, serving_batches(2 if rehearsal else SERVE_WARM))
+    per_batch = {"decode": SERVE_BATCH, "ycc_to_bgr": SERVE_BATCH,
+                 "warp_affine": 1, "dcn_fwd_bf16": n_nodes}
+    runs = {label: {"frames_per_s": [], "wall_s": [], "stages": []}
+            for label, _ in SERVE_MODES}
+    ref, bitwise = None, True
+    for k in range(n_rounds):
+        for label, kw in SERVE_MODES:
+            det.stage_stats(reset=True)
+            reset_serving_counts()
+            t0 = time.perf_counter()
+            results = serve(kw, batches)
+            wall = time.perf_counter() - t0
+            counts = serving_counts()
+            want = {key: 0 for key in counts}
+            if not rehearsal:
+                want.update({key: v * n_batches
+                             for key, v in per_batch.items()})
+            if counts != want or len(results) != n_batches:
+                raise AssertionError(f"{label} on {n_batches} batches of "
+                                     f"JPEG paths gave {len(results)} "
+                                     f"results, launched {counts}, "
+                                     f"expected {want}")
+            if ref is None:  # the first run: finite, then the reference
+                ref = results
+                runs[label]["detections"] = sum(
+                    check_results({"results": r}, SERVE_BATCH)
+                    for r in results)
+            else:
+                bitwise &= all([same_detections(
+                    got, exp, f"{label} round {k + 1} batch {i} vs run")
+                    for i, (got, exp) in enumerate(zip(results, ref))])
+            r = runs[label]
+            r["counts"] = counts
+            r["frames_per_s"].append(SERVE_BATCH * n_batches / wall)
+            r["wall_s"].append(wall)
+            r["stages"].append(st := det.stage_stats())
+            waits = "".join(f", {w} {st[w]:.2f}" for w in (
+                "get_wait", "put_wait", "result_wait") if w in st)
+            log(f"round {k + 1} {label} on {n_batches} batches of "
+                f"{SERVE_BATCH} repo JPEG paths (bf16, "
+                f"{det.config.MODEL.INPUT_SIZE[0]}x"
+                f"{det.config.MODEL.INPUT_SIZE[1]}): "
+                f"{r['frames_per_s'][-1]:.2f} frames/s ({wall:.2f} s); "
+                f"decode {st.get('decode', 0):.3f}, warp "
+                f"{st.get('warp', 0):.3f} ms an image, dispatch "
+                f"{st.get('dispatch', 0):.2f}, fetch {st.get('fetch', 0):.2f}"
+                f"{waits} ms a batch{where}")
+    log(f"  launches in each: {runs['run']['counts']}; every mode's "
+        f"detections equal the first run's batch by batch and in order "
+        f"({'bitwise' if bitwise else f'within {DETECTIONS_RTOL}'}), "
+        f"{runs['run']['detections']} detections a run, all finite")
+    fps = {label: r["frames_per_s"] for label, r in runs.items()}
+    for label in fps:
+        runs[label]["median_frames_per_s"] = statistics.median(fps[label])
+        if label != "run":
+            runs[label]["over_run"] = [
+                s / r for s, r in zip(fps[label], fps["run"])]
+    log("  frames/s over the rounds in turns: " + "; ".join(
+        f"{label} " + " / ".join(f"{v:.2f}" for v in fps[label])
+        + (" (" + " / ".join(f"{v:.3f}" for v in runs[label]["over_run"])
+           + " of run's in the same round)" if label != "run" else "")
+        for label in fps) + where)
+    report.update(serving=runs, stream_bitwise=bitwise, dcn_nodes=n_nodes)
+
+    # TTA: flip (the DCN at twice the batch), multi-scale (three sizes)
+    tta = {}
+    for name, extra, n_launch, node_batch in (
+            ("flip", ["TEST.FLIP_TEST", "True"], n_nodes, 2 * SERVE_BATCH),
+            ("multi_scale", ["TEST.MULTI_SCALE", TTA_SCALES], 3 * n_nodes,
+             SERVE_BATCH)):
+        tdet = tta_detector(det, extra)
+        seen, hooks = node_batches(det.model)
+        reset_serving_counts()
+        try:
+            ret = tdet.run(batches[0])
+        finally:
+            for h in hooks:
+                h.remove()
+        counts = serving_counts()
+        if not rehearsal and counts["dcn_fwd_bf16"] != n_launch:
+            raise AssertionError(f"{name}: dcn_fwd_bf16 launched "
+                                 f"{counts['dcn_fwd_bf16']}, expected "
+                                 f"{n_launch}")
+        if set(seen) != {node_batch} or len(seen) != n_launch:
+            raise AssertionError(f"{name}: DCN node batches {seen}")
+        tta[name] = {"detections": check_results(ret, SERVE_BATCH),
+                     "dcn_fwd_bf16": counts["dcn_fwd_bf16"],
+                     "node_batch": node_batch,
+                     "sizes": [list(d.config.MODEL.INPUT_SIZE)
+                               for d in tdet._scaled.values()]}
+        log(f"{name} TTA on one batch: {tta[name]['detections']} detections, "
+            f"all finite; dcn_fwd_bf16 launched {counts['dcn_fwd_bf16']} "
+            f"times at batch {node_batch}"
+            + (f"; scaled inputs {tta[name]['sizes']}" if tta[name]["sizes"]
+               else "") + where)
+    report["tta"] = tta
+
+    # the CLI on a folder of repo JPEGs (4 in the rehearsal), serial (with
+    # --save-dir) and streamed, on one checkpoint of the served weights
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_cli_") as tmp:
+        folder = os.path.join(tmp, "frames")
+        os.makedirs(folder)
+        for p in repo_jpegs(4 if rehearsal else CLI_IMAGES):
+            os.symlink(p, os.path.join(folder, os.path.basename(p)))
+        ckpt = save_checkpoint(os.path.join(tmp, "ckpt"), det.model, None, 0)
+        del det
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        opts = MAIN_PATH_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"]
+                                 if rehearsal else [])
+        cli = {}
+        for mode in ("serial", "stream"):
+            out = os.path.join(tmp, mode)
+            args = (["--input", folder, "--load", ckpt, "--save-dir", out]
+                    + (["--stream"] if mode == "stream"
+                       else ["--show-attention"]) + opts)
+            seconds, last = run_cli(args, rehearsal)
+            with open(os.path.join(out, "results.json")) as f:
+                results = json.load(f)
+            cli[mode] = {"seconds": seconds, "last_line": last,
+                         "results": results, "files": sorted(os.listdir(out))}
+        names = sorted(os.listdir(folder))
+        for mode, r in cli.items():
+            if sorted(r["results"]) != names or not all(r["results"].values()):
+                raise AssertionError(f"CLI {mode}: results for "
+                                     f"{len(r['results'])} of {len(names)}")
+        drawn = [f for f in cli["serial"]["files"] if f.endswith("_det.jpg")]
+        overlays = [f for f in cli["serial"]["files"] if "_att_" in f]
+        if len(drawn) != len(names) or len(overlays) != 2 * len(names):
+            raise AssertionError(f"CLI serial --save-dir drew {len(drawn)} "
+                                 f"of {len(names)} frames and "
+                                 f"{len(overlays)} attention overlays")
+        if cli["stream"]["files"] != ["results.json"]:
+            raise AssertionError(f"CLI --stream --save-dir wrote "
+                                 f"{cli['stream']['files']}")
+        cli_bitwise = same_detections(
+            {i: cli["stream"]["results"][n] for i, n in enumerate(names)},
+            {i: cli["serial"]["results"][n] for i, n in enumerate(names)},
+            "CLI --stream vs serial")
+    for mode, r in cli.items():
+        log(f"inference CLI ({mode}) on {len(names)} repo JPEGs: "
+            f"{r['seconds']:.1f} s{where}; {r['last_line'][:160]}")
+        del r["results"]
+    log(f"  the streamed CLI wrote the serial CLI's detections "
+        f"({'bitwise' if cli_bitwise else f'within {DETECTIONS_RTOL}'}); "
+        f"the serial one {len(drawn)} _det.jpg frames, {len(overlays)} "
+        f"--show-attention overlays (depthMap, pc_hm) and results.json")
+    report["cli"] = cli
+    report["cli_bitwise"] = cli_bitwise
+    return report
+
+
+def warp_kernel_entry(report):
+    """The ``kernels`` line's entry of ``warp_affine``: launches on phase
+    17's ``run`` over JPEG paths, the warp of six raw frames timed (per
+    call, plain on the card, bound, ``grid_sample``), and beside it its
+    device time alone and numpy's host time."""
+    t = report["warp_timing"]
+    return {"name": "warp_affine", "route": "cuda",
+            "source": "centerfusiondetect3d_tpu_torch/csrc/" + warp.SOURCE,
+            "replaces": "none (cv2.warpAffine on the host, "
+                        "centerfusiondetect3d_tpu/runtime/detector.py:90)",
+            "path": "Detector.run on image files",
+            "launches": report["serving"]["run"]["counts"]["warp_affine"],
+            "max_abs_err": 0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "host_numpy_ms": t["host_numpy_ms"], "shape": t["frames"],
+            "checks": report["warp_checks"]}
+
+
+def ycc_kernel_entry(report, cases: int):
+    """The ``kernels`` line's entry of ``ycc_to_bgr``'s kernel: launches on
+    phase 17's ``run`` over JPEG paths, held bitwise against its plain
+    version in ``cases`` cases (phase 1), timed on one repo JPEG."""
+    y = report["ycc_timing"]
+    return {"name": "ycc_to_bgr", "route": "cuda",
+            "source": "centerfusiondetect3d_tpu_torch/csrc/"
+                      + image_io.SOURCE,
+            "replaces": "none (cv2.imread's colour conversion on the host, "
+                        "centerfusiondetect3d_tpu/runtime/detector.py:275)",
+            "path": "Detector.run on image files",
+            "launches": report["serving"]["run"]["counts"]["ycc_to_bgr"],
+            "max_abs_err": 0, "bitwise_cases": cases, "ms": y["ms"],
+            "plain_ms": y["plain_ms"], "bound_ms": y["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "device_ms": y["device_ms"], "shape": y["image"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2423,13 +3054,15 @@ def main(argv=None) -> int:
         t_build = time.perf_counter()
         log("decoders: " + ", ".join(decoder_facts()))
         built = load_kernel_libraries(dcn.KERNEL_SOURCES
-                                      + (probes.SOURCE, image_io.SOURCE))
+                                      + (probes.SOURCE, image_io.SOURCE,
+                                         warp.SOURCE))
         log(f"built {len(built)} sources with nvcc in parallel in "
             f"{time.perf_counter() - t_build:.1f} s")
         for source, lib in built.items():
             log(f"{source}: nvcc {lib.build_seconds:.1f} s -> {lib.path.name}")
             for line in lib.ptxas:
                 log(f"  ptxas: {line}")
+    n_ycc = 0
     if not rehearsal:
         n_ycc = ycc_kernel_vs_plain(args.device)
         log(f"ycc_to_bgr kernel: bitwise equal to its plain version in "
@@ -2623,6 +3256,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     main_py = main_py_path(args.device, rehearsal, card)
     log(f"phase main.py: {time.perf_counter() - t0:.1f} s")
+
+    # 17. serving image files: the warp kernel, run and run_stream on JPEG
+    # paths, counted; flip and multi-scale TTA; the inference CLI
+    t0 = time.perf_counter()
+    files = serving_files_path(args.device, rehearsal, card)
+    log(f"phase serving files: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -2640,9 +3279,11 @@ def main(argv=None) -> int:
         for name in names:
             kernels.append(backward_kernel_entry(name, rows_b, run))
     kernels += probe_kernel_entries(probe_rows)
+    kernels += [warp_kernel_entry(files), ycc_kernel_entry(files, n_ycc)]
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
+    log(json.dumps({"serving_files": files}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

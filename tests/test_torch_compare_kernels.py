@@ -239,3 +239,35 @@ def test_a_probe_is_held_to_its_rtol():
         1e-3, rel=1e-3)
     with pytest.raises(SystemExit, match="rtol 0.0001"):
         ck.hold_probe(near, want, 1e-4, "k5", "case")
+
+
+def test_warp_affine_is_a_kernel_of_the_tool():
+    """``warp_affine``'s inputs are serving's two geometries, and its call
+    on the CPU runs the plain warp: numpy ``warp_image`` of each frame."""
+    import numpy as np
+
+    from centerfusiondetect3d_tpu_torch.data.transforms import warp_image
+    from centerfusiondetect3d_tpu_torch.geometry.affine import (
+        get_affine_transform)
+    from centerfusiondetect3d_tpu_torch.ops import warp
+
+    assert "warp_affine" in ck.WARP_KERNELS
+    cases = ck.warp_inputs("cpu", n=2)
+    assert [len(f) for _, f, _ in cases] == [2, 2]
+    assert [tuple(f[0].shape[:2]) for _, f, _ in cases] == list(
+        ck.WARP_SOURCES)
+    for label, frames, inv in cases:
+        out = ck.warp_call(warp, frames, inv)()
+        assert tuple(out.shape) == (2, *ck.WARP_OUT, 3)
+        h, w = frames[0].shape[:2]
+        trans = get_affine_transform(np.array([w / 2, h / 2], np.float32),
+                                     max(h, w), 0, ck.WARP_OUT[::-1])
+        for i, f in enumerate(frames):
+            np.testing.assert_array_equal(
+                out[i].numpy(), warp_image(f.numpy(), trans,
+                                           ck.WARP_OUT[::-1]), err_msg=label)
+
+
+def test_warp_affine_refuses_a_tree_without_the_warp(tmp_path):
+    with pytest.raises(SystemExit, match="ops/warp.py"):
+        ck.load_other_warp(str(tmp_path))

@@ -161,5 +161,5 @@ def test_entry_point_needs_card_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         detector.Detector(cfg)
     det = detector.Detector(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         det.load_data("frame.jpg")

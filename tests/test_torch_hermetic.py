@@ -4,7 +4,10 @@ orbax, pyyaml, opencv, PIL, imageio or anything of the JAX package.
 The machine that runs the CPU tests has all of them, so a subprocess hides
 them (``sys.modules[name] = None`` makes every import of the name fail) and
 then imports every module of the port and runs the ``chip_smoke.py``
-rehearsal, serving, training, the probes and ``main.py``, to its last line.
+rehearsal, serving, training, the probes, ``main.py`` and serving image
+files (phase 17: the plain warp, ``run``, ``run_stream``, flip and
+multi-scale TTA, and the inference CLI's ``main``, serial with
+``--save-dir`` and ``--show-attention``, then streamed), to its last line.
 opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
 reads its JPEGs): there the subprocess lets only that module import it, and
 the rehearsal's ``main.py`` phase decodes through it. An AST scan checks the
@@ -78,12 +81,17 @@ with contextlib.redirect_stdout(out):
 loaded = sorted(n for n, m in sys.modules.items()
                 if n.split(".")[0] in BLOCKED and m is not None)
 lines = out.getvalue().strip().splitlines()
-print(json.dumps({{"rc": rc, "modules": len(mods), "loaded": loaded,
+print(json.dumps({{"rc": rc, "modules": mods, "loaded": loaded,
                    "cv2_from": sorted(set(cv2_from)),
                    "phases": [l.split(":")[0] for l in lines
                               if l.startswith("phase ")],
                    "last": lines[-1]}}))
 """
+
+
+# the serving slice's modules, among those the subprocess imports
+NEW_MODULES = ("ops/warp.py", "ops/tta.py", "utils/visualize.py",
+               "inference.py")
 
 
 def _sources():
@@ -154,7 +162,9 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == 0
-    assert report["modules"] >= 20
+    assert len(report["modules"]) >= 20
+    assert {f"{PACKAGE.name}.{m[:-3].replace('/', '.')}"
+            for m in NEW_MODULES} <= set(report["modules"])
     assert report["loaded"] == [], report["loaded"]
     assert report["cv2_from"] == [str(CV2_ONLY_IN)], report["cv2_from"]
     # serving in float32 and in bf16, then the DCN backward check, the
@@ -166,7 +176,8 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
         "phase bf16 main path", "phase bf16 heads", "phase backward-vs-plain",
         "phase training", "phase step-vs-plain",
         "phase bf16-backward-vs-plain", "phase bf16 training",
-        "phase bf16 step-vs-plain", "phase probes", "phase main.py"
+        "phase bf16 step-vs-plain", "phase probes", "phase main.py",
+        "phase serving files"
     ], report["phases"]
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
 
@@ -183,7 +194,8 @@ def test_kernel_sources_ship_as_package_data():
     sources = sorted(p.relative_to(PACKAGE).as_posix()
                      for p in (PACKAGE / "csrc").iterdir())
     assert {"csrc/dcn_fwd.cu", "csrc/dcn_bwd.cu", "csrc/dcn_fwd_bf16.cu",
-            "csrc/dcn_probes.cu", "csrc/jpeg_decode.cu"} <= set(sources)
+            "csrc/dcn_probes.cu", "csrc/jpeg_decode.cu",
+            "csrc/warp_affine.cu"} <= set(sources)
     for src in sources:
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
 

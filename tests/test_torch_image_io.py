@@ -13,9 +13,11 @@ planes PIL reads exactly (Y as decoded; a chroma sample is its block's
 value), at 4:2:0, 4:2:2, 4:4:4 and grey, even and odd sizes. The ``cuda``
 cases hold the decoder within the smoke's limits of the literals and, where
 the card's machine has cv2, of cv2's decode of every image of the repo's
-data; the colour kernel bitwise against its plain version; the counts; and
-the refusal of a file that is not a JPEG and of planes of a sampling the
-kernel does not take.
+data; the colour kernel bitwise against its plain version; decodes from
+six threads at once, each on its own stream as ``Detector.run_stream``'s
+workers decode, bitwise the serial ones; the counts; and the refusal of
+a file that is not a JPEG and of planes of a sampling the kernel does not
+take.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import glob
 import io
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -166,6 +170,42 @@ def test_card_decode_of_every_image_is_within_the_limits_of_cv2():
           f"on average from cv2 {cv2.__version__}")
     assert worst <= chip_smoke.DECODE_PIXEL_TOL
     assert total / n <= chip_smoke.DECODE_PIXEL_MEAN_TOL
+
+
+@pytest.mark.cuda
+def test_concurrent_decodes_on_worker_streams_are_the_serial_ones():
+    """Six threads decode the repo's 500 JPEGs at once, each on its own
+    CUDA stream, while a seventh stream keeps the card busy with matrix
+    products (as the forward does when ``run_stream`` serves): every frame
+    is bitwise what a serial decode gives, though one nvJPEG decoder state
+    serves all of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    paths = sorted(glob.glob(os.path.join(chip_smoke.DATA_ROOT, "nuscenes",
+                                          "samples", "*", "*.jpg")))
+    data = [np.fromfile(p, np.uint8) for p in paths]
+    want = [image_io.decode_jpeg_device(d, "cuda").cpu() for d in data]
+    local = threading.local()
+
+    def decode(d):
+        if not hasattr(local, "stream"):
+            local.stream = torch.cuda.Stream()
+        with torch.cuda.stream(local.stream):
+            return image_io.decode_jpeg_device(d, "cuda").cpu()
+
+    busy = torch.cuda.Stream()
+    a = torch.randn((4096, 4096), device="cuda")
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        futures = [pool.submit(decode, d) for d in data]
+        with torch.cuda.stream(busy):
+            while not all(f.done() for f in futures):
+                for _ in range(4):
+                    a = torch.tanh(a @ a)
+                busy.synchronize()
+        got = [f.result() for f in futures]
+    bad = [os.path.basename(p) for p, g, w in zip(paths, got, want)
+           if not torch.equal(g, w)]
+    assert not bad, f"{len(bad)} of {len(paths)} differ: {bad[:8]}"
 
 
 @pytest.mark.cuda
