@@ -18,7 +18,15 @@ approximation or a TPU runtime setting are accepted and ignored:
   ``S2D_STEM``: every DCN node runs the unclamped op on the plain stem;
 - ``MODEL.APPROX_TOPK`` and ``MODEL.FUSED_HEAD_TOWERS``: top-k is exact and
   every head tower runs on its own;
-- ``TEST.MAX_DEVICE_BATCH``, ``TEST.DEVICE_BATCH_MAP`` and ``TPU.*``.
+- ``TEST.MAX_DEVICE_BATCH``, ``TEST.DEVICE_BATCH_MAP`` and every ``TPU.*``
+  key but two.
+
+``runtime/fit.py``'s Trainer reads ``TPU.PREFETCH`` (the batches that
+``data/pipeline.py:device_prefetch`` moves to the device ahead of the
+step) and ``TPU.PROFILE`` (a ``torch.profiler`` trace of the first epoch
+into ``OUTPUT_DIR/profile``), and ``WORKERS`` (the Loader's threads; 0
+builds the items on the training thread, the fastest setting measured for
+the eager step, ``PERF.md`` §7).
 """
 
 from .node import ConfigNode

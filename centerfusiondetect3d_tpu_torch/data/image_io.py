@@ -30,7 +30,8 @@ at full resolution (decode scale 1), a documented difference
 The inference CLI's video and webcam reader (``video_frames``), its JPEG
 writer (``write_image``), its box and label drawing (``draw_box``) and its
 ``--show-attention`` overlay (``attention_overlay``) are opencv's as well;
-they import it when called and name it when it is missing.
+they import it when called and name it when it is missing (``opencv``,
+which ``data/synthetic.py`` calls too).
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ STATUS = {
           "4:2:0",
 }
 _COUNT = threading.Lock()  # serving decodes in the stream's worker threads
+_THREAD = threading.local()  # read_image's CUDA stream of each thread
 # libjpeg's fixed-point YCbCr -> RGB (jdcolor.c: FIX(x) at 16 bits)
 ONE_HALF = 1 << 15
 FIX_1_40200, FIX_1_77200, FIX_0_34414, FIX_0_71414 = 91881, 116130, 22554, 46802
@@ -93,12 +95,19 @@ def _entry(name: str):
 
 
 def read_image(path: str, device) -> np.ndarray:
-    """The image at ``path`` as HWC BGR uint8, decoded on ``device``."""
+    """The image at ``path`` as HWC BGR uint8, decoded on ``device``. On a
+    CUDA device each calling thread decodes on a stream of its own (the
+    Loader's threads decode side by side, and apart from the training
+    step's stream); the copy back to the host waits for that stream."""
     device = torch.device(device)
     if device.type == "cpu":
         return _read_cv2(path)
     if device.type == "cuda":
-        return decode_jpeg(np.fromfile(path, np.uint8), device, name=path)
+        streams = _THREAD.__dict__.setdefault("streams", {})
+        if device not in streams:
+            streams[device] = torch.cuda.Stream(device)
+        with torch.cuda.stream(streams[device]):
+            return decode_jpeg(np.fromfile(path, np.uint8), device, name=path)
     raise RuntimeError(f"read_image: no decoder for device {device}")
 
 
@@ -295,7 +304,10 @@ def ycc_to_bgr_plain(y: torch.Tensor, cb: Optional[torch.Tensor],
 
 
 # ----------------------------------------------------------- the CLI's opencv
-def _cv2(what: str):
+def opencv(what: str):
+    """The cv2 module, imported here, or an ImportError that names
+    ``what`` needs it (the CLI's drawing and writing, the synthetic
+    tables' renders and JPEGs, ``data/synthetic.py``)."""
     try:
         import cv2
     except ImportError as e:
@@ -307,7 +319,7 @@ def _cv2(what: str):
 def video_frames(source) -> Iterator[np.ndarray]:
     """The BGR uint8 frames of a video file, or of the webcam for
     ``source`` 0, as ``cv2.VideoCapture`` reads them."""
-    cap = _cv2("reading video").VideoCapture(source)
+    cap = opencv("reading video").VideoCapture(source)
     try:
         while True:
             ok, frame = cap.read()
@@ -321,7 +333,7 @@ def video_frames(source) -> Iterator[np.ndarray]:
 def write_image(path: str, img: np.ndarray) -> None:
     """Writes the HWC BGR uint8 ``img`` to ``path`` (``cv2.imwrite``: JPEG
     for a .jpg name); raises where it cannot."""
-    if not _cv2("writing images").imwrite(path, np.ascontiguousarray(img)):
+    if not opencv("writing images").imwrite(path, np.ascontiguousarray(img)):
         raise OSError(f"cannot write {path}")
 
 
@@ -330,7 +342,7 @@ def draw_box(img: np.ndarray, box, label: str,
     """Draws the integer box (x1, y1, x2, y2) and ``label`` above it onto
     ``img`` in place, as the JAX package's ``inference.draw_detections``
     does (``cv2.rectangle``, ``cv2.putText``)."""
-    cv2 = _cv2("drawing detections")
+    cv2 = opencv("drawing detections")
     x1, y1, x2, y2 = box
     cv2.rectangle(img, (x1, y1), (x2, y2), color, 2)
     cv2.putText(img, label, (x1, max(y1 - 4, 10)), cv2.FONT_HERSHEY_SIMPLEX,
@@ -342,7 +354,7 @@ def attention_overlay(image: np.ndarray, att_map: np.ndarray,
     """The jet-coloured attention/depth map (H, W) uint8 blended onto the
     HWC BGR ``image`` resized to the map's size, as the JAX package's
     ``utils/visualize.py:attention_overlay`` computes it."""
-    cv2 = _cv2("drawing attention overlays")
+    cv2 = opencv("drawing attention overlays")
     small = cv2.resize(image, (att_map.shape[1], att_map.shape[0]))
     heat = cv2.applyColorMap(np.asarray(att_map, np.uint8), cv2.COLORMAP_JET)
     return cv2.addWeighted(heat, alpha, small, 1.0, 0)

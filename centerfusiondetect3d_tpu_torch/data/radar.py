@@ -1,15 +1,17 @@
 """Host-side radar point-cloud processing (numpy).
 
-The port's own copy of ``centerfusiondetect3d_tpu/data/radar.py``, on the
-numpy paths only (the JAX package's optional C++ paint is not used; the
-overwrite-ordered paint is the plain loop it falls back to). The reference
-radar pipeline (``src/lib/dataset/generic_dataset.py:738-942``,
+The port's own copy of ``centerfusiondetect3d_tpu/data/radar.py``. The
+reference radar pipeline (``src/lib/dataset/generic_dataset.py:738-942``,
 ``datasets/nuscenes.py:131-294``, ``utils/pointcloud.py:17-49``): camera projection
 with in-view filtering, depth sorting (nearest drawn last so overwrites win),
 pillar/heatmap/points rasterization into the NHWC radar depth map
 [d, vel_x, vel_z]. The per-point pillar projection is fully vectorized
-(one batched corner projection for all points); only the final overwrite-
-ordered paint is a short loop over <= MAX_PC points.
+(one batched corner projection for all points); the overwrite-ordered
+paint of the boxes is the C++ kernel of ``native/`` (``paint_rects``, or
+``paint_rects_channels`` for ``ONE_HOT_PC``), as in the JAX package, but
+with no fallback: a failed build raises. The kernel's numpy plain version
+(``native.paint_rects_plain``, ``paint_rects_channels_plain``) paints
+``process_point_cloud_plain`` and ``paint_rows_host_plain``.
 
 Radar rows follow the nuScenes 18-row layout: rows 0-2 xyz, row 8 vx_comp,
 row 9 vy_comp (camera frame: x right, z front after conversion).
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..geometry.gaussian import gaussian_radius
 from ..geometry.transforms3d import get_3d_box_np, project_3d_points_np
 
@@ -95,33 +98,12 @@ def empty_depth_map(out_size, max_distance: int, one_hot: bool) -> np.ndarray:
     return np.zeros((*out_size, channels), np.float32)
 
 
-def draw_pc_heat(depth_map, box, depth, max_dist: int, one_hot: bool, point_row):
-    """Paint [d, vx, vz] into an integer box region (nuscenes.py:234-263).
-
-    box: (y1, y2, x1, x2) exclusive-stop ints; point_row: the 18-row column.
-    """
-    y1, y2, x1, x2 = box
-    vx, vz = point_row[8], point_row[9]
-    if one_hot:
-        # the distance filter is inclusive (<= max_dist), so depth ==
-        # max_dist would index channel max_dist and crash mid-epoch
-        d_layer = min(int(depth), max_dist - 1)
-        depth_map[y1:y2, x1:x2, d_layer] = depth
-        depth_map[y1:y2, x1:x2, d_layer + max_dist] = vx
-        depth_map[y1:y2, x1:x2, d_layer + 2 * max_dist] = vz
-    else:
-        depth_map[y1:y2, x1:x2, 0] = depth
-        depth_map[y1:y2, x1:x2, 1] = vx
-        depth_map[y1:y2, x1:x2, 2] = vz
-    return depth_map
-
-
 def draw_pc_points(depth_map, points_xy, depths, max_dist: int, one_hot: bool,
                    pc_3d):
     """Single-pixel scatter rasterization (nuscenes.py:265-294)."""
     pts = points_xy.astype(np.int32)
     if one_hot:
-        # clamp like draw_pc_heat: depth == max_dist passes the inclusive
+        # clamp like _paint: depth == max_dist passes the inclusive
         # distance filter but channel max_dist does not exist
         d_layer = np.minimum(depths.astype(np.int32), max_dist - 1)
         depth_map[pts[1], pts[0], d_layer] = depths
@@ -210,8 +192,21 @@ def process_point_cloud_rows(pc_2d, pc_3d, config, trans_out, calib):
 def process_point_cloud(pc_2d, pc_3d, config, trans_out, calib):
     """Transform + rasterize the radar cloud (generic_dataset.py:738-828).
 
-    Returns (transformed pc_2d (3, N'), masked pc_3d, depth_map NHWC).
-    """
+    Returns (transformed pc_2d (3, N'), masked pc_3d, depth_map NHWC). The
+    boxes are painted by the C++ kernel (``native``)."""
+    return _process_point_cloud(pc_2d, pc_3d, config, trans_out, calib,
+                                plain=False)
+
+
+def process_point_cloud_plain(pc_2d, pc_3d, config, trans_out, calib):
+    """``process_point_cloud`` with the kernel's numpy plain version
+    (``native.paint_rects_plain``, ``paint_rects_channels_plain``)."""
+    return _process_point_cloud(pc_2d, pc_3d, config, trans_out, calib,
+                                plain=True)
+
+
+def _process_point_cloud(pc_2d, pc_3d, config, trans_out, calib,
+                         plain: bool):
     out_h, out_w = config.MODEL.OUTPUT_SIZE
     transformed, mask = transform_point_cloud(pc_2d, trans_out, out_w, out_h)
     one_hot = bool(config.DATASET.ONE_HOT_PC)
@@ -220,7 +215,6 @@ def process_point_cloud(pc_2d, pc_3d, config, trans_out, calib):
 
     if mask is not None:
         pc_3d = pc_3d[:, mask]
-    n = transformed.shape[1]
 
     method = config.DATASET.PC_ROI_METHOD
     if method == "points":
@@ -231,27 +225,52 @@ def process_point_cloud(pc_2d, pc_3d, config, trans_out, calib):
 
     boxes = _build_boxes(transformed, pc_3d, method, config, trans_out, calib,
                          out_h, out_w)
-    depths = transformed[2, :n].astype(np.float32)
-    for i in range(n):
-        depth_map = draw_pc_heat(
-            depth_map, boxes[i], depths[i], max_dist, one_hot, pc_3d[:, i]
-        )
+    _paint(depth_map, boxes, _point_values(transformed, pc_3d), max_dist,
+           one_hot, plain)
     return transformed, pc_3d, depth_map
+
+
+def _paint(depth_map, boxes, values, max_dist: int, one_hot: bool,
+           plain: bool):
+    """The overwrite-ordered paint of [d, vx, vz] into each point's box
+    (nuscenes.py:234-263), nearest last: the C++ kernel (JAX
+    ``data/radar.py:_native_paint``) or, with ``plain``, its numpy
+    version. For ``ONE_HOT_PC`` each point's depth layer is clamped to
+    ``max_dist - 1``: the distance filter is inclusive, so a depth of
+    exactly ``MAX_PC_DIST`` would name a channel past the depth layers
+    (the JAX kernel's caller does not clamp, and writes it into the
+    velocity layers)."""
+    if plain:
+        rects, rects_channels = (native.paint_rects_plain,
+                                 native.paint_rects_channels_plain)
+    else:
+        rects, rects_channels = native.paint_rects, native.paint_rects_channels
+    if not one_hot:
+        rects(depth_map, boxes, values)
+        return
+    d_layer = np.minimum(values[:, 0].astype(np.int32), max_dist - 1)
+    channels = np.stack([d_layer, d_layer + max_dist, d_layer + 2 * max_dist],
+                        axis=1)
+    rects_channels(depth_map, boxes, values, channels)
 
 
 def paint_rows_host(boxes: np.ndarray, values: np.ndarray,
                     out_size) -> np.ndarray:
-    """Paint (N, 4) boxes / (N, 3) values host-side (non-one-hot layout).
+    """Paint (N, 4) boxes / (N, 3) values host-side (non-one-hot layout),
+    with the C++ kernel.
 
     Same overwrite-order semantics as the device rasterizer; used when a
     batch mixes device-paint rows with host rasters (MAX_PC overflow)."""
     depth_map = np.zeros((*out_size, 3), np.float32)
-    h, w = out_size
-    for (y1, y2, x1, x2), v in zip(boxes, values):
-        y1, x1 = max(int(y1), 0), max(int(x1), 0)
-        y2, x2 = min(int(y2), h), min(int(x2), w)
-        if y2 > y1 and x2 > x1:
-            depth_map[y1:y2, x1:x2] = v
+    native.paint_rects(depth_map, boxes, values)
+    return depth_map
+
+
+def paint_rows_host_plain(boxes: np.ndarray, values: np.ndarray,
+                          out_size) -> np.ndarray:
+    """``paint_rows_host`` with the numpy loop (its plain version)."""
+    depth_map = np.zeros((*out_size, 3), np.float32)
+    native.paint_rects_plain(depth_map, boxes, values)
     return depth_map
 
 

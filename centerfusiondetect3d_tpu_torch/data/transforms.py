@@ -10,12 +10,16 @@ Everything is numpy, NHWC float32.
 The port's own copy of ``centerfusiondetect3d_tpu/data/transforms.py``, but
 for ``warp_image``: the JAX package warps with ``cv2.warpAffine`` (bilinear,
 zero border); here the same arithmetic runs in numpy, so that the port does
-not depend on opencv.
+not depend on opencv. ``transform_input`` warps with its C++ kernel
+(``warp_image_native``, ``native/warp.cpp``), which, like cv2, runs without
+the interpreter lock; ``warp_image`` is its plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 # PCA color augmentation basis (CornerNet / reference utils/image.py:122-133)
 EIG_VAL = np.array([0.2141788, 0.01817699, 0.00341571], np.float32)
@@ -180,9 +184,26 @@ def warp_image(img: np.ndarray, trans_mat: np.ndarray, out_wh) -> np.ndarray:
     return out if img.ndim == 3 else out[..., 0]
 
 
+def warp_image_native(img: np.ndarray, trans_mat: np.ndarray,
+                      out_wh) -> np.ndarray:
+    """``warp_image`` by the C++ kernel (``native.warp_bilinear``): one call
+    without the interpreter lock, bitwise ``warp_image``, its plain
+    version."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"warp_image_native: uint8 images only, got "
+                        f"{img.dtype}")
+    src = np.ascontiguousarray(img if img.ndim == 3 else img[..., None])
+    out_w, out_h = int(out_wh[0]), int(out_wh[1])
+    out = np.empty((out_h, out_w, src.shape[2]), np.uint8)
+    native.warp_bilinear(src, _invert_affine(np.asarray(trans_mat)[:2]), out)
+    return out if img.ndim == 3 else out[..., 0]
+
+
 def transform_input(img, trans_mat, input_hw, mean, std, rng=None, color_aug=False):
-    """Warp + (optional color aug) + normalize; returns HWC float32."""
-    out = warp_image(img, trans_mat, (input_hw[1], input_hw[0]))
+    """Warp (the C++ kernel) + (optional color aug) + normalize; returns HWC
+    float32."""
+    out = warp_image_native(img, trans_mat, (input_hw[1], input_hw[0]))
     out = out.astype(np.float32) / 255.0
     if color_aug and rng is not None:
         out = color_augment(rng, out)

@@ -15,21 +15,22 @@ are decoded on the same device (``data/image_io.py``). The run writes into
 ``OUTPUT_DIR/NAME/<timestamp>`` (the JAX package's ``output/NAME/...``,
 ``OUTPUT_DIR`` defaulting to ``output``): ``config.json``, ``train.log``,
 ``ckpts/`` and the submission and ``nuscenes_eval_det_output_<split>/``
-of each validation. Single process; the JAX package's loss plots and
-compilation cache have no counterpart here.
+of each validation, the run's ``metrics.jsonl`` and ``run_state.json``
+and, where matplotlib is installed, ``losses.png`` and ``history.json``
+(``runtime/fit.py``). Single process; the JAX package's compilation cache
+has no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
-import time
 
 from .config import default_config, finalize_config, update_config
 from .data.dataset import get_dataset
 from .runtime.fit import Trainer
+from .utils.observability import create_logger
 
 
 def parse_args(argv=None):
@@ -58,34 +59,17 @@ def param_census(model) -> dict:
     return groups
 
 
-def create_logger(out_dir: str, name: str) -> logging.Logger:
-    """A logger to the console and to ``out_dir/train.log``."""
-    logger = logging.getLogger(f"cfd3d.{name}")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    logger.handlers.clear()
-    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    for handler in (logging.StreamHandler(),
-                    logging.FileHandler(os.path.join(out_dir, "train.log"))):
-        handler.setFormatter(fmt)
-        logger.addHandler(handler)
-    return logger
-
-
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
     config = update_config(default_config(), args.cfg, args.opts)
     dataset_cls = get_dataset(config.DATASET.DATASET)
-    out_dir = os.path.join(config.OUTPUT_DIR, config.NAME,
-                           time.strftime("%Y-%m-%d-%H-%M"))
-    os.makedirs(out_dir, exist_ok=True)
+    logger, out_dir = create_logger(config.OUTPUT_DIR, config.NAME)
     config.defrost()
     config.OUTPUT_DIR = out_dir
     config = finalize_config(config, dataset_cls.num_categories,
                              dataset_cls.default_resolution)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(config.to_dict(), f, indent=1)
-    logger = create_logger(out_dir, config.NAME)
 
     val_split = config.DATASET.VAL_SPLIT
     dataset_val = dataset_cls(config, val_split, device=args.device)

@@ -34,14 +34,35 @@ JAX package resumes a ``.pt`` with a fresh optimizer and only the epoch, as
 the reference's ``loadModel`` does. The port's ``.pt`` is its only
 checkpoint format, and it carries the optimizer.
 
-Not ported yet (ROADMAP.md, Queue 1): ``MetricsLogger``,
-``DeviceHealthMonitor``, loss plots, the FLOPs report (``profile``), the
-``DEBUG`` visualizer and multi-process validation; the training profile is
+The host side of a run is the JAX package's: the train ``Loader`` builds
+items in ``WORKERS`` threads behind its prefetch queue (``TRAIN.SHUFFLE``
+off still augments, with a warning), ``data/pipeline.py:device_prefetch``
+moves ``TPU.PREFETCH`` batches ahead of the step (a side stream on the
+card), ``TPU.PROFILE`` traces the first epoch into
+``OUTPUT_DIR/profile`` (``trace_profile``), ``DeviceHealthMonitor``
+checks the card's memory after every step, a progress line is logged ten
+times an epoch, ``MetricsLogger`` writes ``OUTPUT_DIR/metrics.jsonl``
+(``train/*``, ``lr`` and ``epoch_sec`` per epoch; ``val/*``, ``val/mAP``,
+``val/NDS``) and ``run_state.json`` (its summary), and ``plot_history``
+ends the run. The first validation logs the forward's cost per batch
+(``profile``: ``utils/observability.py:estimate_cost`` on the validation
+loader's first batch, ``peek``).
+
+A second documented difference: ``WORKERS 0`` builds the items on the
+training thread with no prefetch thread (the reference DataLoader's
+``num_workers=0``), where the JAX package runs one thread and a prefetch
+thread for 0 and 1. No batch changes, only speed: the eager step needs the
+interpreter lock for each of its launches, so on a host-bound step the
+Loader's threads slow it more than they save (``PERF.md`` §5, §7).
+
+Not ported yet (ROADMAP.md, Queue 1): the ``DEBUG`` visualizer and
+multi-process training and validation; the training profile by kernel is
 ``tools/profile_training.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -52,7 +73,7 @@ import numpy as np
 import torch
 
 from ..data.nuscenes_eval import detections_to_results
-from ..data.pipeline import Loader, to_device
+from ..data.pipeline import Loader, device_prefetch, to_device
 from ..geometry.affine import stack_inverse_transforms
 from ..losses import GenericLoss
 from ..models import build_model
@@ -62,8 +83,25 @@ from ..ops.tta import flip_forward
 from ..training import learning_rate, make_optimizer, train_step
 from ..training.checkpoint import load_torch_file, load_weights, save_checkpoint
 from ..utils.device import resolve_device
-from ..utils.observability import AverageMeter, StageTimer, ToleranceCounter
+from ..utils.metrics_logger import MetricsLogger
+from ..utils.observability import (
+    AverageMeter,
+    DeviceHealthMonitor,
+    StageTimer,
+    ToleranceCounter,
+    estimate_cost,
+    plot_history,
+    trace_profile,
+)
 from .synthetic import seeded_weights
+
+
+def loader_threads(workers) -> Dict[str, int]:
+    """The ``Loader``'s ``num_threads`` and ``prefetch`` for ``WORKERS``:
+    the JAX package's for 1 and more; 0 builds on the calling thread with
+    no prefetch thread."""
+    workers = int(workers)
+    return {"num_threads": max(1, workers), "prefetch": 2 if workers else 0}
 
 
 class Trainer:
@@ -97,8 +135,22 @@ class Trainer:
         self.start_epoch = 0
         self.optimizer = None
         self.timer = StageTimer(self.device)
+        self.health = DeviceHealthMonitor(logger=self.logger,
+                                          device=self.device)
+        self._metrics: Optional[MetricsLogger] = None
+        self._cost_reported = False
         tol = int(config.TRAIN.get("NONFINITE_TOLERANCE", 5))
         self._nonfinite = ToleranceCounter(tol) if tol > 0 else None
+
+    @property
+    def metrics(self) -> MetricsLogger:
+        """The run's ``MetricsLogger`` in ``OUTPUT_DIR``, made by the first
+        ``train`` or ``val`` (a Trainer that only loads or saves weights
+        writes no run files)."""
+        if self._metrics is None:
+            self._metrics = MetricsLogger(
+                self.config.OUTPUT_DIR, resume=bool(self.config.TRAIN.RESUME))
+        return self._metrics
 
     def init_state(self, state_dict=None, seed: Optional[int] = None):
         """Weights from ``state_dict`` (e.g. ``weights.state_dict_from_jax``,
@@ -148,7 +200,10 @@ class Trainer:
         self._refuse_validation_without_data()
         loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
                         shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED,
-                        augment=True)
+                        augment=True, **loader_threads(cfg.WORKERS))
+        if not cfg.TRAIN.SHUFFLE:
+            self.logger.warning("TRAIN.SHUFFLE is off: data order is "
+                                "sequential but augmentation remains active")
         accum = int(cfg.TRAIN.get("GRAD_ACCUM", 1))
         for epoch in range(self.start_epoch, cfg.TRAIN.EPOCHS):
             frozen = (bool(cfg.MODEL.FREEZE_BACKBONE)
@@ -156,28 +211,51 @@ class Trainer:
             lr = learning_rate(cfg, epoch, self.start_epoch)
             meters = defaultdict(AverageMeter)
             self.timer.reset()
+            t_epoch = time.time()
             loader.epoch = epoch
-            for i, batch in enumerate(loader):
-                batch = to_device(batch, self.device)
-                self.timer.start("step")
-                metrics = train_step(self.model, self.optimizer, self.loss_fn,
-                                     batch, lr, frozen, accum)
-                seconds = self.timer.stop("step")
-                metrics = {k: float(v) for k, v in metrics.items()}
-                for k, v in metrics.items():
-                    meters[k].update(v)
-                self.steps.append({"epoch": epoch, "frozen": frozen,
-                                   "seconds": seconds,
-                                   "total": metrics["total"]})
-                self._guard_nonfinite(metrics["total"], epoch, i)
-                if self.on_step is not None:
-                    self.on_step(epoch, i, frozen, metrics)
+            n_batches = len(loader)
+            log_every = max(1, n_batches // 10)
+            profiling = bool(cfg.TPU.PROFILE) and epoch == self.start_epoch
+            profile = (trace_profile(cfg.OUTPUT_DIR, self.device)
+                       if profiling else contextlib.nullcontext())
+            batches = device_prefetch(loader, self.device,
+                                      size=int(cfg.TPU.PREFETCH))
+            # closing: a step that raises releases the Loader's threads
+            with profile, contextlib.closing(batches):
+                for i, batch in enumerate(batches):
+                    self.timer.start("step")
+                    metrics = train_step(self.model, self.optimizer,
+                                         self.loss_fn, batch, lr, frozen,
+                                         accum)
+                    seconds = self.timer.stop("step")
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    for k, v in metrics.items():
+                        meters[k].update(v)
+                    self.steps.append({"epoch": epoch, "frozen": frozen,
+                                       "seconds": seconds,
+                                       "total": metrics["total"]})
+                    self._guard_nonfinite(metrics["total"], epoch, i)
+                    self.health.check()
+                    if self.on_step is not None:
+                        self.on_step(epoch, i, frozen, metrics)
+                    if (i + 1) % log_every == 0 or i + 1 == n_batches:
+                        # per-batch progress line (progressBar.py:25-57)
+                        self.logger.info(
+                            "epoch %d [%d/%d] total %.4f (%.0f ms/step)",
+                            epoch, i + 1, n_batches, meters["total"].avg,
+                            self.timer.meters["step"].avg * 1e3)
             self.logger.info(
-                "epoch %d lr %.2e frozen %s (%.0f ms/step) %s", epoch, lr,
-                frozen, 1e3 * self.timer.meters["step"].avg,
+                "epoch %d lr %.2e frozen %s (%.1fs, %.0f ms/step) %s", epoch,
+                lr, frozen, time.time() - t_epoch,
+                1e3 * self.timer.meters["step"].avg,
                 " ".join(f"{k} {m.avg:.4f}" for k, m in sorted(meters.items())))
             for k, m in meters.items():
                 self.history["train"].setdefault(k, []).append(m.avg)
+            self.metrics.scalars({k: m.avg for k, m in meters.items()},
+                                 step=epoch, prefix="train/")
+            self.metrics.scalars({"lr": lr,
+                                  "epoch_sec": time.time() - t_epoch},
+                                 step=epoch)
             interval = int(cfg.TRAIN.SAVE_INTERVALS)
             if ((interval > 0 and (epoch + 1) % interval == 0)
                     or epoch + 1 == cfg.TRAIN.EPOCHS):
@@ -187,6 +265,7 @@ class Trainer:
                 # (modelWithLoss.py:329-341)
                 self._save(epoch)
                 self.val()
+        plot_history(self.history, cfg.OUTPUT_DIR)
         return self.history
 
     def _save(self, epoch: int) -> str:
@@ -236,17 +315,22 @@ class Trainer:
 
     def val(self, loader: Optional[Loader] = None) -> Dict[int, list]:
         """Validation and NDS scoring, single process (the JAX package's
-        ``Trainer.val`` without its multi-process sharding, FLOPs report and
-        ``DEBUG`` visualizer). Returns the per-image results; the scoring
-        summaries land in ``summaries``."""
+        ``Trainer.val`` without its multi-process sharding and ``DEBUG``
+        visualizer). The first call logs the forward's cost per batch.
+        Returns the per-image results; the scoring summaries land in
+        ``summaries``, ``metrics`` gets ``val/*`` and its summary."""
         cfg = self.config
         if loader is None:
             if self.dataset_val is None:
                 raise ValueError("Trainer.val needs a dataset_val or a loader")
             loader = Loader(self.dataset_val, cfg.TEST.BATCH_SIZE,
-                            shuffle=False, drop_last=False, drop_keys=())
+                            shuffle=False, drop_last=False, drop_keys=(),
+                            **loader_threads(cfg.WORKERS))
         if self.optimizer is None:
             self.init_state()
+        if not self._cost_reported:
+            self._cost_reported = True
+            self._report_cost(loader)
         t0 = time.perf_counter()
         results: Dict[int, list] = {}
         seen = 0
@@ -292,6 +376,8 @@ class Trainer:
             self.history["val"].setdefault(k, []).append(m.avg)
         self.logger.info("val %s", " ".join(
             f"{k} {m.avg:.4f}" for k, m in sorted(meters.items())))
+        self.metrics.scalars({k: m.avg for k, m in meters.items()},
+                             prefix="val/")
         if self.dataset_val is not None and hasattr(self.dataset_val,
                                                     "run_eval"):
             try:
@@ -300,6 +386,11 @@ class Trainer:
                 if summaries:
                     self.summaries = summaries
                     self.dataset_val.log_valid_result(self.logger, summaries)
+                    best = summaries.get("range_all", {})
+                    self.metrics.scalars(
+                        {"mAP": best.get("mean_ap", 0.0),
+                         "NDS": best.get("nd_score", 0.0)}, prefix="val/")
+                    self.metrics.summary({"range_all": best})
             except Exception as e:  # scoring is best-effort, as in JAX
                 self.logger.warning("run_eval failed: %s", e)
         self.val_seconds.append({"forward": t1 - t0,
@@ -308,6 +399,30 @@ class Trainer:
 
     def test(self, loader: Optional[Loader] = None) -> Dict[int, list]:
         return self.val(loader)
+
+    def _report_cost(self, loader):
+        """The one-time FLOPs report (thop's, trainer.py:112-117) on the
+        loader's first batch; best-effort, as in JAX."""
+        try:
+            first = (loader.peek() if hasattr(loader, "peek")
+                     else next(iter(loader)))
+            cost = self.profile(first)
+        except Exception:  # the report must not stop a validation
+            self.logger.warning("model cost report failed", exc_info=True)
+            return
+        self.logger.info(
+            "model cost: %.2f GFLOPs, %.2f GiB accessed (per batch)",
+            cost["flops"] / 1e9, cost["bytes_accessed"] / 2 ** 30)
+
+    def profile(self, sample_batch) -> Dict[str, float]:
+        """Flops and bytes of one eval-mode forward on the numpy batch
+        ``sample_batch`` (``utils/observability.py:estimate_cost``; the JAX
+        package's ``Trainer.profile`` asks XLA's cost analysis)."""
+        batch = to_device({k: sample_batch[k] for k in
+                           ("image", "pc_dep", "calib", "pc_hm")
+                           if k in sample_batch}, self.device)
+        return estimate_cost(self.model, batch["image"], batch.get("pc_dep"),
+                             batch.get("calib"), batch.get("pc_hm"))
 
     def _guard_nonfinite(self, total: float, epoch: int, step: int):
         """Raise after ``TRAIN.NONFINITE_TOLERANCE`` consecutive non-finite

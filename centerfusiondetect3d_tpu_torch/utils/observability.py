@@ -1,23 +1,37 @@
-"""Per-stage wall timing with device synchronisation, meters, a tolerance
-counter, and the device profile.
+"""Observability: run logging, timers, meters, a tolerance counter, the
+device-memory guard, the forward's cost, loss plots and the device profile.
 
-The port of ``AverageMeter``, ``StageTimer``, ``ToleranceCounter`` and
-``trace_profile`` from ``centerfusiondetect3d_tpu/utils/observability.py``
-(reference ``src/lib/utils/utils.py:52-66,324-339`` and
-``logger.py:463-485``). PyTorch returns before the card finishes, so on a
-CUDA device ``stop`` first waits for the device with
-``torch.cuda.synchronize`` and a stage's time covers its device work.
-``trace_profile`` wraps ``torch.profiler`` (imported when it is entered) and
-``device_time_report`` reads the card's kernels out of a profile, for
-``tools/profile_serving.py`` and ``tools/profile_training.py``;
-``time_device`` times a call by its device time alone, for ``chip_smoke.py``
-and ``tools/compare_kernels.py``.
+The port of ``centerfusiondetect3d_tpu/utils/observability.py`` (reference
+``src/lib/utils/utils.py:20-339``, ``logger.py:369-485``,
+``trainer.py:100-124``):
+
+- ``create_logger``: the run directory ``<root>/<name>/<timestamp>`` and a
+  logger to the console and its ``train.log``;
+- ``AverageMeter``, ``StageTimer`` (on a CUDA device ``stop`` first waits
+  for the calling thread's current stream, so a stage's time covers its
+  device work and not other threads' streams, such as the Loader's decodes
+  and ``device_prefetch``'s copies), ``ToleranceCounter``;
+- ``DeviceHealthMonitor``: the card's memory in use over its size, which
+  raises after ``tolerance`` consecutive readings over the limit (JAX reads
+  ``bytes_in_use / bytes_limit``); a no-op on the CPU;
+- ``estimate_cost``: flops and bytes of one eval-mode forward, counted from
+  the shapes of its convolutions, linear layers and DCN contractions
+  (``thop.profile``'s role, ``trainer.py:112-117``);
+- ``plot_lr_schedule`` and ``plot_history`` (matplotlib, imported when
+  called; without it they plot nothing);
+- ``trace_profile`` wraps ``torch.profiler`` (imported when it is entered)
+  and ``device_time_report`` reads the card's kernels out of a profile,
+  for ``tools/profile_serving.py`` and ``tools/profile_training.py``;
+  ``time_device`` times a call by its device time alone, for
+  ``chip_smoke.py`` and ``tools/compare_kernels.py``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
+import logging
 import os
 import time
 from collections import defaultdict
@@ -27,6 +41,23 @@ import torch
 
 
 DEVICE_LAUNCHES = 200  # calls per event pair of a device time alone
+
+
+def create_logger(output_root: str, name: str):
+    """(logger, run directory ``<output_root>/<name>/<timestamp>``): a
+    logger to the console and to ``train.log`` there."""
+    out_dir = os.path.join(output_root, name, time.strftime("%Y-%m-%d-%H-%M"))
+    os.makedirs(out_dir, exist_ok=True)
+    logger = logging.getLogger(f"cfd3d.{name}")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False  # root handlers would print twice
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
+    for handler in (logging.StreamHandler(),
+                    logging.FileHandler(os.path.join(out_dir, "train.log"))):
+        handler.setFormatter(fmt)
+        logger.addHandler(handler)
+    return logger, out_dir
 
 
 def time_device(fn, n: int = DEVICE_LAUNCHES) -> float:
@@ -79,7 +110,7 @@ class StageTimer:
 
     def stop(self, stage: str) -> float:
         if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - self._start.pop(stage)
         self.meters[stage].update(dt)
         return dt
@@ -109,6 +140,170 @@ class ToleranceCounter:
     def fail(self) -> bool:
         self.count += 1
         return self.count >= self.tolerance
+
+
+class DeviceHealthMonitor:
+    """The card's memory guard with tolerance semantics (the reference's
+    GPU guard, logger.py:369-418): ``check`` reads
+    ``torch.cuda.memory_allocated(device)`` over the card's
+    ``total_memory``, warns above ``hbm_fraction_limit`` and raises after
+    ``tolerance`` consecutive readings above it; a reading below resets the
+    count. On a device other than CUDA it does nothing."""
+
+    def __init__(self, hbm_fraction_limit: float = 0.95, tolerance: int = 5,
+                 logger: Optional[logging.Logger] = None, device="cpu"):
+        self.limit = hbm_fraction_limit
+        self.counter = ToleranceCounter(tolerance)
+        self.logger = logger or logging.getLogger("cfd3d.health")
+        self.device = torch.device(device)
+
+    def check(self):
+        if self.device.type != "cuda":
+            return
+        used = torch.cuda.memory_allocated(self.device)
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        frac = used / total
+        if frac > self.limit:
+            self.logger.warning("device memory high: %.1f%% of %.2f GiB",
+                                frac * 100, total / 2 ** 30)
+            if self.counter.fail():
+                raise RuntimeError(
+                    f"device memory above {self.limit:.0%} for "
+                    f"{self.counter.tolerance} consecutive checks - "
+                    "suspending")
+        else:
+            self.counter.ok()
+
+
+def estimate_cost(model: torch.nn.Module, *inputs) -> Dict[str, float]:
+    """``{"flops", "bytes_accessed"}`` of one eval-mode forward of
+    ``model`` on ``inputs`` (run under ``torch.inference_mode``; the model's
+    mode is restored).
+
+    Counted by forward hooks from the shapes each op meets, and only for
+    the ops that carry the work: every convolution and transposed
+    convolution, every linear layer, and the DCN contraction of each
+    ``DeformConvNode`` (9 * C * O multiply-adds per output pixel; its
+    offset convolution is a convolution). Flops are 2 x multiply-adds
+    (bias adds and the DCN's bilinear sampling not counted); bytes are each
+    counted op's input, weight, bias and output read or written once, in
+    the dtype the op computes in (a ``compute_dtype`` model's bf16), and
+    the DCN's float32 offsets and mask. XLA's ``cost_analysis`` (the JAX
+    package's figure) counts every HLO op of the fused program instead:
+    BatchNorm, activations, casts and the sampling add flops there, and
+    fusion removes the bytes of intermediates that never reach memory, so
+    the two differ by design (``PERF.md`` states the ratio)."""
+    from ..models.layers import DeformConvNode
+
+    totals = {"flops": 0, "bytes_accessed": 0}
+
+    def add(macs: int, nbytes: int):
+        totals["flops"] += 2 * int(macs)
+        totals["bytes_accessed"] += int(nbytes)
+
+    def params(m):
+        return sum(p.numel() for p in (m.weight, m.bias) if p is not None)
+
+    def hook(m, args, out):
+        x = args[0]
+        size = out.element_size()
+        if isinstance(m, DeformConvNode):
+            b, c, h, w = x.shape
+            o = m.weight.shape[0]
+            offsets = b * 27 * h * w  # 18 offsets and 9 mask values a pixel
+            wide = torch.promote_types(out.dtype, torch.float32)
+            add(b * h * w * 9 * c * o,
+                (x.numel() + params(m) + out.numel()) * size
+                + offsets * wide.itemsize)
+            return
+        if isinstance(m, torch.nn.Conv2d):
+            macs = out.numel() * m.weight[0].numel()
+        elif isinstance(m, torch.nn.ConvTranspose2d):
+            macs = x.numel() * m.weight[0].numel()
+        else:  # torch.nn.Linear
+            macs = x.numel() * m.out_features
+        add(macs, (x.numel() + params(m) + out.numel()) * size)
+
+    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear,
+             DeformConvNode)
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, kinds)]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        model.train(was_training)
+        for handle in handles:
+            handle.remove()
+    return {k: float(v) for k, v in totals.items()}
+
+
+def plot_lr_schedule(config, out_path: str, start_epoch: int = 0):
+    """[(epoch, learning rate)] over ``TRAIN.EPOCHS``; plotted to
+    ``out_path`` where matplotlib is installed (the reference's
+    learningRateTest, modelWithLoss.py:364-432)."""
+    from ..training.schedule import learning_rate
+
+    epochs = list(range(start_epoch, config.TRAIN.EPOCHS))
+    lrs = [learning_rate(config, e, start_epoch) for e in epochs]
+    plt = _pyplot()
+    if plt is not None:
+        fig, ax = plt.subplots(figsize=(8, 4))
+        ax.plot(epochs, lrs)
+        ax.set_yscale("log")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("lr")
+        ax.set_title(f"{config.TRAIN.LR_SCHEDULER} schedule")
+        fig.tight_layout()
+        fig.savefig(out_path)
+        plt.close(fig)
+    return list(zip(epochs, lrs))
+
+
+def plot_history(history: Dict[str, Dict[str, list]], out_dir: str):
+    """Loss curves per head for train and val into ``out_dir/losses.png``,
+    the history into ``out_dir/history.json`` (utils/utils.py:235-322);
+    returns the plot's path, or None where matplotlib is missing or there
+    is nothing to plot (then neither file is written, as in JAX)."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+    heads = sorted({k for split in history.values() for k in split})
+    if not heads:
+        return None
+    n = len(heads)
+    cols = min(4, n)
+    rows = -(-n // cols)
+    fig, axes = plt.subplots(rows, cols, figsize=(4 * cols, 3 * rows),
+                             squeeze=False)
+    for i, head in enumerate(heads):
+        ax = axes[i // cols][i % cols]
+        for split, losses in history.items():
+            if head in losses:
+                ax.plot(losses[head], label=split)
+        ax.set_title(head)
+        ax.legend()
+    fig.tight_layout()
+    path = os.path.join(out_dir, "losses.png")
+    fig.savefig(path)
+    plt.close(fig)
+    with open(os.path.join(out_dir, "history.json"), "w") as f:
+        json.dump(history, f)
+    return path
+
+
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend, or None without matplotlib."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    return plt
 
 
 @contextlib.contextmanager

@@ -169,7 +169,28 @@ On the card it:
    and ``--show-attention`` (a drawn frame and two overlays an image) and
    with ``--stream`` (``results.json`` alone), which must write the same
    detections;
-18. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
+18. runs the training run's host side as the JAX package runs it
+   (``training_run_path``): (a) the port's converter
+   (``data/convert_nuscenes.py``) on a copy of the repo's raw tables and
+   samples, whose annotations must equal the committed ones (parsed) and
+   whose 1000 radar and lidar ``.bin`` files must equal them bytewise; (b)
+   the C++ radar paint and item warp (``native/``, built with g++) bitwise
+   their numpy versions; (c) on the train split at the campaign's settings, decoded on
+   the card, the first ``LOADER_BATCHES`` batches of the Loader with 4
+   threads, prefetch 2 and ``device_prefetch`` 2 bitwise those of one
+   thread without prefetch, and the Loader's items/s alone with 1, 2 and 4
+   threads; (d) ``tools rehearse --dataroot <the copy> --epochs 2`` in this
+   process at the campaign's settings (bf16, ``WORKERS 4``,
+   ``TPU.PREFETCH 2``, the first epoch frozen), which must exit 0 with a
+   finite NDS in [0, 1], write the JAX run's ``metrics.jsonl`` scalars and
+   the summary in ``run_state.json``, log the FLOPs line once, check the
+   card's memory once per step, paint, warp and decode once per item built and
+   launch ``dcn_fwd_bf16`` and the bf16 backward kernels as often as its
+   steps, validation batches and FLOPs report need, each epoch's wall time
+   printed beside the sum of its steps'; (e) one epoch with ``TPU.PROFILE
+   True`` on 32 train images, whose trace must hold the card's kernels;
+   then the forward's cost (``estimate_cost``) at 448x800, B=6, bf16;
+19. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
    ``ycc_to_bgr`` beside the DCN and probe kernels) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -181,8 +202,9 @@ of 4 in 2 microbatches) on the CPU, where the DCN ops are the plain versions
 images decoded with cv2 (``TINY_SPLITS``, 64x128), and phase 17 on the
 plain warp (held bitwise against numpy ``warp_image`` on 2 frames a
 case), cv2's decode, one round of 2 batches and the CLI's ``main`` in
-this process with ``--device cpu`` on 4 JPEGs; its last line is
-``{"ok": true, "rehearsal": "cpu"}``.
+this process with ``--device cpu`` on 4 JPEGs, and phase 18 with the
+whole converter and then ``TINY_SPLITS`` of its output at 64x128, decoded
+by cv2; its last line is ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
@@ -194,6 +216,7 @@ import glob
 import importlib.util
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -201,6 +224,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -210,10 +234,18 @@ import torch.nn.functional as F
 from centerfusiondetect3d_tpu_torch.config import load_config
 from centerfusiondetect3d_tpu_torch import inference as cfd_inference
 from centerfusiondetect3d_tpu_torch import main as cfd_main
+from centerfusiondetect3d_tpu_torch import native
+from centerfusiondetect3d_tpu_torch import tools as cfd_tools
 from centerfusiondetect3d_tpu_torch.data import image_io
+from centerfusiondetect3d_tpu_torch.data.convert_nuscenes import export_split
+from centerfusiondetect3d_tpu_torch.data.dataset import NuScenesDataset
 from centerfusiondetect3d_tpu_torch.data.image_io import read_image
-from centerfusiondetect3d_tpu_torch.data.pipeline import stack_items, to_device
-from centerfusiondetect3d_tpu_torch.data.transforms import warp_image
+from centerfusiondetect3d_tpu_torch.data.pipeline import (
+    Loader, device_prefetch, stack_items, to_device)
+from centerfusiondetect3d_tpu_torch.data.transforms import (
+    warp_image,
+    warp_image_native,
+)
 from centerfusiondetect3d_tpu_torch.geometry.affine import get_affine_transform
 from centerfusiondetect3d_tpu_torch.losses import GenericLoss
 from centerfusiondetect3d_tpu_torch.models import build_model
@@ -241,7 +273,7 @@ from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
 from centerfusiondetect3d_tpu_torch.training.checkpoint import (
     load_torch_file, save_checkpoint)
 from centerfusiondetect3d_tpu_torch.utils.observability import (
-    DEVICE_LAUNCHES, time_device)
+    DEVICE_LAUNCHES, DeviceHealthMonitor, estimate_cost, time_device)
 
 SEED = 0
 TIMED_RUNS = 5
@@ -549,6 +581,10 @@ TINY_SPLITS = {"mini_train": 8, "mini_val": 4}
 # a raw nuScenes camera frame and serving's input, (H, W)
 RAW_FRAME = (900, 1600)
 SERVE_INPUT = (448, 800)
+# phase 16's train run on the card when the Loader built every item on the
+# training thread, before WORKERS was read (PERF.md §5): printed beside
+# the run's own seconds
+SERIAL_LOADER_TRAIN_RUN_S = 24.0
 TINY_OPTS = ["MODEL.INPUT_SIZE", "(64, 128)", "TRAIN.BATCH_SIZE", "4",
              "TEST.BATCH_SIZE", "4"]
 
@@ -2122,11 +2158,12 @@ def check_p3_repair(device):
     return list(cases)
 
 
-def tiny_root(tmp: str) -> str:
-    """A DATASET.ROOT beside ``DATA_ROOT`` whose annotation files hold the
-    first ``TINY_SPLITS`` images of each split (the rehearsal's handful);
-    images, point clouds and tables are links into the repo's data."""
-    src = os.path.join(DATA_ROOT, "nuscenes")
+def tiny_root(tmp: str, src: str = None, splits=None) -> str:
+    """A DATASET.ROOT in ``tmp`` whose annotation files hold the first
+    ``splits`` images of each split (default ``TINY_SPLITS``, the
+    rehearsal's handful) of the nuScenes directory ``src`` (default the
+    repo's, ``DATA_ROOT``); images, point clouds and tables are links."""
+    src = src or os.path.join(DATA_ROOT, "nuscenes")
     dst = os.path.join(tmp, "data", "nuscenes")
     os.makedirs(os.path.join(dst, "annotations"))
     for name in ("samples", "v1.0-mini"):
@@ -2134,7 +2171,7 @@ def tiny_root(tmp: str) -> str:
     for name in ("radar_pc", "lidar_pc"):
         os.symlink(os.path.join(src, "annotations", name),
                    os.path.join(dst, "annotations", name))
-    for split, n in TINY_SPLITS.items():
+    for split, n in (splits or TINY_SPLITS).items():
         with open(os.path.join(src, "annotations", f"{split}.json")) as f:
             coco = json.load(f)
         coco["images"] = coco["images"][:n]
@@ -2187,7 +2224,9 @@ def main_py_path(device, rehearsal: bool, card):
     train image of each epoch and every val image of each validation went
     through the decoder, that a checkpoint was written before each
     validation, that each validation launched the bf16 DCN forward kernel
-    once per node per batch and no other DCN kernel, and that each scored
+    once per node per batch and no other DCN kernel (the first validation
+    of each run also decodes its loader's first batch once more and runs
+    one more forward: the FLOPs report, ``Trainer.profile``), and that each scored
     every val image itself: the previous submission and summaries are
     cleared before it (``Trainer.val`` logs a scoring failure and goes on),
     and after it its submission holds the val images, the EVAL run's the
@@ -2207,6 +2246,7 @@ def main_py_path(device, rehearsal: bool, card):
             os.remove(os.path.join(out, SUBMISSION))
         shutil.rmtree(os.path.join(out, EVAL_OUTPUT), ignore_errors=True)
         self.summaries = None
+        record["cost_report"] = not self._cost_reported
         reset_launch_counts()
         decoded = image_io.decode_jpeg.launches
         results = real_val(self, loader)
@@ -2247,10 +2287,12 @@ def main_py_path(device, rehearsal: bool, card):
         n_nodes = sum(isinstance(m, DeformConvNode)
                       for m in trainer.model.modules())
         batches = -(-n_val // int(cfg.TEST.BATCH_SIZE))
-        if not rehearsal and decoded_train != epochs * (n_train + n_val):
+        peeked = min(int(cfg.TEST.BATCH_SIZE), n_val)  # the cost report's
+        if (not rehearsal
+                and decoded_train != epochs * (n_train + n_val) + peeked):
             raise AssertionError(f"the train run decoded {decoded_train} "
                                  f"images on the card, expected {epochs} x "
-                                 f"({n_train} + {n_val})")
+                                 f"({n_train} + {n_val}) + {peeked}")
         if converted != decoded_train:
             raise AssertionError(f"the train run decoded {decoded_train} "
                                  f"images and launched ycc_to_bgr "
@@ -2276,12 +2318,14 @@ def main_py_path(device, rehearsal: bool, card):
                 raise AssertionError(f"validation {i}: metrics_summary.json "
                                      f"says NDS {rec['nds_file']}, the "
                                      f"Trainer {nds}")
-            if not rehearsal and rec["decoded"] != n_val:
+            extra = 1 if rec["cost_report"] else 0
+            if not rehearsal and rec["decoded"] != n_val + extra * peeked:
                 raise AssertionError(f"validation {i} decoded "
                                      f"{rec['decoded']} images on the card, "
-                                     f"expected {n_val}")
+                                     f"expected {n_val} + {extra * peeked}")
             want = {**{k: 0 for k in rec["launches"]},
-                    "dcn_fwd_bf16": 0 if rehearsal else n_nodes * batches}
+                    "dcn_fwd_bf16": (0 if rehearsal
+                                     else n_nodes * (batches + extra))}
             if rec["launches"] != want:
                 raise AssertionError(f"validation {i} launched "
                                      f"{rec['launches']}, expected {want}")
@@ -2343,7 +2387,9 @@ def main_py_path(device, rehearsal: bool, card):
         f"{decode_ms:.3f} ms and warp {warp_ms:.3f} ms per image; val "
         + ", ".join(f"{r['seconds']['forward']:.2f} s + scoring "
                     f"{r['seconds']['scoring']:.2f} s" for r in vals)
-        + f"; train run {train_s:.1f} s, EVAL run {eval_s:.1f} s{where}")
+        + f"; train run {train_s:.1f} s (WORKERS "
+        f"{cfg.WORKERS}; the serial Loader's: {SERIAL_LOADER_TRAIN_RUN_S} s),"
+        f" EVAL run {eval_s:.1f} s{where}")
     if cpu_decoder is not None:
         log(f"  the val images decoded by the CPU decoder (cv2): "
             f"{cpu_decoder['ms_per_image']:.3f} ms per image; the card's "
@@ -2987,6 +3033,427 @@ def serving_files_path(device, rehearsal: bool, card):
     return report
 
 
+# ------------------------------------------------ phase 18: the training run
+REHEARSE_EPOCHS = 2
+LOADER_BATCHES = 8  # batches held bitwise and timed per thread count
+LOADER_THREADS = (1, 2, 4)
+PROFILE_SPLITS = {"mini_train": 32, "mini_val": 4}  # the traced epoch's
+CONVERTED_SPLITS = ("mini_train", "mini_val")
+
+
+def check_converter(tmp: str) -> dict:
+    """18a: the port's converter on a copy of the repo's raw tables and
+    samples: its annotations must equal the committed ones (parsed), and
+    every radar and lidar ``.bin`` the committed one bytewise. Returns the
+    copy's nuScenes directory and the seconds."""
+    src = os.path.join(DATA_ROOT, "nuscenes")
+    root = os.path.join(tmp, "converted", "nuscenes")
+    for name in ("v1.0-mini", "samples"):
+        shutil.copytree(os.path.join(src, name), os.path.join(root, name))
+    t0 = time.perf_counter()
+    for split in CONVERTED_SPLITS:
+        export_split(root, split, verbose=False)
+    seconds = time.perf_counter() - t0
+    counts = {}
+    for split in CONVERTED_SPLITS:
+        with open(os.path.join(root, "annotations", f"{split}.json")) as f:
+            got = json.load(f)
+        with open(os.path.join(src, "annotations", f"{split}.json")) as f:
+            want = json.load(f)
+        if got != want:
+            raise AssertionError(f"the converter's {split}.json differs from "
+                                 "the committed one")
+        counts[split] = {"images": len(got["images"]),
+                         "annotations": len(got["annotations"])}
+    n_bins = 0
+    for kind in ("radar_pc", "lidar_pc"):
+        want_dir = os.path.join(src, "annotations", kind)
+        for cam in sorted(os.listdir(want_dir)):
+            names = sorted(os.listdir(os.path.join(want_dir, cam)))
+            got_names = sorted(os.listdir(os.path.join(
+                root, "annotations", kind, cam)))
+            if got_names != names:
+                raise AssertionError(f"the converter wrote other {kind} "
+                                     f"files for {cam}")
+            for name in names:
+                with open(os.path.join(want_dir, cam, name), "rb") as f, \
+                        open(os.path.join(root, "annotations", kind, cam,
+                                          name), "rb") as g:
+                    if f.read() != g.read():
+                        raise AssertionError(f"{kind}/{cam}/{name} differs "
+                                             "from the committed file")
+                n_bins += 1
+    return {"root": root, "seconds": seconds, "splits": counts,
+            "bins": n_bins}
+
+
+def check_native_kernels() -> dict:
+    """18b: the C++ host kernels built and held bitwise against their numpy
+    versions: the paint on seeded boxes (one-hot and not, past every edge),
+    the splats, and the warp (``warp_image``) on seeded 448x256 frames to
+    224x128 under the dataset's augmentation (shifted, scaled, rotated,
+    flipped); returns the build seconds, the cases and the warp's ms
+    against numpy's."""
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    cases = 0
+    for h, w, c, n in ((32, 56, 3, 200), (112, 200, 3, 1000),
+                       (32, 56, 180, 300)):
+        boxes = np.zeros((n, 4), np.int32)
+        boxes[:, 0] = rng.integers(-4, h + 2, n)
+        boxes[:, 1] = boxes[:, 0] + rng.integers(-1, 12, n)
+        boxes[:, 2] = rng.integers(-4, w + 2, n)
+        boxes[:, 3] = boxes[:, 2] + rng.integers(-1, 12, n)
+        values = rng.standard_normal((n, 3)).astype(np.float32)
+        got, want = (np.zeros((h, w, c), np.float32) for _ in range(2))
+        if c == 3:
+            native.paint_rects(got, boxes, values)
+            native.paint_rects_plain(want, boxes, values)
+        else:
+            layer = rng.integers(0, c // 3, n)
+            channels = np.stack([layer, layer + c // 3, layer + 2 * (c // 3)],
+                                axis=1)
+            native.paint_rects_channels(got, boxes, values, channels)
+            native.paint_rects_channels_plain(want, boxes, values, channels)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native paint differs from numpy at "
+                                 f"{(h, w, c, n)}")
+        cases += 1
+    centers = np.stack([rng.uniform(-5, 61, 40), rng.uniform(-5, 37, 40)],
+                       axis=1).astype(np.float32)
+    radii = rng.integers(0, 8, (40, 2)).astype(np.int32)
+    got, want = (np.zeros((32, 56), np.float32) for _ in range(2))
+    native.splat_gaussians(got, centers, radii)
+    native.splat_gaussians_plain(want, centers, radii)
+    if not np.array_equal(got, want):
+        raise AssertionError("native splat_gaussians differs from plain")
+    cases += 1
+    warp_s = {"native": 0.0, "numpy": 0.0}
+    for i in range(8):
+        img = rng.integers(0, 256, (256, 448, 3), dtype=np.uint8)
+        center = np.array([224 + rng.uniform(-60, 60),
+                           128 + rng.uniform(-40, 40)], np.float32)
+        trans = get_affine_transform(center, 448 * rng.uniform(0.6, 1.4),
+                                     rng.uniform(-20, 20) if i % 2 else 0.0,
+                                     (224, 128))
+        if i % 4 == 3:
+            img = np.ascontiguousarray(img[:, ::-1])
+        t0 = time.perf_counter()
+        got = warp_image_native(img, trans, (224, 128))
+        t1 = time.perf_counter()
+        want = warp_image(img, trans, (224, 128))
+        warp_s["native"] += t1 - t0
+        warp_s["numpy"] += time.perf_counter() - t1
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native warp differs from warp_image in "
+                                 f"case {i}")
+        cases += 1
+    return {"build_s": build_s, "cases": cases,
+            "warp_ms": {k: 1e3 * v / 8 for k, v in warp_s.items()}}
+
+
+def _same_batch(got, want, where: str) -> None:
+    for key, value in want.items():
+        if isinstance(value, dict):
+            _same_batch(got[key], value, f"{where}.{key}")
+        elif not (got[key].dtype == value.dtype
+                  and torch.equal(got[key], value)):
+            raise AssertionError(f"{where}.{key} differs from the serial "
+                                 "Loader's")
+
+
+def wait_for_loader_threads(timeout_s: float = 30.0) -> None:
+    """An abandoned Loader iterator's threads finish the batch in hand
+    before they end: wait for them, so that their items are neither
+    counted nor timed with what follows."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        alive = [t for t in threading.enumerate()
+                 if t.name.startswith("cfd3d-loader") and t.is_alive()]
+        if not alive:
+            return
+        alive[0].join(timeout=0.1)
+    import traceback
+
+    frames = sys._current_frames()
+    stacks = "\n".join(
+        f"{t.name}:\n" + "".join(traceback.format_stack(frames[t.ident]))
+        for t in threading.enumerate() if t.ident in frames)
+    raise AssertionError(f"the Loader's threads did not end:\n{stacks}")
+
+
+def check_loader(root: str, device, rehearsal: bool) -> dict:
+    """18c: on the train split of the nuScenes directory ``root`` at the
+    campaign's settings, decoded on
+    ``device``: the first ``LOADER_BATCHES`` batches of the Loader with 4
+    threads, prefetch 2 and ``device_prefetch`` 2 must be bitwise those of
+    one thread, no prefetch and ``to_device``; then items/s of the Loader
+    alone (host batches) for each of ``LOADER_THREADS``."""
+    cfg = load_config(opts=["DATASET.ROOT", repr(os.path.dirname(root) + "/")]
+                      + CAMPAIGN_OPTS + (TINY_OPTS if rehearsal else []),
+                      num_classes=10)
+    ds = NuScenesDataset(cfg, "mini_train", device=device)
+    batch = int(cfg.TRAIN.BATCH_SIZE)
+    n = min(LOADER_BATCHES, len(ds) // batch)
+
+    def loader(threads, prefetch):
+        return Loader(ds, batch, shuffle=True, seed=SEED, augment=True,
+                      num_threads=threads, prefetch=prefetch)
+
+    decoded = image_io.decode_jpeg.launches
+    threaded = device_prefetch(loader(4, 2), device, size=2)
+    got = [next(threaded) for _ in range(n)]
+    threaded.close()
+    wait_for_loader_threads()
+    serial = iter(loader(1, 0))
+    for i in range(n):
+        _same_batch(got[i], to_device(next(serial), device), f"batch {i}")
+    del got
+    items_per_s = {}
+    for threads in LOADER_THREADS:
+        it = iter(loader(threads, 2))
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        items_per_s[threads] = n * batch / (time.perf_counter() - t0)
+        it.close()
+        wait_for_loader_threads()
+    return {"batches_equal": n, "batch": batch,
+            "decoded": image_io.decode_jpeg.launches - decoded,
+            "items_per_s": items_per_s}
+
+
+def rehearse_path(root: str, device, rehearsal: bool, out: str) -> dict:
+    """18d: ``tools rehearse --dataroot <the converted copy> --epochs 2`` at
+    the campaign's settings (bf16, ``WORKERS 4``, ``TPU.PREFETCH 2``, the
+    first epoch frozen), in this process: exit 0 with a finite NDS in
+    [0, 1]; ``metrics.jsonl`` with ``train/total``, ``lr`` and
+    ``epoch_sec`` per epoch and ``val/total``, ``val/mAP``, ``val/NDS``;
+    the summary in ``run_state.json``; the FLOPs line once with a positive
+    figure; one health check per step; the native paint, the native warp
+    and (on the card) one decode per item built; ``dcn_fwd_bf16`` once per node per step,
+    validation batch and cost report, the bf16 backward kernels once per
+    node per unfrozen step, no other DCN kernel. Each epoch's wall time is
+    reported beside the sum of its steps'."""
+    argv = ["rehearse", "--dataroot", root, "--out", out, "--epochs",
+            str(REHEARSE_EPOCHS), "--device", device,
+            *CAMPAIGN_OPTS, "TPU.PREFETCH", "2", "MODEL.DEFREEZE", "0",
+            *(TINY_OPTS if rehearsal else [])]
+    trainers, checks, lines = [], [], []
+    real_train, real_check = Trainer.train, DeviceHealthMonitor.check
+
+    def recorded_train(self):
+        trainers.append(self)
+        return real_train(self)
+
+    def counted_check(self):
+        checks.append(1)
+        return real_check(self)
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    trainer_log = logging.getLogger("cfd3d.trainer")
+    level, handler = trainer_log.level, Lines()
+    trainer_log.setLevel(logging.INFO)
+    trainer_log.addHandler(handler)
+    Trainer.train, DeviceHealthMonitor.check = recorded_train, counted_check
+    paints = native.paint_rects.calls
+    warps = native.warp_bilinear.calls
+    decoded = image_io.decode_jpeg.launches
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cfd_tools.main(argv)
+    finally:
+        Trainer.train, DeviceHealthMonitor.check = real_train, real_check
+        trainer_log.removeHandler(handler)
+        trainer_log.setLevel(level)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    paints = native.paint_rects.calls - paints
+    warps = native.warp_bilinear.calls - warps
+    decoded = image_io.decode_jpeg.launches - decoded
+    if rc != 0 or len(trainers) != 1:
+        raise AssertionError(f"rehearse exited {rc} ({len(trainers)} "
+                             f"trainers): {said.getvalue()[-2000:]}")
+    trainer = trainers[0]
+    cfg = trainer.config
+    with open(os.path.join(out, "nuscenes_eval_det_output_mini_val",
+                           "range_all", "metrics_summary.json")) as f:
+        nds = json.load(f)["nd_score"]
+    if not (math.isfinite(nds) and 0.0 <= nds <= 1.0):
+        raise AssertionError(f"rehearse scored NDS {nds}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    for epoch in range(REHEARSE_EPOCHS):
+        keys = set().union(*(e for e in events if e.get("step") == epoch))
+        if not {"train/total", "lr", "epoch_sec"} <= keys:
+            raise AssertionError(f"metrics.jsonl lacks epoch {epoch}'s "
+                                 f"scalars: {sorted(keys)}")
+    val_keys = set().union(*(e for e in events if "step" not in e))
+    if not {"val/total", "val/mAP", "val/NDS"} <= val_keys:
+        raise AssertionError(f"metrics.jsonl lacks validation scalars: "
+                             f"{sorted(val_keys)}")
+    with open(os.path.join(out, "run_state.json")) as f:
+        state = json.load(f)
+    if state.get("summary", {}).get("range_all", {}).get("nd_score") != nds:
+        raise AssertionError("run_state.json does not hold the summary")
+    cost = [line for line in lines if line.startswith("model cost:")]
+    gflops = (float(cost[0].split()[2]) if len(cost) == 1 else 0.0)
+    if len(cost) != 1 or not gflops > 0:
+        raise AssertionError(f"FLOPs lines: {cost}")
+    steps = trainer.steps
+    if len(checks) != len(steps):
+        raise AssertionError(f"{len(checks)} health checks for "
+                             f"{len(steps)} steps")
+    n_train = len(trainer.dataset_train)
+    n_val = len(trainer.dataset_val)
+    batch, test_batch = int(cfg.TRAIN.BATCH_SIZE), int(cfg.TEST.BATCH_SIZE)
+    per_epoch = n_train // batch
+    items = (REHEARSE_EPOCHS * per_epoch * batch + n_val
+             + min(test_batch, n_val))
+    if paints != items or warps != items:
+        raise AssertionError(f"the native paint ran {paints} times and the "
+                             f"native warp {warps} for {items} items")
+    if not rehearsal and decoded != items:
+        raise AssertionError(f"{decoded} decodes for {items} items")
+    frozen = [st["frozen"] for st in steps]
+    if frozen != [True] * per_epoch + [False] * per_epoch:
+        raise AssertionError(f"steps frozen {frozen}")
+    n_nodes = sum(isinstance(m, DeformConvNode)
+                  for m in trainer.model.modules())
+    per_node = 0 if rehearsal else n_nodes
+    val_batches = -(-n_val // test_batch)
+    want = {k: 0 for k in launches}
+    want["dcn_fwd_bf16"] = per_node * (len(steps) + val_batches + 1)
+    for name in BWD_KERNELS_BF16:
+        want[name] = per_node * per_epoch
+    if launches != want:
+        raise AssertionError(f"rehearse launched {launches}, expected {want}")
+    epoch_sec = [next(e["epoch_sec"] for e in events
+                      if e.get("step") == epoch and "epoch_sec" in e)
+                 for epoch in range(REHEARSE_EPOCHS)]
+    step_sum = [sum(st["seconds"] for st in steps if st["epoch"] == epoch)
+                for epoch in range(REHEARSE_EPOCHS)]
+    return {"rc": rc, "nds": nds, "wall_s": wall_s, "gflops_per_batch": gflops,
+            "images": {"train": n_train, "val": n_val}, "steps": len(steps),
+            "health_checks": len(checks), "native_paints": paints,
+            "native_warps": warps,
+            "decoded": decoded, "launches": launches, "epoch_s": epoch_sec,
+            "step_sum_s": step_sum, "val_seconds": trainer.val_seconds,
+            "ms_per_step": {ph: statistics.mean(
+                1e3 * st["seconds"] for st in steps
+                if st["frozen"] == (ph == "frozen"))
+                for ph in ("frozen", "unfrozen")}}
+
+
+def profile_epoch(root: str, device, rehearsal: bool, tmp: str) -> dict:
+    """18e: one more epoch with ``TPU.PROFILE True`` (on the first
+    ``PROFILE_SPLITS`` train images, no validation) writes a trace; on the
+    card the trace holds the card's kernels."""
+    small = tiny_root(os.path.join(tmp, "profile_data"),
+                      src=root, splits=None if rehearsal else PROFILE_SPLITS)
+    out = os.path.join(tmp, "profile_run")
+    cfg = load_config(opts=["DATASET.ROOT", repr(small + "/"), "OUTPUT_DIR",
+                            repr(out)] + CAMPAIGN_OPTS
+                      + ["TRAIN.EPOCHS", "1", "TRAIN.VAL_INTERVALS", "0",
+                         "TPU.PROFILE", "True", "TPU.PREFETCH", "2"]
+                      + (TINY_OPTS if rehearsal else []), num_classes=10)
+    trainer = Trainer(cfg, NuScenesDataset(cfg, "mini_train", device=device),
+                      device=device)
+    t0 = time.perf_counter()
+    trainer.train()
+    seconds = time.perf_counter() - t0
+    path = os.path.join(out, "profile", "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    if not events or (not rehearsal and not kernels):
+        raise AssertionError(f"the profile holds {len(events)} events, "
+                             f"{kernels} of the card's kernels")
+    return {"steps": len(trainer.steps), "seconds": seconds,
+            "events": len(events), "kernel_events": kernels,
+            "trace_mb": os.path.getsize(path) / 1e6}
+
+
+def serving_cost(device, rehearsal: bool) -> dict:
+    """The forward's cost (``estimate_cost``) at the serving configuration:
+    448x800, B=6, bf16 (64x128, B=2 in the rehearsal)."""
+    opts = MAIN_PATH_OPTS + (["MODEL.INPUT_SIZE", "(64, 128)"]
+                             if rehearsal else [])
+    cfg = load_config(opts=opts + ["MIXED_PRECISION", "True"],
+                      num_classes=10)
+    model = build_model(cfg).to(device)
+    seeded_weights(model, SEED)
+    b = 2 if rehearsal else SERVE_BATCH
+    h, w = cfg.MODEL.INPUT_SIZE
+    oh, ow = cfg.MODEL.OUTPUT_SIZE
+    gen = torch.Generator().manual_seed(SEED)
+    image = torch.randn((b, 3, h, w), generator=gen).to(device)
+    pc_dep = torch.rand((b, 3, oh, ow), generator=gen).to(device)
+    calib = torch.tensor([[[1266.4, 0, w / 2, 0], [0, 1266.4, h / 2, 0],
+                           [0, 0, 1, 0]]]).repeat(b, 1, 1).to(device)
+    cost = estimate_cost(model, image, pc_dep, calib)
+    return {"input": [b, h, w], "gflops": cost["flops"] / 1e9,
+            "gib": cost["bytes_accessed"] / 2 ** 30}
+
+
+def training_run_path(device, rehearsal: bool, card) -> dict:
+    """Phase 18: the training run as the JAX package runs it (a)-(e), and
+    the serving forward's cost."""
+    where = "" if rehearsal else f" on {card}"
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_run_") as tmp:
+        conv = check_converter(tmp)
+        log(f"converter: {conv['splits']} and {conv['bins']} point-cloud "
+            f"files equal to the committed ones, in {conv['seconds']:.2f} s")
+        paint = check_native_kernels()
+        log(f"native paint and warp: built in {paint['build_s']:.2f} s, "
+            f"bitwise their numpy versions in {paint['cases']} cases; a "
+            f"448x256 frame's warp to 224x128 {paint['warp_ms']['native']:.3f}"
+            f" ms, numpy {paint['warp_ms']['numpy']:.3f} ms{where}")
+        root = conv["root"]
+        if rehearsal:
+            root = os.path.join(tiny_root(os.path.join(tmp, "tiny"),
+                                          src=root), "nuscenes")
+        loader = check_loader(root, device, rehearsal)
+        log(f"Loader: {loader['batches_equal']} batches of "
+            f"{loader['batch']} with 4 threads, prefetch 2 and "
+            f"device_prefetch 2 bitwise those of one thread; items/s by "
+            f"threads: " + ", ".join(f"{t}: {v:.1f}" for t, v in
+                                     loader["items_per_s"].items()) + where)
+        reh = rehearse_path(root, device, rehearsal,
+                            os.path.join(tmp, "rehearsal"))
+        log(f"rehearse: {reh['images']['train']} train / "
+            f"{reh['images']['val']} val images, {reh['steps']} steps, NDS "
+            f"{reh['nds']:.4f} (seeded weights), {reh['wall_s']:.1f} s; "
+            f"{reh['gflops_per_batch']:.2f} GFLOPs per val batch; "
+            f"{reh['health_checks']} health checks, {reh['native_paints']} "
+            f"native paints, {reh['native_warps']} native warps, "
+            f"{reh['decoded']} decodes; launches "
+            f"{reh['launches']}")
+        log("  epoch wall s / sum of its steps s: " + ", ".join(
+            f"{e:.2f} / {s:.2f}" for e, s in zip(reh["epoch_s"],
+                                                 reh["step_sum_s"]))
+            + f"; ms per step frozen {reh['ms_per_step']['frozen']:.1f}, "
+            f"unfrozen {reh['ms_per_step']['unfrozen']:.1f}{where}")
+        prof = profile_epoch(conv["root"], device, rehearsal, tmp)
+        log(f"TPU.PROFILE: {prof['steps']} steps traced, {prof['events']} "
+            f"events ({prof['kernel_events']} kernels), "
+            f"{prof['trace_mb']:.1f} MB")
+    cost = serving_cost(device, rehearsal)
+    log(f"forward cost at {cost['input'][0]}x{cost['input'][1]}x"
+        f"{cost['input'][2]} (bf16): {cost['gflops']:.2f} GFLOPs, "
+        f"{cost['gib']:.3f} GiB (estimate_cost)")
+    return {"converter": {k: v for k, v in conv.items() if k != "root"},
+            "native": paint, "loader": loader, "rehearse": reh,
+            "profile": prof, "serving_cost": cost}
+
+
 def warp_kernel_entry(report):
     """The ``kernels`` line's entry of ``warp_affine``: launches on phase
     17's ``run`` over JPEG paths, the warp of six raw frames timed (per
@@ -3262,6 +3729,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     files = serving_files_path(args.device, rehearsal, card)
     log(f"phase serving files: {time.perf_counter() - t0:.1f} s")
+
+    # 18. the training run's host side: the converter, the native paint,
+    # the threaded Loader, tools rehearse, TPU.PROFILE
+    t0 = time.perf_counter()
+    run = training_run_path(args.device, rehearsal, card)
+    log(f"phase training run: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -3284,6 +3757,7 @@ def main(argv=None) -> int:
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
     log(json.dumps({"serving_files": files}))
+    log(json.dumps({"training_run": run}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

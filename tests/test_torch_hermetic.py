@@ -1,5 +1,6 @@
 """The port runs where the card's machine runs it: without JAX, flax, optax,
-orbax, pyyaml, opencv, PIL, imageio or anything of the JAX package.
+orbax, pyyaml, opencv, PIL, imageio, matplotlib, wandb or anything of the
+JAX package.
 
 The machine that runs the CPU tests has all of them, so a subprocess hides
 them (``sys.modules[name] = None`` makes every import of the name fail) and
@@ -7,13 +8,15 @@ then imports every module of the port and runs the ``chip_smoke.py``
 rehearsal, serving, training, the probes, ``main.py`` and serving image
 files (phase 17: the plain warp, ``run``, ``run_stream``, flip and
 multi-scale TTA, and the inference CLI's ``main``, serial with
-``--save-dir`` and ``--show-attention``, then streamed), to its last line.
+``--save-dir`` and ``--show-attention``, then streamed) and the training
+run's host side (phase 18: the converter, the native paint, the threaded
+Loader and ``tools rehearse``), to its last line.
 opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
 reads its JPEGs): there the subprocess lets only that module import it, and
 the rehearsal's ``main.py`` phase decodes through it. An AST scan checks the
 sources as well: the port never imports the JAX stack, PIL or imageio,
-imports pyyaml and opencv only inside the functions that need them, and
-opencv only in ``data/image_io.py``. The nvJPEG decoder
+imports pyyaml, opencv, matplotlib and wandb only inside the functions that
+need them, and opencv only in ``data/image_io.py``. The nvJPEG decoder
 (``csrc/jpeg_decode.cu``) is built at its first decode, never at import.
 """
 
@@ -34,7 +37,7 @@ PACKAGE = ROOT / "centerfusiondetect3d_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 NEVER = {"jax", "jaxlib", "flax", "optax", "orbax", "centerfusiondetect3d_tpu",
          "PIL", "imageio"}
-LAZY_ONLY = {"yaml", "cv2"}
+LAZY_ONLY = {"yaml", "cv2", "matplotlib", "wandb"}
 BLOCKED = sorted(NEVER | LAZY_ONLY - {"cv2"})
 CV2_ONLY_IN = PACKAGE / "data" / "image_io.py"
 
@@ -89,9 +92,13 @@ print(json.dumps({{"rc": rc, "modules": mods, "loaded": loaded,
 """
 
 
-# the serving slice's modules, among those the subprocess imports
+# the serving slice's and the training run's modules, among those the
+# subprocess imports
 NEW_MODULES = ("ops/warp.py", "ops/tta.py", "utils/visualize.py",
-               "inference.py")
+               "inference.py", "native/__init__.py", "data/synthetic.py",
+               "data/convert_nuscenes.py", "utils/metrics_logger.py",
+               "tools/rehearse.py", "tools/__main__.py",
+               "tools/profile_train_loader.py")
 
 
 def _sources():
@@ -163,8 +170,8 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == 0
     assert len(report["modules"]) >= 20
-    assert {f"{PACKAGE.name}.{m[:-3].replace('/', '.')}"
-            for m in NEW_MODULES} <= set(report["modules"])
+    assert {f"{PACKAGE.name}.{m[:-3].replace('/', '.')}".removesuffix(
+        ".__init__") for m in NEW_MODULES} <= set(report["modules"])
     assert report["loaded"] == [], report["loaded"]
     assert report["cv2_from"] == [str(CV2_ONLY_IN)], report["cv2_from"]
     # serving in float32 and in bf16, then the DCN backward check, the
@@ -177,7 +184,7 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
         "phase training", "phase step-vs-plain",
         "phase bf16-backward-vs-plain", "phase bf16 training",
         "phase bf16 step-vs-plain", "phase probes", "phase main.py",
-        "phase serving files"
+        "phase serving files", "phase training run"
     ], report["phases"]
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
 
@@ -197,6 +204,21 @@ def test_kernel_sources_ship_as_package_data():
             "csrc/dcn_probes.cu", "csrc/jpeg_decode.cu",
             "csrc/warp_affine.cu"} <= set(sources)
     for src in sources:
+        assert any(fnmatch.fnmatch(src, g) for g in globs), src
+
+
+def test_host_sources_ship_as_package_data():
+    """The C++ host paint, the C++ item warp and the converter's scene
+    splits are package data of the port (the paint and the splits its own
+    copies beside the JAX package's)."""
+    import fnmatch
+    import tomllib
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"][PACKAGE.name]
+    for src in ("native/rasterize.cpp", "native/warp.cpp",
+                "data/nuscenes_splits.json"):
+        assert (PACKAGE / src).is_file(), src
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
 
 
