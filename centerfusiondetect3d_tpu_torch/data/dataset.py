@@ -11,8 +11,9 @@ The port's own copy of ``centerfusiondetect3d_tpu/data/dataset.py``, but
 for the image decoder and the warp: a dataset decodes its JPEGs on the
 device it is given (``data/image_io.py``: cv2 on the CPU, nvJPEG on the
 card; the card unless the caller names another device) and warps with
-``data/transforms.py:warp_image``, cv2's arithmetic in numpy. The ``DEBUG``
-pillar renders (``DEBUG > 1``, ``utils/visualize.py``) are not ported.
+``data/transforms.py:warp_image``, cv2's arithmetic in numpy. With
+``DEBUG > 1`` each item with radar also writes the JAX package's pillar
+renders (``utils/visualize.py:debug_pillars``) into ``OUTPUT_DIR/debug``.
 """
 
 from __future__ import annotations
@@ -46,10 +47,6 @@ class GenericDataset:
 
     def __init__(self, config, split: str, ann_path: str, img_dir: str,
                  device=None):
-        if int(config.DEBUG) > 1:
-            raise NotImplementedError(
-                "DEBUG > 1 asks for the pillar renders of utils/visualize.py, "
-                "which are not ported")
         self.config = config
         self.device = resolve_device(device)  # the image decoder's
         self.split = split
@@ -169,6 +166,21 @@ class GenericDataset:
             item.update(
                 {"pc_2d": pc_2d.T, "pc_3d": pc_3d.T, "pc_N": pc_n, "pc_dep": pc_dep}
             )
+            if cfg.DEBUG > 1:
+                # pillar inspection renders (debugPillar,
+                # generic_dataset.py:959-1129), written as files
+                from ..utils.visualize import debug_pillars
+                from .radar import pillar_sizes
+
+                n = int(pc_n)
+                debug_pillars(
+                    img, pc_2d[:, :n],
+                    pillar_sizes(pc_3d[:, :n], calib[:3, :4], trans_out,
+                                 (out_h, out_w), cfg.DATASET.PILLAR_DIMS),
+                    trans_in, trans_out, (in_h, in_w), (out_h, out_w),
+                    os.path.join(cfg.OUTPUT_DIR, "debug"), index=index,
+                    max_dist=float(cfg.DATASET.MAX_PC_DIST),
+                )
 
         if cfg.weights.get("lidar_depth", 0) > 0:
             lidar = self.load_lidar(img_info)

@@ -61,6 +61,15 @@ def get_3d_box(dim, location, yaw):
     return get_3d_corners(dim, yaw) + location[..., None, :]
 
 
+def project_3d_points(points_3d: torch.Tensor,
+                      calib: torch.Tensor) -> torch.Tensor:
+    """Project (..., N, 3) camera-space points with a (..., 3, 4) calib
+    into (..., N, 2) image points."""
+    homo = torch.cat([points_3d, torch.ones_like(points_3d[..., :1])], -1)
+    proj = torch.einsum("...ij,...nj->...ni", calib, homo)
+    return proj[..., :2] / proj[..., 2:3]
+
+
 def project_2d_to_3d(pt_2d, depth, calib):
     """Unproject (..., 2) image points at (..., 1) depth through (..., 3, 4)."""
     z = depth[..., 0] - calib[..., 2, 3]

@@ -1,11 +1,16 @@
-"""The flagship model: DLA-34 + DLAUp/IDAUp + CenterFusion heads.
+"""The flagship model: DLA-34 (or ResNet-18/34) + DLAUp/IDAUp +
+CenterFusion heads.
 
 The port of ``centerfusiondetect3d_tpu/models/detector.py`` (reference
 DLASeg/BaseModel, dla.py:571-635 and base_model.py:30-106): backbone ->
 hierarchical upsampling to stride 4 -> first-stage CenterNet heads ->
 (middle fusion) frustum radar association -> secondary heads. Names follow
 the reference state_dict (``base.*``, ``dla_up.*``, ``ida_up.*``,
-``detectHead_0.*``).
+``detectHead_0.*``). ``MODEL.ARCH`` picks the backbone as the JAX package's
+family switch does (``models/detector.py:73, 84-85, 209``): ``dla_34``, or
+``resnet_18`` / ``resnet_34`` (``models/resnet.py``, the same six-level
+pyramid, so the neck's 16 DCN nodes and the heads stay); any other
+architecture raises.
 
 Serving calls ``forward(image, pc_dep, calib)`` in eval mode. Training calls
 ``forward(image, pc_dep, calib, pc_hm, train=True)`` (the JAX package's
@@ -37,6 +42,7 @@ from torch import nn
 from ..ops.frustum import get_pc_frustum_heatmap
 from .dla import DLA, DLA34_CHANNELS
 from .heads import SECONDARY_HEADS, DetectHeadSet, resize_nearest
+from .resnet import RESNET_SPECS, ResNetBackbone
 from .upsample import DLAUp, IDAUp
 
 FIRST_LEVEL = 2  # log2(down_ratio=4)
@@ -44,6 +50,7 @@ LAST_LEVEL = 5
 # the backbone subtrees that MODEL.FREEZE_BACKBONE freezes (the JAX
 # package's training/state.py:BACKBONE_KEYS); every DCN node lives in them
 BACKBONE_KEYS = ("base", "dla_up", "ida_up")
+ARCHS = ("dla_34",) + tuple(f"resnet_{d}" for d in RESNET_SPECS)
 
 
 class CenterFusionDLA(nn.Module):
@@ -53,8 +60,11 @@ class CenterFusionDLA(nn.Module):
                  "middle", radar_pc: bool = True, frustum: bool = True,
                  one_hot_pc: bool = False, max_pc_dist: float = 60.0,
                  top_k: int = 100, norm_eval: bool = False,
-                 compute_dtype=None):
+                 compute_dtype=None, arch: str = "dla_34"):
         super().__init__()
+        if arch not in ARCHS:
+            raise NotImplementedError(f"architecture {arch!r} is not "
+                                      f"implemented ({', '.join(ARCHS)})")
         dt = self.compute_dtype = compute_dtype
         self.norm_eval = bool(norm_eval)
         self.fusion_strategy = fusion_strategy
@@ -66,7 +76,12 @@ class CenterFusionDLA(nn.Module):
         channels = DLA34_CHANNELS
         pc_channels = 3 * int(max_pc_dist) if one_hot_pc else 3
         early = radar_pc and fusion_strategy == "early"
-        self.base = DLA(3 + (pc_channels if early else 0), compute_dtype=dt)
+        in_channels = 3 + (pc_channels if early else 0)
+        if arch.startswith("resnet"):
+            self.base = ResNetBackbone(arch.partition("_")[2], in_channels,
+                                       compute_dtype=dt)
+        else:
+            self.base = DLA(in_channels, compute_dtype=dt)
         scales = [2 ** i for i in range(len(channels[FIRST_LEVEL:]))]
         self.dla_up = DLAUp(FIRST_LEVEL, channels[FIRST_LEVEL:], scales, node,
                             dt)
@@ -156,9 +171,6 @@ def build_model(config, dtype=None) -> CenterFusionDLA:
     float32 or float64 (parameters and compute); None takes bfloat16 when
     ``MIXED_PRECISION`` is true, else float32.
     """
-    if config.MODEL.ARCH != "dla_34":
-        raise NotImplementedError(
-            f"architecture {config.MODEL.ARCH!r} is not ported yet (dla_34)")
     if dtype is None:
         dtype = torch.bfloat16 if config.MIXED_PRECISION else torch.float32
     if dtype not in (torch.bfloat16, torch.float32, torch.float64):
@@ -177,5 +189,6 @@ def build_model(config, dtype=None) -> CenterFusionDLA:
         top_k=int(config.MODEL.K),
         norm_eval=bool(config.MODEL.NORM_EVAL),
         compute_dtype=dtype if mixed else None,
+        arch=str(config.MODEL.ARCH),
     )
     return model if mixed else model.to(dtype)

@@ -55,8 +55,13 @@ thread for 0 and 1. No batch changes, only speed: the eager step needs the
 interpreter lock for each of its launches, so on a host-bound step the
 Loader's threads slow it more than they save (``PERF.md`` §5, §7).
 
-Not ported yet (ROADMAP.md, Queue 1): the ``DEBUG`` visualizer and
-multi-process training and validation; the training profile by kernel is
+With ``DEBUG > 0`` each validation renders its first image as the JAX
+package's does (``utils/visualize.py:ValVisualizer``): the ground truth, the
+predictions, the radar heatmaps and the bird's-eye view, written once per
+validation as ``OUTPUT_DIR/viz/e####_*.png``.
+
+Not ported yet (ROADMAP.md, Queue 1): multi-process training and
+validation; the training profile by kernel is
 ``tools/profile_training.py``.
 """
 
@@ -300,7 +305,8 @@ class Trainer:
         """Eval-mode forward (on the batch and its mirror under
         ``TEST.FLIP_TEST``, ``ops/tta.py:flip_forward``, as the JAX
         package's eval step), decode, post-process and loss of one device
-        batch; returns (processed detections, loss, loss parts)."""
+        batch; returns (processed detections, loss, loss parts, the model's
+        radar heatmap or None)."""
         cfg = self.config
         forward = flip_forward if cfg.TEST.FLIP_TEST else (
             lambda model, *args: model(*args))
@@ -311,12 +317,13 @@ class Trainer:
         processed = post_process(dets, trans_mat, cfg.MODEL.OUTPUT_SIZE,
                                  batch["calib"])
         loss, parts = self.loss_fn(outputs, batch, train=False)
-        return processed, loss, parts
+        return processed, loss, parts, outputs[-1].get("pc_hm")
 
     def val(self, loader: Optional[Loader] = None) -> Dict[int, list]:
         """Validation and NDS scoring, single process (the JAX package's
-        ``Trainer.val`` without its multi-process sharding and ``DEBUG``
-        visualizer). The first call logs the forward's cost per batch.
+        ``Trainer.val`` without its multi-process sharding), with the
+        ``DEBUG > 0`` renders of its first image. The first call logs the
+        forward's cost per batch.
         Returns the per-image results; the scoring summaries land in
         ``summaries``, ``metrics`` gets ``val/*`` and its summary."""
         cfg = self.config
@@ -336,6 +343,12 @@ class Trainer:
         seen = 0
         meters = defaultdict(AverageMeter)
         oh, ow = cfg.MODEL.OUTPUT_SIZE
+        viz = None
+        if int(cfg.DEBUG) > 0 and self.dataset_val is not None:
+            # first-val-image renders (WandbLogger, logger.py:78-171)
+            from ..utils.visualize import ValVisualizer
+
+            viz = ValVisualizer(cfg.OUTPUT_DIR, cfg, self.dataset_val)
         self.model.eval()
         try:
             with torch.inference_mode():
@@ -353,7 +366,7 @@ class Trainer:
                     # per-image inverse matrices (postProcess.py:31-43)
                     trans_mat = torch.from_numpy(stack_inverse_transforms(
                         centers, scales, (ow, oh))).to(self.device)
-                    processed, loss, parts = self._eval_step(
+                    processed, loss, parts, pred_pc_hm = self._eval_step(
                         to_device(batch, self.device), trans_mat)
                     meters["total"].update(float(loss))
                     for k, v in parts.items():
@@ -369,8 +382,13 @@ class Trainer:
                     results.update(detections_to_results(
                         {k: v.cpu().numpy() for k, v in processed.items()},
                         img_ids))
+                    if viz is not None and viz.image is None and meta is not None:
+                        _visualize_first(viz, cfg, batch, int(img_ids[0]),
+                                         results, pred_pc_hm)
         finally:
             self.model.train()
+        if viz is not None:
+            viz.save(epoch=len(self.history["val"].get("total", [])))
         t1 = time.perf_counter()
         for k, m in meters.items():
             self.history["val"].setdefault(k, []).append(m.avg)
@@ -439,3 +457,22 @@ class Trainer:
                 f"total loss non-finite for {self._nonfinite.tolerance} "
                 "consecutive steps - training diverged; restart with a "
                 "lower LR")
+
+
+def _visualize_first(viz, cfg, batch, img_id: int, results, pred_pc_hm):
+    """Hand ``viz`` the first image of a validation batch (numpy, NHWC): its
+    target radar map (``pc_hm``, else the raw depth over
+    ``MAX_PC_DIST``), its radar points, its detections and the model's
+    radar heatmap."""
+    target_hm = batch.get("pc_hm")
+    if target_hm is None and batch.get("pc_dep") is not None:
+        target_hm = (np.asarray(batch["pc_dep"])[..., :1]
+                     / float(cfg.DATASET.MAX_PC_DIST))
+    radar_pc = (np.asarray(batch["pc_3d"][0]).T
+                if batch.get("pc_3d") is not None else None)
+    viz.add_ground_truth(img_id, None if target_hm is None
+                         else np.asarray(target_hm[0]))
+    viz.add_predictions(img_id, results.get(img_id, []),
+                        pc_hm=(None if pred_pc_hm is None
+                               else pred_pc_hm[0].float().cpu().numpy()),
+                        radar_pc=radar_pc)

@@ -4,7 +4,10 @@ The port's own copy of the name mapping behind
 ``centerfusiondetect3d_tpu/training/checkpoint.py:export_torch_state_dict``:
 flax parameter paths become the reference's torch names and HWIO kernels
 become OIHW. It takes plain nested dicts of numpy arrays and imports nothing
-of JAX.
+of JAX. The ResNet backbones (``models/resnet.py``), which the reference
+does not have, keep the JAX paths: ``stem``, ``level1`` and the blocks'
+``conv1``, ``conv2`` and ``downsample`` ConvBnAct units become Sequentials
+of conv (0) and BN (1).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch
 _TREE_BLOCK = {"block1": ("conv1", "bn1"), "block2": ("conv2", "bn2")}
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
+# the ResNet backbones' ConvBnAct units -> Sequential(conv, bn)
+_RESNET_UNITS = ("stem", "level1", "conv1", "conv2", "downsample")
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -53,6 +58,11 @@ def _torch_key(path: Tuple[str, ...]) -> Tuple[str, str]:
         if p in _TREE_BLOCK:
             conv_name, bn_name = _TREE_BLOCK[p]
             out.append(conv_name if parts[i + 1] == "conv" else bn_name)
+            i += 2
+            continue
+        if (p in _RESNET_UNITS and i + 1 < len(parts)
+                and parts[i + 1] in ("conv", "bn")):
+            out.append(p + "." + ("0" if parts[i + 1] == "conv" else "1"))
             i += 2
             continue
         if p == "project":

@@ -190,8 +190,36 @@ On the card it:
    printed beside the sum of its steps'; (e) one epoch with ``TPU.PROFILE
    True`` on 32 train images, whose trace must hold the card's kernels;
    then the forward's cost (``estimate_cost``) at 448x800, B=6, bf16;
-19. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
-   ``ycc_to_bgr`` beside the DCN and probe kernels) and, last, the
+19. runs the demo, the evaluation CLI, KITTI interchange and the ResNet
+   backbones (``demo_eval_resnet_path``): (a) ``demo.main`` at the
+   campaign's settings with phase 16's last checkpoint on ``DEMO_SAMPLES``
+   samples of the campaign's val images grouped six to a sample
+   (``demo_root``: each image keeps its calib and ``trans_matrix``), with
+   ``--save-dir`` and ``--save-video``, counted (``dcn_fwd_bf16`` once per
+   node per sample, one decode and ``ycc_to_bgr`` an image, one
+   ``warp_affine`` a sample, nothing else):
+   each sample's detections equal a second ``Detector.run`` on the same
+   frames, every mosaic is 448x1648, the video reads back a frame a sample,
+   ms per sample in detection and in rendering; then one sample of the
+   single-camera split with ``--show-attention`` writes its overlays; (b)
+   ``evaluation/cli.py`` on phase 16's EVAL submission and phase 18's copy
+   of the raw tables writes every range and extreme
+   ``metrics_summary.json``, its range_all mAP and NDS printed beside the
+   Trainer's; (c) ``nuscenes_gt_to_kitti`` of that copy's val split, read
+   back by ``kitti_results_to_nuscenes`` onto the ground truth's global
+   boxes (``KITTI_FILE_TOL``: the files keep two decimals; the transforms
+   alone within ``KITTI_TRANSFORM_TOL``), and ``export_kitti`` of (a)'s
+   detections; (d) for ``RESNET_ARCHS`` (DLA-34, ResNet-18, ResNet-34) at
+   the full width of ``configs/Centerfusion_Middle.yaml`` on seeded
+   weights: serving six 800x450 frames in float32 and bf16, counted (16
+   launches of the dtype's forward kernel a run and no other kernel) and
+   every head held against the plain DCN as in phases 6 and 8, frames/s;
+   then ``RESNET_STEPS`` unfrozen train steps of ``RESNET_BATCH`` in each
+   dtype (the dtype's forward and backward kernels once per node per step),
+   ms per step and peak memory;
+20. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
+   ``ycc_to_bgr`` beside the DCN and probe kernels; phase 19's launches as
+   ``resnet_launches`` and ``demo_launches``) and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -204,7 +232,8 @@ plain warp (held bitwise against numpy ``warp_image`` on 2 frames a
 case), cv2's decode, one round of 2 batches and the CLI's ``main`` in
 this process with ``--device cpu`` on 4 JPEGs, and phase 18 with the
 whole converter and then ``TINY_SPLITS`` of its output at 64x128, decoded
-by cv2; its last line is ``{"ok": true, "rehearsal": "cpu"}``.
+by cv2, and phase 19 at 64x128 on samples of two cameras decoded by cv2;
+its last line is ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
@@ -232,12 +261,14 @@ import torch
 import torch.nn.functional as F
 
 from centerfusiondetect3d_tpu_torch.config import load_config
+from centerfusiondetect3d_tpu_torch import demo as cfd_demo
 from centerfusiondetect3d_tpu_torch import inference as cfd_inference
 from centerfusiondetect3d_tpu_torch import main as cfd_main
 from centerfusiondetect3d_tpu_torch import native
 from centerfusiondetect3d_tpu_torch import tools as cfd_tools
 from centerfusiondetect3d_tpu_torch.data import image_io
-from centerfusiondetect3d_tpu_torch.data.convert_nuscenes import export_split
+from centerfusiondetect3d_tpu_torch.data.convert_nuscenes import (
+    RawNuScenes, export_split)
 from centerfusiondetect3d_tpu_torch.data.dataset import NuScenesDataset
 from centerfusiondetect3d_tpu_torch.data.image_io import read_image
 from centerfusiondetect3d_tpu_torch.data.pipeline import (
@@ -246,6 +277,10 @@ from centerfusiondetect3d_tpu_torch.data.transforms import (
     warp_image,
     warp_image_native,
 )
+from centerfusiondetect3d_tpu_torch.evaluation import cli as cfd_eval_cli
+from centerfusiondetect3d_tpu_torch.evaluation import kitti as cfd_kitti
+from centerfusiondetect3d_tpu_torch.evaluation import (
+    kitti_export as cfd_kitti_export)
 from centerfusiondetect3d_tpu_torch.geometry.affine import get_affine_transform
 from centerfusiondetect3d_tpu_torch.losses import GenericLoss
 from centerfusiondetect3d_tpu_torch.models import build_model
@@ -271,7 +306,8 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
 from centerfusiondetect3d_tpu_torch.tools import probe_dcn
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
 from centerfusiondetect3d_tpu_torch.training.checkpoint import (
-    load_torch_file, save_checkpoint)
+    load_torch_file, load_weights, save_checkpoint)
+from centerfusiondetect3d_tpu_torch.utils import quaternion as cfd_quat
 from centerfusiondetect3d_tpu_torch.utils.observability import (
     DEVICE_LAUNCHES, DeviceHealthMonitor, estimate_cost, time_device)
 
@@ -2184,6 +2220,50 @@ def tiny_root(tmp: str, src: str = None, splits=None) -> str:
     return os.path.join(tmp, "data")
 
 
+DEMO_CAMERAS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_BACK_RIGHT", "CAM_BACK",
+                "CAM_BACK_LEFT", "CAM_FRONT_LEFT")
+
+
+def demo_root(tmp: str, src: str, split: str, n_cams: int,
+              n_samples: int = 0) -> str:
+    """A DATASET.ROOT in ``tmp`` whose ``split`` groups the images of the
+    converter-format nuScenes directory ``src`` ``n_cams`` to a sample
+    (the first ``n_samples`` samples; 0: all whole ones), each image
+    keeping its calib and ``trans_matrix`` and taking the next camera's
+    ``sensor_id``, and its radar cloud linked under the new sample's
+    token; images and tables are links."""
+    dst = os.path.join(tmp, "nuscenes")
+    os.makedirs(os.path.join(dst, "annotations"))
+    for name in os.listdir(src):
+        if name != "annotations":
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, "annotations", f"{split}.json")) as f:
+        coco = json.load(f)
+    n = len(coco["images"]) // n_cams
+    images = coco["images"][:n_cams * (min(n, n_samples) if n_samples else n)]
+    sensors = NuScenesDataset.SENSOR_NAME
+    sensor_id = {name: i for i, name in sensors.items()}
+    for i, img in enumerate(images):
+        old = os.path.join(src, "annotations", "radar_pc",
+                           sensors[img["sensor_id"]],
+                           f"{img['sample_token']}.bin")
+        img["sample_token"] = f"demo{i // n_cams:04d}"
+        img["sensor_id"] = sensor_id[DEMO_CAMERAS[i % n_cams]]
+        if os.path.exists(old):
+            new = os.path.join(dst, "annotations", "radar_pc",
+                               DEMO_CAMERAS[i % n_cams],
+                               f"{img['sample_token']}.bin")
+            os.makedirs(os.path.dirname(new), exist_ok=True)
+            os.symlink(old, new)
+    ids = {img["id"] for img in images}
+    coco["images"] = images
+    coco["annotations"] = [a for a in coco["annotations"]
+                           if a["image_id"] in ids]
+    with open(os.path.join(dst, "annotations", f"{split}.json"), "w") as f:
+        json.dump(coco, f)
+    return tmp
+
+
 def split_size(root: str, split: str) -> int:
     with open(os.path.join(root, "nuscenes", "annotations",
                            f"{split}.json")) as f:
@@ -2215,7 +2295,7 @@ def scoring_record(trainer) -> dict:
     return rec
 
 
-def main_py_path(device, rehearsal: bool, card):
+def main_py_path(device, rehearsal: bool, card, keep: str):
     """Phase 16: the port's ``main.py`` on the repo's nuScenes-format data
     (``DATA_ROOT``), as a user runs it: 2 epochs of training at the
     campaign's settings in bf16 (the first frozen), validated with NDS after
@@ -2231,7 +2311,8 @@ def main_py_path(device, rehearsal: bool, card):
     cleared before it (``Trainer.val`` logs a scoring failure and goes on),
     and after it its submission holds the val images, the EVAL run's the
     same, and ``Trainer.summaries`` and its ``metrics_summary.json`` give
-    one finite NDS in [0, 1]. Returns its report."""
+    one finite NDS in [0, 1]. The last checkpoint and the EVAL run's
+    submission are copied into ``keep`` for phase 19. Returns its report."""
     real_val = Trainer.val
     vals = []
 
@@ -2282,6 +2363,11 @@ def main_py_path(device, rehearsal: bool, card):
             eval_s = time.perf_counter() - t0
         finally:
             Trainer.val = real_val
+        kept = {"checkpoint": os.path.join(keep, "phase16_model_last.pt"),
+                "eval_results": os.path.join(keep, "phase16_" + SUBMISSION)}
+        shutil.copy(ckpt, kept["checkpoint"])
+        shutil.copy(os.path.join(ev.config.OUTPUT_DIR, SUBMISSION),
+                    kept["eval_results"])
         cfg = trainer.config
         epochs = int(cfg.TRAIN.EPOCHS)
         n_nodes = sum(isinstance(m, DeformConvNode)
@@ -2371,6 +2457,7 @@ def main_py_path(device, rehearsal: bool, card):
         "warp_ms_per_image": warp_ms, "cpu_decoder": cpu_decoder,
         "raw_frame_warp_ms_per_batch": raw_warp_ms, "train_run_s": train_s,
         "eval_run_s": eval_s, "decoded_train_run": decoded_train,
+        "kept": kept,
     }
     where = "" if rehearsal else f" on {card}"
     log(f"main.py: {epochs} epochs on {n_train} train images (batch "
@@ -3403,12 +3490,13 @@ def serving_cost(device, rehearsal: bool) -> dict:
             "gib": cost["bytes_accessed"] / 2 ** 30}
 
 
-def training_run_path(device, rehearsal: bool, card) -> dict:
+def training_run_path(device, rehearsal: bool, card, keep: str) -> dict:
     """Phase 18: the training run as the JAX package runs it (a)-(e), and
-    the serving forward's cost."""
+    the serving forward's cost. The converter's copy of the raw tables
+    stays in ``keep`` for phase 19."""
     where = "" if rehearsal else f" on {card}"
     with tempfile.TemporaryDirectory(prefix="cfd_smoke_run_") as tmp:
-        conv = check_converter(tmp)
+        conv = check_converter(keep)
         log(f"converter: {conv['splits']} and {conv['bins']} point-cloud "
             f"files equal to the committed ones, in {conv['seconds']:.2f} s")
         paint = check_native_kernels()
@@ -3451,7 +3539,420 @@ def training_run_path(device, rehearsal: bool, card) -> dict:
         f"{cost['gib']:.3f} GiB (estimate_cost)")
     return {"converter": {k: v for k, v in conv.items() if k != "root"},
             "native": paint, "loader": loader, "rehearse": reh,
-            "profile": prof, "serving_cost": cost}
+            "profile": prof, "serving_cost": cost,
+            "raw_tables": conv["root"]}
+
+
+DEMO_SAMPLES = 8  # six-camera samples of phase 19's demo
+RESNET_ARCHS = ("dla_34", "resnet_18", "resnet_34")
+RESNET_STEPS = 2  # unfrozen train steps of RESNET_BATCH a dtype
+RESNET_BATCH = 2
+# phase 19's KITTI round trip: the label files keep two decimals of the
+# camera-frame centre, size and yaw, so a box read back from them is off
+# the ground truth by up to ~0.01 m (the 1e-6 check runs on the transforms
+# themselves, in float64, without the files)
+KITTI_FILE_TOL = 0.02
+KITTI_TRANSFORM_TOL = 1e-6
+
+
+def run_demo(args):
+    """``demo.main(args)`` counted and timed: (its per-sample results, the
+    frames ``Detector.run`` served and its results per sample, the counts,
+    ms per sample in ``Detector.run`` and in rendering)."""
+    served, run_s, render_s = [], [], []
+    real_run, real_mosaic = Detector.run, cfd_demo.mosaic_frame
+
+    def run(self, images, img_infos=None, radar_pcs=None):
+        t0 = time.perf_counter()
+        ret = real_run(self, images, img_infos, radar_pcs)
+        run_s.append(time.perf_counter() - t0)
+        served.append(([np.array(im) for im in images], img_infos, radar_pcs,
+                       ret["results"]))
+        return ret
+
+    def mosaic(*a, **k):
+        t0 = time.perf_counter()
+        frame = real_mosaic(*a, **k)
+        render_s.append(time.perf_counter() - t0)
+        return frame
+
+    Detector.run, cfd_demo.mosaic_frame = run, mosaic
+    reset_serving_counts()
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = cfd_demo.main(args)
+        counts = serving_counts()
+    finally:
+        Detector.run, cfd_demo.mosaic_frame = real_run, real_mosaic
+    return (results, served, counts, 1e3 * statistics.mean(run_s),
+            1e3 * statistics.mean(render_s), out.getvalue())
+
+
+def check_demo(device, rehearsal: bool, main_py, work: str) -> dict:
+    """19a: the demo on the card at the campaign's settings with phase 16's
+    last checkpoint, on the campaign's val images grouped ``n_cams`` to a
+    sample (``demo_root``): each sample's detections equal a second
+    ``Detector.run`` on the same frames, the mosaics are (448, 1648, 3), the
+    video reads back a frame a sample, ``dcn_fwd_bf16`` launched once per
+    node per sample, the dataset's decode and ``ycc_to_bgr`` once per image
+    and ``warp_affine`` once per sample (448x256 frames to 128x224); then
+    one sample of the single-camera split with ``--show-attention``."""
+    cv2 = image_io.opencv("phase 19's demo check")
+    n_cams = 2 if rehearsal else 6
+    n_samples = 2 if rehearsal else DEMO_SAMPLES
+    src = os.path.join(DATA_ROOT, "nuscenes")
+    root = demo_root(os.path.join(work, "demo_root"), src, "mini_val", n_cams,
+                     n_samples)
+    out = os.path.join(work, "demo")
+    video = os.path.join(work, "demo.mp4")
+    opts = CAMPAIGN_OPTS + (TINY_OPTS if rehearsal else [])
+    ckpt = main_py["kept"]["checkpoint"]
+    args = ["--device", device, "--load", ckpt, "--save-dir", out,
+            "--save-video", video, *opts, "DATASET.ROOT", repr(root + "/")]
+    t0 = time.perf_counter()
+    results, served, counts, run_ms, render_ms, printed = run_demo(args)
+    wall_s = time.perf_counter() - t0
+    # the same frames through a Detector of this process
+    det = Detector(load_config(opts=opts, num_classes=10), device=device)
+    load_weights(det.model, load_torch_file(ckpt)["state_dict"])
+    n_nodes = sum(isinstance(m, DeformConvNode) for m in det.model.modules())
+    tokens = [f"demo{i:04d}" for i in range(n_samples)]
+    if list(results) != tokens or len(served) != n_samples:
+        raise AssertionError(f"demo served {list(results)}, expected "
+                             f"{tokens}")
+    want = {**{k: 0 for k in counts},
+            "dcn_fwd_bf16": 0 if rehearsal else n_nodes * n_samples,
+            "decode": 0 if rehearsal else n_cams * n_samples,
+            "ycc_to_bgr": 0 if rehearsal else n_cams * n_samples,
+            "warp_affine": 0 if rehearsal else n_samples}
+    if counts != want:
+        raise AssertionError(f"demo launched {counts}, expected {want}")
+    bitwise = 0
+    for token, (frames, infos, radars, got) in zip(tokens, served):
+        again = det.run(frames, infos, radars)["results"]
+        bitwise += same_detections(got, again, f"demo {token}")
+        if results[token] is not got:
+            raise AssertionError(f"demo {token}: returned other results")
+    shapes = set()
+    for token in tokens:
+        frame = cv2.imread(os.path.join(out, f"{token}.jpg"))
+        shapes.add(None if frame is None else frame.shape)
+    if shapes != {(448, 1648, 3)}:
+        raise AssertionError(f"demo mosaics of shapes {shapes}")
+    cap = cv2.VideoCapture(video)
+    n_read = 0
+    while cap.read()[0]:
+        n_read += 1
+    cap.release()
+    if n_read != n_samples:
+        raise AssertionError(f"the demo's video reads back {n_read} frames, "
+                             f"{n_samples} written")
+    # one sample of the single-camera split, with the attention overlays
+    att = os.path.join(work, "demo_attention")
+    one_root = tiny_root(os.path.join(work, "one")) if rehearsal else DATA_ROOT
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = cfd_demo.main(["--device", device, "--load", ckpt, "--save-dir",
+                             att, "--max-samples", "1", "--show-attention",
+                             *opts, "DATASET.ROOT", repr(one_root.rstrip("/")
+                                                         + "/")])
+    token = next(iter(one))
+    files = sorted(os.listdir(att))
+    want_files = sorted(f"{token}{s}.jpg" for s in ("", "_att_depthMap",
+                                                    "_att_pc_hm"))
+    if files != want_files:
+        raise AssertionError(f"--show-attention wrote {files}, expected "
+                             f"{want_files}")
+    return {"samples": n_samples, "cameras": n_cams, "dcn_nodes": n_nodes,
+            "counts": counts, "bitwise_samples": bitwise,
+            "detections": sum(len(v) for r in results.values()
+                              for v in r.values()),
+            "video_frames": n_read, "detect_ms_per_sample": run_ms,
+            "render_ms_per_sample": render_ms, "wall_s": wall_s,
+            "attention_files": files,
+            "results": {i: items for i, items in enumerate(
+                items for per_cam in results.values()
+                for items in per_cam.values())},
+            "stage_line": printed.strip().splitlines()[-1]}
+
+
+def check_eval_cli(main_py, raw_tables: str, work: str) -> dict:
+    """19b: ``evaluation/cli.py`` on phase 16's EVAL submission against the
+    raw tables of phase 18's copy: every range and extreme
+    ``metrics_summary.json`` written; its range_all mAP and NDS beside the
+    Trainer's own."""
+    out = os.path.join(work, "eval_cli")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summaries = cfd_eval_cli.main([
+            main_py["kept"]["eval_results"], "--output_dir", out,
+            "--eval_set", "mini_val", "--dataroot", raw_tables, "--version",
+            "v1.0-mini", "--verbose", "1"])
+    seconds = time.perf_counter() - t0
+    variants = sorted(f"range_{r}{x}" for r in ("10", "30", "50", "all")
+                      for x in ("", "_extreme"))
+    written = sorted(d for d in os.listdir(out) if os.path.exists(
+        os.path.join(out, d, "metrics_summary.json")))
+    if written != variants or sorted(summaries) != variants:
+        raise AssertionError(f"the evaluation CLI wrote {written}, expected "
+                             f"{variants}")
+    m = summaries["range_all"]
+    return {"seconds": seconds, "variants": written,
+            "map": m["mean_ap"], "nds": m["nd_score"],
+            "trainer_map": main_py["map"][-1],
+            "trainer_nds": main_py["nds"][-1]}
+
+
+def check_kitti(raw_tables: str, demo: dict, work: str) -> dict:
+    """19c: ``nuscenes_gt_to_kitti`` of the val split of phase 18's copy,
+    ``kitti_results_to_nuscenes`` of those labels against the ground
+    truth's global boxes (``KITTI_FILE_TOL``: the files keep two decimals;
+    ``KITTI_TRANSFORM_TOL`` on the float64 transforms alone), and
+    ``export_kitti`` of the demo's detections."""
+    out = os.path.join(work, "kitti")
+    t0 = time.perf_counter()
+    tokens = cfd_kitti.nuscenes_gt_to_kitti(raw_tables, "v1.0-mini",
+                                            "mini_val", out,
+                                            imsize=(448, 256))
+    sub = cfd_kitti.kitti_results_to_nuscenes(out, "mini_val", raw_tables,
+                                              "v1.0-mini")
+    seconds = time.perf_counter() - t0
+    nusc = RawNuScenes(raw_tables, "v1.0-mini")
+    if not tokens or sorted(sub["results"]) != sorted(tokens):
+        raise AssertionError(f"KITTI: {len(tokens)} samples exported, "
+                             f"{len(sub['results'])} read back")
+    worst_file = worst_tf = 0.0
+    n_boxes = 0
+    for token, items in sub["results"].items():
+        channels = nusc.sample_channel[token]
+        sd_lid = nusc.sd_by_token[channels["LIDAR_TOP"]]
+        cs_lid = nusc.calibrated_sensor[sd_lid["calibrated_sensor_token"]]
+        pose = nusc.ego_pose[sd_lid["ego_pose_token"]]
+        gts = [a for a in nusc.anns_by_sample.get(token, [])
+               if cfd_kitti.category_to_detection_name(nusc.category[
+                   nusc.instance[a["instance_token"]]["category_token"]][
+                   "name"])]
+        for it in items:
+            d = [max(np.abs(np.asarray(it["translation"])
+                            - a["translation"]).max(),
+                     np.abs(np.asarray(it["size"]) - a["size"]).max())
+                 for a in gts]
+            worst_file = max(worst_file, min(d))
+            n_boxes += 1
+        for a in gts:  # the transforms alone, there and back, float64
+            vq = cfd_quat.from_axis_angle([0.3, 1.0, 0.2], 0.4)
+            vt = np.array([0.1, -1.2, 0.5])
+            lid_c = cfd_quat.rotate(cfd_quat.inverse(cs_lid["rotation"]),
+                                    cfd_quat.rotate(
+                                        cfd_quat.inverse(pose["rotation"]),
+                                        np.asarray(a["translation"])
+                                        - pose["translation"])
+                                    - cs_lid["translation"])
+            lid_q = cfd_quat.multiply(cfd_quat.inverse(cs_lid["rotation"]),
+                                      cfd_quat.multiply(cfd_quat.inverse(
+                                          pose["rotation"]), a["rotation"]))
+            cam = cfd_kitti.box_nuscenes_to_kitti(lid_c, a["size"], lid_q,
+                                                  vq, vt)
+            back_c, _, back_q = cfd_kitti.box_kitti_to_nuscenes_lidar(
+                *cam, vq, vt)
+            glob = cfd_quat.rotate(pose["rotation"], cfd_quat.rotate(
+                cs_lid["rotation"], back_c) + cs_lid["translation"]) + \
+                pose["translation"]
+            worst_tf = max(worst_tf, float(np.abs(
+                glob - np.asarray(a["translation"])).max()))
+    if n_boxes == 0 or not worst_file <= KITTI_FILE_TOL:
+        raise AssertionError(f"KITTI round trip: {n_boxes} boxes, worst "
+                             f"{worst_file:.3e} m off the ground truth "
+                             f"(limit {KITTI_FILE_TOL})")
+    if not worst_tf <= KITTI_TRANSFORM_TOL:
+        raise AssertionError(f"KITTI transforms: {worst_tf:.3e} m off the "
+                             f"ground truth (limit {KITTI_TRANSFORM_TOL})")
+    n_files = cfd_kitti_export.export_kitti(
+        demo["results"], os.path.join(work, "kitti_export"),
+        NuScenesDataset.class_name, conf_thresh=0.3)
+    if n_files != len(demo["results"]):
+        raise AssertionError(f"export_kitti wrote {n_files} files")
+    return {"samples": len(tokens), "boxes": n_boxes,
+            "worst_file_m": worst_file, "worst_transform_m": worst_tf,
+            "export_files": n_files, "seconds": seconds}
+
+
+def resnet_serving(arch: str, device, rehearsal: bool, frames, n_cams: int):
+    """One architecture served at full width in float32 and bf16 on seeded
+    weights, counted (16 DCN launches a run of the model's dtype, no other
+    kernel of the port) and held against the plain DCN as phases 6 and 8
+    hold DLA-34; returns frames/s and the heads' worst errors."""
+    opts = MAIN_PATH_OPTS + ["MODEL.ARCH", repr(arch)] + (
+        ["MODEL.INPUT_SIZE", "(64, 128)"] if rehearsal else [])
+    cfg = load_config(opts=opts + FP32_OPTS, num_classes=10)
+    det = Detector(cfg, device=device)
+    seeded_weights(det.model, SEED)
+    calibrate_batchnorm(det, frames)
+    n_nodes = sum(isinstance(m, DeformConvNode) for m in det.model.modules())
+    out = {"dcn_nodes": n_nodes,
+           "params_m": sum(p.numel() for p in det.model.parameters()) / 1e6}
+    det16 = Detector(load_config(opts=opts + ["MIXED_PRECISION", "True"],
+                                 num_classes=10),
+                     state_dict=det.model.state_dict(), device=device)
+    for name, d, kernel in (("float32", det, "dcn_fwd"),
+                            ("bf16", det16, "dcn_fwd_bf16")):
+        d.run(*frames)  # warm-up
+        reset_serving_counts()
+        _, detections, times, _ = serve_counted(d, frames, n_cams)
+        counts = serving_counts()
+        want = {**{k: 0 for k in counts},
+                kernel: 0 if rehearsal else n_nodes * TIMED_RUNS}
+        if counts != want:
+            raise AssertionError(f"{arch} {name} serving launched {counts}, "
+                                 f"expected {want}")
+        out[name] = {"launches": counts[kernel], "detections": detections,
+                     "frames_per_s": n_cams / times["total"],
+                     "ms_per_batch": 1e3 * times["total"]}
+    worst, same = check_heads(det, frames)
+    worst16, node_rel16, same16 = check_heads_bf16(det, det16, frames)
+    out["float32"]["heads_worst"] = max(worst.values())
+    out["float32"]["frustum_identical"] = same
+    out["bf16"]["heads_worst"] = max(v[0] for v in worst16.values())
+    out["bf16"]["heads_limit_min"] = min(
+        BF16_HEAD_MULT * v[1] + HEADS_RTOL for v in worst16.values())
+    out["bf16"]["node_worst"] = max(node_rel16)
+    out["bf16"]["frustum_identical"] = same16
+    return out
+
+
+def resnet_training(arch: str, device, rehearsal: bool, bf16: bool):
+    """RESNET_STEPS unfrozen train steps of RESNET_BATCH at full width on
+    seeded weights after an untimed one: finite losses, the forward and
+    backward kernels of the dtype once per DCN node per step and nothing
+    else; ms per step and peak memory."""
+    opts = MAIN_PATH_OPTS + ["MODEL.ARCH", repr(arch),
+                             "MODEL.FREEZE_BACKBONE", "False",
+                             "TRAIN.BATCH_SIZE", str(RESNET_BATCH)] + (
+        [] if bf16 else FP32_OPTS) + (
+        ["MODEL.INPUT_SIZE", "(64, 128)"] if rehearsal else [])
+    cfg = load_config(opts=opts, num_classes=10)
+    model = build_model(cfg).to(device)
+    seeded_weights(model, SEED)
+    model.train()
+    n_nodes = sum(isinstance(m, DeformConvNode) for m in model.modules())
+    optimizer = make_optimizer(cfg, model)
+    loss_fn = GenericLoss(cfg)
+    ds = SyntheticTrainingSet(cfg, RESNET_BATCH, seed=SEED)
+    batch = to_device(stack_items([ds.get_item(i)
+                                   for i in range(RESNET_BATCH)]), device)
+    train_step(model, optimizer, loss_fn, batch, 1e-5, False)  # warm-up
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_serving_counts()
+    ms, totals = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        metrics = train_step(model, optimizer, loss_fn, batch, 1e-5, False)
+        totals.append(float(metrics["total"]))  # waits for the step
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = serving_counts()
+    fwd = "dcn_fwd_bf16" if bf16 else "dcn_fwd"
+    bwd = BWD_KERNELS_BF16 if bf16 else BWD_KERNELS
+    per = 0 if rehearsal else n_nodes * RESNET_STEPS
+    want = {k: per if k == fwd or k in bwd else 0 for k in counts}
+    if counts != want:
+        raise AssertionError(f"{arch} {'bf16' if bf16 else 'float32'} "
+                             f"steps launched {counts}, expected {want}")
+    if not all(math.isfinite(t) for t in totals):
+        raise AssertionError(f"{arch} train steps: losses {totals}")
+    out = {"ms_per_step": statistics.mean(ms), "ms_steps": ms,
+           "losses": totals, "launches": {k: v for k, v in counts.items()
+                                          if v}}
+    if not rehearsal:
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def demo_eval_resnet_path(device, rehearsal: bool, card, main_py, run,
+                          work: str) -> dict:
+    """Phase 19: (a) the demo, (b) the evaluation CLI, (c) KITTI, (d) the
+    ResNet-18/34 backbones at full width beside DLA-34."""
+    where = "" if rehearsal else f" on {card}"
+    demo = check_demo(device, rehearsal, main_py, work)
+    log(f"demo: {demo['samples']} samples of {demo['cameras']} cameras, "
+        f"{demo['detections']} detections, each sample equal to a second "
+        f"Detector.run ({demo['bitwise_samples']} bitwise); mosaics "
+        f"448x1648, video {demo['video_frames']} frames; launches "
+        f"{ {k: v for k, v in demo['counts'].items() if v} }; "
+        f"--show-attention wrote {len(demo['attention_files'])} files")
+    log(f"  ms per sample: detection {demo['detect_ms_per_sample']:.2f}, "
+        f"rendering {demo['render_ms_per_sample']:.2f}; demo wall "
+        f"{demo['wall_s']:.1f} s{where}")
+    ev = check_eval_cli(main_py, run["raw_tables"], work)
+    log(f"evaluation CLI: {len(ev['variants'])} metrics_summary.json; "
+        f"range_all mAP {ev['map']:.4f} NDS {ev['nds']:.4f}, the Trainer's "
+        f"EVAL mAP {ev['trainer_map']:.4f} NDS {ev['trainer_nds']:.4f}; "
+        f"{ev['seconds']:.2f} s")
+    kit = check_kitti(run["raw_tables"], demo, work)
+    log(f"KITTI: {kit['samples']} val samples exported and read back, "
+        f"{kit['boxes']} boxes within {kit['worst_file_m']:.4f} m of the "
+        f"ground truth (limit {KITTI_FILE_TOL}; transforms alone "
+        f"{kit['worst_transform_m']:.2e}, limit {KITTI_TRANSFORM_TOL}); "
+        f"export_kitti {kit['export_files']} files; {kit['seconds']:.2f} s")
+    n_cams, frame_hw = (2, (72, 128)) if rehearsal else (6, (450, 800))
+    frames = synthetic_frames(n_cams, *frame_hw, seed=SEED)
+    archs = {}
+    for arch in RESNET_ARCHS:
+        t0 = time.perf_counter()
+        rep = resnet_serving(arch, device, rehearsal, frames, n_cams)
+        for bf16 in (False, True):
+            rep["train_" + ("bf16" if bf16 else "float32")] = \
+                resnet_training(arch, device, rehearsal, bf16)
+        rep["seconds"] = time.perf_counter() - t0
+        archs[arch] = rep
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        log(f"{arch}: {rep['params_m']:.2f} M params, {rep['dcn_nodes']} DCN "
+            f"nodes; heads vs plain DCN float32 "
+            f"{rep['float32']['heads_worst']:.2e} (limit {HEADS_RTOL}), bf16 "
+            f"{rep['bf16']['heads_worst']:.2e} (nodes "
+            f"{rep['bf16']['node_worst']:.2e}, limit {BF16_RTOL}); launches "
+            f"a {TIMED_RUNS}-run serve {rep['float32']['launches']} / "
+            f"{rep['bf16']['launches']}, {RESNET_STEPS} steps "
+            f"{rep['train_float32']['launches']} / "
+            f"{rep['train_bf16']['launches']}")
+        log(f"  float32 / bf16: {rep['float32']['frames_per_s']:.2f} / "
+            f"{rep['bf16']['frames_per_s']:.2f} frames/s at B={n_cams}, "
+            f"{rep['train_float32']['ms_per_step']:.1f} / "
+            f"{rep['train_bf16']['ms_per_step']:.1f} ms per unfrozen step "
+            f"of B={RESNET_BATCH}"
+            + ("" if rehearsal else
+               f", peak {rep['train_float32']['peak_mem_gb']:.2f} / "
+               f"{rep['train_bf16']['peak_mem_gb']:.2f} GB") + where)
+    return {"demo": {k: v for k, v in demo.items() if k != "results"},
+            "eval_cli": ev, "kitti": kit, "archs": archs}
+
+
+def add_phase19_launches(kernels, extra) -> None:
+    """Phase 19's launches beside each kernel's main-path count: the
+    ResNet backbones' serving and train steps (``resnet_launches``) and
+    the demo's (``demo_launches``)."""
+    for entry in kernels:
+        name = entry["name"]
+        per_arch = {}
+        for arch, rep in extra["archs"].items():
+            got = {}
+            for key in ("float32", "bf16"):
+                if rep[key]["launches"] and name == ("dcn_fwd" if key ==
+                                                     "float32" else
+                                                     "dcn_fwd_bf16"):
+                    got[f"serving_{key}_{TIMED_RUNS}_runs"] = \
+                        rep[key]["launches"]
+                steps = rep["train_" + key]["launches"].get(name)
+                if steps:
+                    got[f"train_{key}_{RESNET_STEPS}_steps"] = steps
+            if got:
+                per_arch[arch] = got
+        if per_arch:
+            entry["resnet_launches"] = per_arch
+        if extra["demo"]["counts"].get(name):
+            entry["demo_launches"] = extra["demo"]["counts"][name]
 
 
 def warp_kernel_entry(report):
@@ -3719,9 +4220,14 @@ def main(argv=None) -> int:
     probe_rows = check_probes(args.device, timed=not rehearsal)
     log(f"phase probes: {time.perf_counter() - t0:.1f} s")
 
+    # what phases 16 and 18 leave for phase 19: a checkpoint, a submission,
+    # the converted copy of the raw tables
+    work_dir = tempfile.TemporaryDirectory(prefix="cfd_smoke_work_")
+    work = work_dir.name
+
     # 16. main.py on the repo's data: train, validate with NDS, EVAL
     t0 = time.perf_counter()
-    main_py = main_py_path(args.device, rehearsal, card)
+    main_py = main_py_path(args.device, rehearsal, card, work)
     log(f"phase main.py: {time.perf_counter() - t0:.1f} s")
 
     # 17. serving image files: the warp kernel, run and run_stream on JPEG
@@ -3733,8 +4239,15 @@ def main(argv=None) -> int:
     # 18. the training run's host side: the converter, the native paint,
     # the threaded Loader, tools rehearse, TPU.PROFILE
     t0 = time.perf_counter()
-    run = training_run_path(args.device, rehearsal, card)
+    run = training_run_path(args.device, rehearsal, card, work)
     log(f"phase training run: {time.perf_counter() - t0:.1f} s")
+
+    # 19. the demo, the evaluation CLI, KITTI, the ResNet backbones
+    t0 = time.perf_counter()
+    extra = demo_eval_resnet_path(args.device, rehearsal, card, main_py, run,
+                                  work)
+    work_dir.cleanup()
+    log(f"phase demo+eval+kitti+resnet: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -3753,11 +4266,13 @@ def main(argv=None) -> int:
             kernels.append(backward_kernel_entry(name, rows_b, run))
     kernels += probe_kernel_entries(probe_rows)
     kernels += [warp_kernel_entry(files), ycc_kernel_entry(files, n_ycc)]
+    add_phase19_launches(kernels, extra)
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
     log(json.dumps({"serving_files": files}))
     log(json.dumps({"training_run": run}))
+    log(json.dumps({"demo_eval_kitti_resnet": extra}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

@@ -8,9 +8,11 @@ then imports every module of the port and runs the ``chip_smoke.py``
 rehearsal, serving, training, the probes, ``main.py`` and serving image
 files (phase 17: the plain warp, ``run``, ``run_stream``, flip and
 multi-scale TTA, and the inference CLI's ``main``, serial with
-``--save-dir`` and ``--show-attention``, then streamed) and the training
+``--save-dir`` and ``--show-attention``, then streamed), the training
 run's host side (phase 18: the converter, the native paint, the threaded
-Loader and ``tools rehearse``), to its last line.
+Loader and ``tools rehearse``) and phase 19 (the demo, the evaluation CLI,
+KITTI, the ResNet backbones), to its last line; ``--help`` of the demo and
+of the evaluation CLI runs there too.
 opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
 reads its JPEGs): there the subprocess lets only that module import it, and
 the rehearsal's ``main.py`` phase decodes through it. An AST scan checks the
@@ -77,6 +79,16 @@ import centerfusiondetect3d_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+import runpy
+helps = {{}}
+for name in {help_modules!r}:
+    sys.argv = [name, "--help"]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(name, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        helps[name] = [e.code, out.getvalue()]
 import chip_smoke
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
@@ -87,7 +99,7 @@ lines = out.getvalue().strip().splitlines()
 print(json.dumps({{"rc": rc, "modules": mods, "loaded": loaded,
                    "cv2_from": sorted(set(cv2_from)),
                    "phases": [l.split(":")[0] for l in lines
-                              if l.startswith("phase ")],
+                              if l.startswith("phase ")], "helps": helps,
                    "last": lines[-1]}}))
 """
 
@@ -98,7 +110,12 @@ NEW_MODULES = ("ops/warp.py", "ops/tta.py", "utils/visualize.py",
                "inference.py", "native/__init__.py", "data/synthetic.py",
                "data/convert_nuscenes.py", "utils/metrics_logger.py",
                "tools/rehearse.py", "tools/__main__.py",
-               "tools/profile_train_loader.py")
+               "tools/profile_train_loader.py", "demo.py",
+               "evaluation/cli.py", "evaluation/kitti.py",
+               "evaluation/kitti_export.py", "models/resnet.py")
+# entry points whose --help runs with the JAX stack hidden
+HELP_MODULES = ("centerfusiondetect3d_tpu_torch.demo",
+                "centerfusiondetect3d_tpu_torch.evaluation.cli")
 
 
 def _sources():
@@ -163,7 +180,8 @@ def test_jpeg_decoder_builds_at_first_decode_only(monkeypatch):
 def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
     proc = subprocess.run(
         [sys.executable, "-c", HIDE_AND_RUN.format(
-            blocked=BLOCKED, cv2_only_in=str(CV2_ONLY_IN))],
+            blocked=BLOCKED, cv2_only_in=str(CV2_ONLY_IN),
+            help_modules=HELP_MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -184,8 +202,12 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
         "phase training", "phase step-vs-plain",
         "phase bf16-backward-vs-plain", "phase bf16 training",
         "phase bf16 step-vs-plain", "phase probes", "phase main.py",
-        "phase serving files", "phase training run"
+        "phase serving files", "phase training run",
+        "phase demo+eval+kitti+resnet"
     ], report["phases"]
+    for name in HELP_MODULES:
+        code, text = report["helps"][name]
+        assert code == 0 and "usage:" in text, (name, code, text)
     assert json.loads(report["last"]) == {"ok": True, "rehearsal": "cpu"}
 
 
