@@ -17,12 +17,14 @@ from typing import Any, Dict, List
 import torch
 
 from ..models.heads import sigmoid_depth
+from ..parallel.distributed import is_multiprocess
 from .primitives import (
     bbox2d_loss,
     bbox3d_loss,
     bin_rot_loss,
     decoupled_loss,
     fast_focal_loss,
+    global_sums,
     reg_weighted_l1,
     uncertainty_depth_loss,
     weighted_bce,
@@ -75,7 +77,15 @@ class GenericLoss:
 
     def __call__(self, outputs: List[Dict[str, Any]], batch: Dict[str, Any],
                  train: bool = True):
-        """Returns (total, dict of per-head scalars, ``total`` included)."""
+        """Returns (total, dict of per-head scalars, ``total`` included).
+
+        In training under a process group of more than one rank every part
+        is the global batch's, on every rank (``primitives.global_sums``);
+        validation (``train=False``) keeps each rank's own."""
+        with global_sums(train and is_multiprocess()):
+            return self._losses(outputs, batch, train)
+
+    def _losses(self, outputs, batch, train):
         ref = outputs[0]["heatmap"]
         zero = ref.new_zeros(())
         losses: Dict[str, torch.Tensor] = {h: zero for h in self.heads}

@@ -7,26 +7,69 @@ loss, decoupled truncation loss, GIoU 2D and corner-L1 3D decode losses.
 Selections are masked sums with count guards, as in the JAX package, so a
 batch without targets gives the same numbers there and here. Head maps are
 (B, C, H, W); indices, masks and targets are (B, M, ...).
+
+Inside ``global_sums()`` (``GenericLoss`` in training under a process group
+of more than one rank) every sum, count and mean is over the global batch,
+as the JAX package's are under SPMD ``jit``: each local sum is all-reduced
+with the differentiable ``all_reduce``, so every rank computes the global
+loss, and the all-reduce's backward hands each rank the world size times its
+share of the gradient, which ``DistributedDataParallel``'s average over the
+ranks turns into the global loss's gradient.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
 from ..geometry.transforms3d import get_3d_box, get_alpha, img_to_cam_coord
 from ..ops.decode import gather_feature
 
+_GLOBAL = contextvars.ContextVar("cfd3d_global_sums", default=False)
+
+
+@contextlib.contextmanager
+def global_sums(enabled: bool = True):
+    """Sums, counts and means over every rank's batch inside the block."""
+    token = _GLOBAL.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _GLOBAL.reset(token)
+
+
+def _sum(x):
+    """x.sum(), over every rank inside ``global_sums``."""
+    total = x.sum()
+    if not _GLOBAL.get():
+        return total
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(total)
+
+
+def _mean(x):
+    """x.mean(), over every rank's (equally shaped) x inside
+    ``global_sums``."""
+    if not _GLOBAL.get():
+        return x.mean()
+    import torch.distributed as dist
+
+    return _sum(x) / (x.numel() * dist.get_world_size())
+
 
 def _masked_mean(x, mask):
     """Mean of x over elements where mask is nonzero (broadcasting)."""
     shape = torch.broadcast_shapes(x.shape, mask.shape)
     mask = mask.to(x.dtype).expand(shape)
-    return (x.expand(shape) * mask).sum() / mask.sum().clamp(min=1.0)
+    return _sum(x.expand(shape) * mask) / _sum(mask).clamp(min=1.0)
 
 
 def _count_or_big(mask):
     """mask.sum(), or 1e7 where it is 0 (the reference's guard)."""
-    n = mask.sum()
+    n = _sum(mask)
     return torch.where(n == 0, torch.full_like(n, 1e7), n)
 
 
@@ -36,12 +79,12 @@ def fast_focal_loss(pred, target, ind, mask, cat):
     pred/target (B, C, H, W); ind/mask/cat (B, M).
     """
     neg_weights = torch.pow(1.0 - target, 4)
-    neg_loss = (torch.log(1.0 - pred) * pred.square() * neg_weights).sum()
+    neg_loss = _sum(torch.log(1.0 - pred) * pred.square() * neg_weights)
     pos_pred_pix = gather_feature(pred, ind)  # (B, M, C)
     pos_pred = torch.gather(pos_pred_pix, 2, cat[..., None].long())
-    num_pos = mask.sum()
-    pos_loss = (torch.log(pos_pred) * (1.0 - pos_pred).square()
-                * mask[..., None]).sum()
+    num_pos = _sum(mask)
+    pos_loss = _sum(torch.log(pos_pred) * (1.0 - pos_pred).square()
+                    * mask[..., None])
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / num_pos.clamp(min=1.0))
 
@@ -54,9 +97,9 @@ def reg_weighted_l1(output, mask, ind, target, reduction: str = "mean"):
     if reduction == "none":
         return loss
     if reduction == "mean":
-        return loss.sum() / _count_or_big(mask)
+        return _sum(loss) / _count_or_big(mask)
     if reduction == "sum":
-        return loss.sum()
+        return _sum(loss)
     raise ValueError(f"unsupported reduction {reduction!r}")
 
 
@@ -65,7 +108,7 @@ def weighted_bce(output, mask, ind, target):
     pred = gather_feature(output, ind)  # (B, M, F)
     bce = (pred.clamp(min=0) - pred * target
            + torch.log1p(torch.exp(-pred.abs())))
-    return (mask * bce).sum() / _count_or_big(mask)
+    return _sum(mask * bce) / _count_or_big(mask)
 
 
 def _smooth_l1(x):
@@ -86,8 +129,8 @@ def bin_rot_loss(output, mask, ind, rotbin, rotres):
     output (B, 8, H, W); mask (B, M); rotbin (B, M, 2) int; rotres (B, M, 2).
     """
     pred = gather_feature(output, ind)  # (B, M, 8)
-    no_targets = mask.sum() == 0
-    zero_branch = (pred * mask[..., None]).mean()
+    no_targets = _sum(mask) == 0
+    zero_branch = _mean(pred * mask[..., None])
     p = pred.reshape(-1, 8)
     tb = rotbin.reshape(-1, 2)
     tr = rotres.reshape(-1, 2)
@@ -115,9 +158,9 @@ def uncertainty_depth_loss(output, mask, ind, target, uncertainty):
     loss = reg_weighted_l1(output, mask, ind, target, reduction="none")
     sigma_log = gather_feature(uncertainty, ind)  # (B, M, 1)
     weighted = loss * torch.exp(-sigma_log) + sigma_log
-    no_targets = mask.sum() == 0
-    u = torch.where(no_targets, weighted.mean(), _masked_mean(weighted, mask))
-    d = torch.where(no_targets, loss.mean(), _masked_mean(loss, mask))
+    no_targets = _sum(mask) == 0
+    u = torch.where(no_targets, _mean(weighted), _masked_mean(weighted, mask))
+    d = torch.where(no_targets, _mean(loss), _masked_mean(loss, mask))
     return d, u
 
 
@@ -126,8 +169,8 @@ def decoupled_loss(output, mask, ind, target, trunc_mask):
     loss = reg_weighted_l1(output, mask, ind, target, reduction="none")
     trunc = trunc_mask.to(loss.dtype)
     total = loss * (1.0 - trunc) + torch.log1p(loss * trunc)
-    no_targets = mask.sum() == 0
-    return torch.where(no_targets, total.mean(), _masked_mean(total, mask))
+    no_targets = _sum(mask) == 0
+    return torch.where(no_targets, _mean(total), _masked_mean(total, mask))
 
 
 def giou_2d(pred, target, mask):
@@ -147,7 +190,7 @@ def giou_2d(pred, target, mask):
     giou = iou - (convex - union) / torch.where(
         convex == 0, torch.ones_like(convex), convex)
     loss = 1.0 - _masked_mean(giou.clamp(-1.0, 1.0), mask)
-    return torch.where(mask.sum() == 0, torch.full_like(loss, eps), loss)
+    return torch.where(_sum(mask) == 0, torch.full_like(loss, eps), loss)
 
 
 def bbox2d_loss(local_offset, dimension2d, center_int, target, ind, mask):
@@ -184,4 +227,4 @@ def bbox3d_loss(output, center_int, trans_mat, calib, target, ind, mask,
     pred = get_3d_box(dimension, locations, yaws)
     loss = (pred[..., ::2] - target[..., ::2]).abs()
     masked = _masked_mean(loss, mask[..., None, None])
-    return torch.where(mask.sum() == 0, torch.zeros_like(masked), masked)
+    return torch.where(_sum(mask) == 0, torch.zeros_like(masked), masked)

@@ -17,8 +17,21 @@ are decoded on the same device (``data/image_io.py``). The run writes into
 ``ckpts/`` and the submission and ``nuscenes_eval_det_output_<split>/``
 of each validation, the run's ``metrics.jsonl`` and ``run_state.json``
 and, where matplotlib is installed, ``losses.png`` and ``history.json``
-(``runtime/fit.py``). Single process; the JAX package's compilation cache
-has no counterpart here.
+(``runtime/fit.py``). The JAX package's compilation cache has no
+counterpart here.
+
+Several processes, one a card (the port's launcher in place of the JAX
+package's ``jax.distributed`` cluster environment)::
+
+    python -m torch.distributed.run --nproc_per_node N
+        -m centerfusiondetect3d_tpu_torch.main [--device cuda|cpu] ...
+
+Launched so (``WORLD_SIZE`` set), ``main`` starts the process group
+(``parallel.initialize``): NCCL with ``--device cuda`` (the default), each
+rank on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``. Rank 0 names the
+run directory and alone writes ``config.json``, the checkpoints,
+``metrics.jsonl`` and the scores; each rank trains on its shard of every
+epoch and validates its shard of the split (``runtime/fit.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +40,11 @@ import argparse
 import json
 import os
 
+import torch
+
 from .config import default_config, finalize_config, update_config
 from .data.dataset import get_dataset
+from .parallel import distributed as parallel
 from .runtime.fit import Trainer
 from .utils.observability import create_logger
 
@@ -61,6 +77,10 @@ def param_census(model) -> dict:
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
+    if parallel.launched():
+        cpu = (args.device is not None
+               and torch.device(args.device).type == "cpu")
+        parallel.initialize(backend="gloo" if cpu else None)
     config = update_config(default_config(), args.cfg, args.opts)
     dataset_cls = get_dataset(config.DATASET.DATASET)
     logger, out_dir = create_logger(config.OUTPUT_DIR, config.NAME)
@@ -68,8 +88,9 @@ def main(argv=None) -> Trainer:
     config.OUTPUT_DIR = out_dir
     config = finalize_config(config, dataset_cls.num_categories,
                              dataset_cls.default_resolution)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(config.to_dict(), f, indent=1)
+    if parallel.is_main_process():
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            json.dump(config.to_dict(), f, indent=1)
 
     val_split = config.DATASET.VAL_SPLIT
     dataset_val = dataset_cls(config, val_split, device=args.device)
@@ -78,6 +99,10 @@ def main(argv=None) -> Trainer:
                                  device=args.device))
     trainer = Trainer(config, dataset_train, dataset_val, device=args.device,
                       logger=logger)
+    if torch.distributed.is_initialized():
+        logger.info("process group: %s, rank %d of %d on %s",
+                    torch.distributed.get_backend(), parallel.rank(),
+                    parallel.world_size(), trainer.device)
     logger.info("param census: %s", param_census(trainer.model))
     if config.EVAL:
         if val_split == "test":
@@ -90,4 +115,7 @@ def main(argv=None) -> Trainer:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        parallel.shutdown()

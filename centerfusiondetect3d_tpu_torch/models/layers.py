@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import deform_conv2d
+from ..parallel.distributed import is_multiprocess
 
 
 def _cast(t, dtype):
@@ -53,7 +54,17 @@ class Conv2d(nn.Conv2d):
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that normalizes and keeps its statistics in at
     least float32 and returns ``compute_dtype`` (the JAX package's
-    ``TorchBatchNorm`` with a ``dtype``)."""
+    ``TorchBatchNorm`` with a ``dtype``).
+
+    In train mode under a process group of more than one rank
+    (``parallel/distributed.py``) the batch statistics are those of the
+    global batch, as JAX's are under SPMD ``jit``: the per-channel sums and
+    counts, then the sums of squared deviations from the global mean, are
+    all-reduced with the differentiable ``all_reduce`` (so gradients flow
+    through the global statistics); it normalizes by the global mean and
+    biased variance and updates the running variance with the unbiased
+    global one. One process is ``nn.BatchNorm2d`` itself.
+    """
 
     def __init__(self, num_features: int, compute_dtype=None):
         super().__init__(num_features)
@@ -61,10 +72,43 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        wide = torch.promote_types(x.dtype, torch.float32)
-        return super().forward(x.to(wide)).to(dt)
+        if dt is not None:
+            x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training and is_multiprocess():
+            from torch.distributed.nn.functional import all_reduce
+
+            y = self.batch_forward(x, all_reduce)
+        else:
+            y = super().forward(x)
+        return y if dt is None else y.to(dt)
+
+    def batch_forward(self, x, reduce):
+        """Train mode on x with statistics from per-channel sums that
+        ``reduce`` totals over the ranks (the differentiable ``all_reduce``;
+        the identity gives one process's batch statistics by the same
+        arithmetic): count and sum, then the squared deviations from the
+        mean. Updates the running statistics."""
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        sums = reduce(torch.cat([x.sum(dims),
+                                 x.new_full((1,), x.numel() // c)]))
+        n = sums[c]
+        mean = sums[:c] / n
+        centred = x - mean[None, :, None, None]
+        var = reduce(centred.square().sum(dims)) / n
+        y = centred * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = (y * self.weight[None, :, None, None]
+             + self.bias[None, :, None, None])
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = (1.0 / float(self.num_batches_tracked)
+                 if self.momentum is None else self.momentum)
+            unbiased = var * (n / (n - 1).clamp(min=1))
+            self.running_mean.mul_(1 - m).add_(mean.to(
+                self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1 - m).add_(unbiased.to(
+                self.running_var.dtype), alpha=m)
+        return y
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

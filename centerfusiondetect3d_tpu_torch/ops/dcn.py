@@ -45,6 +45,7 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .cuda_build import load_kernel_library
 
@@ -432,10 +433,13 @@ def deform_conv2d(x, offset, mask, weight, bias=None,
 
     Same arguments and result as :func:`deform_conv2d_plain`. On CUDA every
     tensor must be contiguous float32 on one device, or bf16 x, weight and
-    bias with float32 offset and mask; anything else raises. A float32
-    ``x`` on the CPU runs :func:`deform_conv2d_plain` under autograd; a bf16
-    ``x`` runs ``DeformConv2dFunction`` on either device (on the CPU with
-    the kernels' plain versions); float16 raises.
+    bias with float32 offset and mask; anything else raises. Without
+    autograd every call is one registered operator, ``cfd3d::dcn_fwd`` or
+    ``cfd3d::dcn_fwd_bf16``, which picks the kernel or the plain version by
+    device when it runs (so a traced or exported graph holds the operator,
+    not the choice). Under autograd a float32 (or float64) ``x`` on the CPU
+    runs :func:`deform_conv2d_plain`; any other runs ``DeformConv2dFunction``
+    (on the CPU with the kernels' plain versions); float16 raises.
     ``deform_conv2d.launches`` counts the float32 forward kernel's
     launches, ``dcn_fwd_bf16.launches`` the bf16 one's; each backward
     kernel's wrapper (``BACKWARD_KERNELS``, ``BACKWARD_KERNELS_BF16``)
@@ -444,15 +448,14 @@ def deform_conv2d(x, offset, mask, weight, bias=None,
     if x.dtype == torch.float16:
         raise TypeError("deform_conv2d: float16 is not supported; use "
                         "bfloat16 (MIXED_PRECISION) or float32")
-    bf16 = x.dtype == torch.bfloat16
-    if x.device.type == "cpu" and not bf16:
-        return deform_conv2d_plain(x, offset, mask, weight, bias, max_offset)
     if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"deform_conv2d: no kernel for device {x.device}")
+    bf16 = x.dtype == torch.bfloat16
     tensors = (x, offset, mask, weight) + ((bias,) if bias is not None else ())
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
-        forward = dcn_fwd_bf16 if bf16 else _launch
-        return forward(x, offset, mask, weight, bias, max_offset)
+        return _forward_op(x)(x, offset, mask, weight, bias, max_offset)
+    if x.device.type == "cpu" and not bf16:
+        return deform_conv2d_plain(x, offset, mask, weight, bias, max_offset)
     return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
                                       max_offset)
 
@@ -461,9 +464,10 @@ deform_conv2d.launches = 0
 
 
 class DeformConv2dFunction(torch.autograd.Function):
-    """The forward kernel of x's dtype (``dcn_fwd`` or ``dcn_fwd_bf16``);
-    backward = the ``dcn_bwd.cu`` kernels of that dtype around two plain
-    GEMMs, recomputing the columns from the saved inputs.
+    """The forward operator of x's dtype (``cfd3d::dcn_fwd`` or
+    ``cfd3d::dcn_fwd_bf16``: the kernel on the card, the plain version on
+    the CPU); backward = the ``dcn_bwd.cu`` kernels of that dtype around
+    two plain GEMMs, recomputing the columns from the saved inputs.
 
     The forward reads x channels-last: x itself where it is
     ``torch.channels_last``, else the copy :func:`dcn_fwd_nhwc` makes. The
@@ -473,9 +477,8 @@ class DeformConv2dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_offset):
-        forward = dcn_fwd_bf16 if x.dtype == torch.bfloat16 else _launch
         xh = dcn_fwd_nhwc(x)
-        out = forward(xh, offset, mask, weight, bias, max_offset)
+        out = _forward_op(x)(xh, offset, mask, weight, bias, max_offset)
         ctx.save_for_backward(xh, offset, mask, weight)
         ctx.has_bias = bias is not None
         ctx.max_offset = max_offset
@@ -884,6 +887,82 @@ def _launch(x, offset, mask, weight, bias, max_offset):
                    max_offset)
     deform_conv2d.launches += 1
     return out
+
+
+# The forward kernels as operators (``torch.library``): the CUDA
+# implementation launches the kernel (and counts the launch), the CPU one is
+# the plain version, so the device is chosen where the operator runs; an
+# exported program (``runtime/export.py``) holds these nodes and launches the
+# kernels wherever it is loaded with this module imported.
+
+
+@torch.library.custom_op("cfd3d::dcn_fwd", mutates_args=(),
+                         device_types="cuda")
+def dcn_fwd_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+               weight: torch.Tensor, bias: Optional[torch.Tensor],
+               max_offset: Optional[float]) -> torch.Tensor:
+    """``cfd3d::dcn_fwd``: the ``dcn_fwd`` kernel (:func:`_launch`) on the
+    card, :func:`deform_conv2d_plain` on the CPU (float32 or float64)."""
+    return _launch(*_kernel_layouts(x, offset, mask, weight, bias),
+                   max_offset)
+
+
+@torch.library.custom_op("cfd3d::dcn_fwd_bf16", mutates_args=(),
+                         device_types="cuda")
+def dcn_fwd_bf16_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                    weight: torch.Tensor, bias: Optional[torch.Tensor],
+                    max_offset: Optional[float]) -> torch.Tensor:
+    """``cfd3d::dcn_fwd_bf16``: the ``dcn_fwd_bf16`` kernel on the card,
+    :func:`deform_conv2d_bf16_plain` on the CPU."""
+    return dcn_fwd_bf16(*_kernel_layouts(x, offset, mask, weight, bias),
+                        max_offset)
+
+
+def _kernel_layouts(x, offset, mask, weight, bias):
+    """The operator's tensors in the layouts the kernels read: x contiguous
+    or channels-last as it comes, the rest contiguous (no copy where they
+    are). An exported program's tensors on the card need not have the
+    strides its tracing saw: one handed the operator a mask that was not
+    contiguous."""
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        x = x.contiguous()
+    return (x, offset.contiguous(), mask.contiguous(), weight.contiguous(),
+            None if bias is None else bias.contiguous())
+
+
+@dcn_fwd_op.register_kernel("cpu")
+def _dcn_fwd_cpu(x, offset, mask, weight, bias, max_offset):
+    return deform_conv2d_plain(x, offset, mask, weight, bias, max_offset)
+
+
+@dcn_fwd_bf16_op.register_kernel("cpu")
+def _dcn_fwd_bf16_cpu(x, offset, mask, weight, bias, max_offset):
+    # the kernel's wrapper: its argument checks, then the plain version
+    return dcn_fwd_bf16(x, offset, mask, weight, bias, max_offset)
+
+
+@dcn_fwd_op.register_fake
+def _dcn_fwd_fake(x, offset, mask, weight, bias, max_offset):
+    b, _, h, w = x.shape
+    return x.new_empty((b, weight.shape[0], h, w))
+
+
+dcn_fwd_bf16_op.register_fake(_dcn_fwd_fake)
+
+
+@register_flop_formula([torch.ops.cfd3d.dcn_fwd, torch.ops.cfd3d.dcn_fwd_bf16])
+def _dcn_fwd_flops(x_shape, offset_shape, mask_shape, weight_shape, *args,
+                   **kwargs) -> int:
+    """The contraction's multiply-adds, 2 * B*H*W * O * 9C, as
+    ``FlopCounterMode`` counts the plain version's nine matmuls."""
+    b, c, h, w = x_shape
+    return 2 * b * h * w * weight_shape[0] * 9 * c
+
+
+def _forward_op(x):
+    """The forward operator of x's dtype."""
+    return (torch.ops.cfd3d.dcn_fwd_bf16 if x.dtype == torch.bfloat16
+            else torch.ops.cfd3d.dcn_fwd)
 
 
 def dcn_fwd_nhwc(x):

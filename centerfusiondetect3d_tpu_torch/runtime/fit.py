@@ -1,8 +1,8 @@
-"""The training loop and validation: the reference Trainer on one CUDA card.
+"""The training loop and validation: the reference Trainer on CUDA cards.
 
 The port of ``centerfusiondetect3d_tpu/runtime/fit.py:Trainer`` (reference
-``src/lib/trainer.py:20-127`` and its Lightning callbacks), single process:
-per epoch the frozen-or-not decision of
+``src/lib/trainer.py:20-127`` and its Lightning callbacks): per epoch the
+frozen-or-not decision of
 ``MODEL.FREEZE_BACKBONE`` / ``MODEL.DEFREEZE``, the epoch's learning rate in
 every parameter group, one ``train_step`` per batch, running-average
 meters, a step timer that waits for the device, ``history["train"]``, the
@@ -60,9 +60,23 @@ package's does (``utils/visualize.py:ValVisualizer``): the ground truth, the
 predictions, the radar heatmaps and the bird's-eye view, written once per
 validation as ``OUTPUT_DIR/viz/e####_*.png``.
 
-Not ported yet (ROADMAP.md, Queue 1): multi-process training and
-validation; the training profile by kernel is
-``tools/profile_training.py``.
+Under a process group (``parallel.initialize``; ``main.py`` under
+``torch.distributed.run``) each rank trains on its strided shard of the
+identically shuffled index stream (``Loader(shard=(rank, world))``) on its
+own device, through one ``DistributedDataParallel`` wrapper a frozen phase
+(``training/state.py:wrap_data_parallel``); with more than one rank the
+BatchNorm statistics and the loss normalisers are the global batch's, so a
+step is the JAX package's step on the global batch (``fit.py:162-230``
+there) and every rank logs the global loss. ``TPU.MESH_DATA`` must be -1 or
+the world size (``parallel/mesh.py``). Validation shards the split into
+padded equal shards (``pad_to_batch``), runs each on its rank's device with
+no collective inside the forward, and merges the fixed-size detections and
+their image ids with one all-gather a batch, so every rank returns the
+whole results dict (``fit.py:313-508`` there). Checkpoints,
+``metrics.jsonl``, scoring and the loss plots are rank 0's alone;
+``ValVisualizer`` and the FLOPs report run only in a single process, as in
+JAX; ``DeviceHealthMonitor`` checks each rank's card. The training
+profile by kernel is ``tools/profile_training.py``.
 """
 
 from __future__ import annotations
@@ -85,7 +99,10 @@ from ..models import build_model
 from ..ops.decode import fusion_decode
 from ..ops.postprocess import post_process
 from ..ops.tta import flip_forward
-from ..training import learning_rate, make_optimizer, train_step
+from ..parallel import distributed as parallel
+from ..parallel.mesh import make_mesh
+from ..training import (learning_rate, make_optimizer, train_step,
+                        wrap_data_parallel)
 from ..training.checkpoint import load_torch_file, load_weights, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.metrics_logger import MetricsLogger
@@ -127,7 +144,12 @@ class Trainer:
                  on_step: Optional[Callable] = None):
         self.config = config
         self.device = resolve_device(device)
+        if torch.distributed.is_initialized():
+            self.device = parallel.local_device(self.device)
+        self.mesh = make_mesh(config.TPU.MESH_DATA, config.TPU.MESH_MODEL,
+                              config.TPU.MESH_SPATIAL, self.device)
         self.model = build_model(config).to(self.device)
+        self._ddp = None  # the current phase's DistributedDataParallel
         self.loss_fn = GenericLoss(config)
         self.dataset_train = dataset_train
         self.dataset_val = dataset_val
@@ -153,8 +175,9 @@ class Trainer:
         ``train`` or ``val`` (a Trainer that only loads or saves weights
         writes no run files)."""
         if self._metrics is None:
-            self._metrics = MetricsLogger(
+            self._metrics = (MetricsLogger(
                 self.config.OUTPUT_DIR, resume=bool(self.config.TRAIN.RESUME))
+                if parallel.is_main_process() else _NoMetrics())
         return self._metrics
 
     def init_state(self, state_dict=None, seed: Optional[int] = None):
@@ -203,9 +226,12 @@ class Trainer:
         if self.optimizer is None:
             self.init_state()
         self._refuse_validation_without_data()
+        shard = ((parallel.rank(), parallel.world_size())
+                 if parallel.is_multiprocess() else None)
         loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
                         shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED,
-                        augment=True, **loader_threads(cfg.WORKERS))
+                        augment=True, shard=shard,
+                        **loader_threads(cfg.WORKERS))
         if not cfg.TRAIN.SHUFFLE:
             self.logger.warning("TRAIN.SHUFFLE is off: data order is "
                                 "sequential but augmentation remains active")
@@ -229,9 +255,9 @@ class Trainer:
             with profile, contextlib.closing(batches):
                 for i, batch in enumerate(batches):
                     self.timer.start("step")
-                    metrics = train_step(self.model, self.optimizer,
-                                         self.loss_fn, batch, lr, frozen,
-                                         accum)
+                    metrics = train_step(self._step_model(frozen),
+                                         self.optimizer, self.loss_fn, batch,
+                                         lr, frozen, accum)
                     seconds = self.timer.stop("step")
                     metrics = {k: float(v) for k, v in metrics.items()}
                     for k, v in metrics.items():
@@ -270,10 +296,26 @@ class Trainer:
                 # (modelWithLoss.py:329-341)
                 self._save(epoch)
                 self.val()
-        plot_history(self.history, cfg.OUTPUT_DIR)
+        if parallel.is_main_process():
+            plot_history(self.history, cfg.OUTPUT_DIR)
         return self.history
 
-    def _save(self, epoch: int) -> str:
+    def _step_model(self, frozen: bool):
+        """The module a step runs: the model itself in a single process,
+        else its ``DistributedDataParallel`` wrapper for this phase (one a
+        phase; the previous one is let go)."""
+        if not torch.distributed.is_initialized():
+            return self.model
+        if self._ddp is None or self._ddp.frozen != frozen:
+            self._ddp = None  # its reducer's hooks go before the next's
+            self._ddp = wrap_data_parallel(self.model, frozen)
+        return self._ddp
+
+    def _save(self, epoch: int) -> Optional[str]:
+        """Rank 0 writes the checkpoint (the unwrapped model's reference
+        names); other ranks write nothing."""
+        if not parallel.is_main_process():
+            return None
         path = save_checkpoint(os.path.join(self.config.OUTPUT_DIR, "ckpts"),
                                self.model, self.optimizer, epoch,
                                self.history)
@@ -320,22 +362,33 @@ class Trainer:
         return processed, loss, parts, outputs[-1].get("pc_hm")
 
     def val(self, loader: Optional[Loader] = None) -> Dict[int, list]:
-        """Validation and NDS scoring, single process (the JAX package's
-        ``Trainer.val`` without its multi-process sharding), with the
-        ``DEBUG > 0`` renders of its first image. The first call logs the
-        forward's cost per batch.
-        Returns the per-image results; the scoring summaries land in
-        ``summaries``, ``metrics`` gets ``val/*`` and its summary."""
+        """Validation and NDS scoring, with the ``DEBUG > 0`` renders of its
+        first image. The first call logs the forward's cost per batch.
+
+        With more than one rank each evaluates its padded shard of the
+        split (equal batch counts and sizes everywhere) and one all-gather
+        a batch merges the detections with their image ids; pad duplicates
+        fold into the id-keyed results, and rank 0 alone scores. Loss
+        meters stay each rank's own; renders and the cost report are a
+        single process's.
+        Returns the per-image results (every rank the whole split's); the
+        scoring summaries land in ``summaries``, ``metrics`` gets ``val/*``
+        and its summary."""
         cfg = self.config
+        multi = parallel.is_multiprocess()
+        default_loader = loader is None
         if loader is None:
             if self.dataset_val is None:
                 raise ValueError("Trainer.val needs a dataset_val or a loader")
             loader = Loader(self.dataset_val, cfg.TEST.BATCH_SIZE,
                             shuffle=False, drop_last=False, drop_keys=(),
+                            shard=((parallel.rank(), parallel.world_size())
+                                   if multi else None),
+                            pad_to_batch=multi,
                             **loader_threads(cfg.WORKERS))
         if self.optimizer is None:
             self.init_state()
-        if not self._cost_reported:
+        if not self._cost_reported and not multi:
             self._cost_reported = True
             self._report_cost(loader)
         t0 = time.perf_counter()
@@ -344,7 +397,7 @@ class Trainer:
         meters = defaultdict(AverageMeter)
         oh, ow = cfg.MODEL.OUTPUT_SIZE
         viz = None
-        if int(cfg.DEBUG) > 0 and self.dataset_val is not None:
+        if int(cfg.DEBUG) > 0 and self.dataset_val is not None and not multi:
             # first-val-image renders (WandbLogger, logger.py:78-171)
             from ..utils.visualize import ValVisualizer
 
@@ -374,14 +427,20 @@ class Trainer:
                     if meta is not None:
                         img_ids = np.asarray(meta["img_id"]).tolist()
                     else:
-                        idxs = list(range(seen, seen + nimg))
+                        idxs = (self._shard_indices(seen, nimg)
+                                if multi and default_loader
+                                else list(range(seen, seen + nimg)))
                         ids = getattr(self.dataset_val, "images", None)
                         img_ids = ([ids[j] for j in idxs] if ids is not None
                                    else idxs)
                     seen += nimg
-                    results.update(detections_to_results(
-                        {k: v.cpu().numpy() for k, v in processed.items()},
-                        img_ids))
+                    dets = {k: v.cpu().numpy() for k, v in processed.items()}
+                    if multi:
+                        # ids ride with the rows, so the two stay paired
+                        dets["_img_ids"] = np.asarray(img_ids, np.int64)
+                        dets = parallel.all_gather_detections(dets)
+                        img_ids = dets.pop("_img_ids").tolist()
+                    results.update(detections_to_results(dets, img_ids))
                     if viz is not None and viz.image is None and meta is not None:
                         _visualize_first(viz, cfg, batch, int(img_ids[0]),
                                          results, pred_pc_hm)
@@ -396,8 +455,9 @@ class Trainer:
             f"{k} {m.avg:.4f}" for k, m in sorted(meters.items())))
         self.metrics.scalars({k: m.avg for k, m in meters.items()},
                              prefix="val/")
-        if self.dataset_val is not None and hasattr(self.dataset_val,
-                                                    "run_eval"):
+        if (self.dataset_val is not None
+                and hasattr(self.dataset_val, "run_eval")
+                and parallel.is_main_process()):
             try:
                 _, summaries = self.dataset_val.run_eval(results,
                                                          cfg.OUTPUT_DIR)
@@ -417,6 +477,18 @@ class Trainer:
 
     def test(self, loader: Optional[Loader] = None) -> Dict[int, list]:
         return self.val(loader)
+
+    def _shard_indices(self, seen: int, nimg: int) -> List[int]:
+        """Dataset indices of this rank's positions ``seen`` .. ``seen +
+        nimg`` in the default sharded loader's unshuffled, strided and
+        padded index stream (``data/pipeline.py:Loader._indices``), the JAX
+        package's formula (``fit.py:412-424``): a rank-local counter would
+        repeat across ranks and collapse in the merge."""
+        rank, world = parallel.rank(), parallel.world_size()
+        n = len(self.dataset_val)
+        m = -(-n // world)  # the padded shard's length
+        return [int((rank + world * ((seen + i) % m)) % n)
+                for i in range(nimg)]
 
     def _report_cost(self, loader):
         """The one-time FLOPs report (thop's, trainer.py:112-117) on the
@@ -457,6 +529,15 @@ class Trainer:
                 f"total loss non-finite for {self._nonfinite.tolerance} "
                 "consecutive steps - training diverged; restart with a "
                 "lower LR")
+
+
+class _NoMetrics:
+    """The metrics logger of a rank other than 0: it writes nothing."""
+
+    def scalars(self, *args, **kwargs):
+        pass
+
+    log = alert = summary = scalars
 
 
 def _visualize_first(viz, cfg, batch, img_id: int, results, pred_pc_hm):

@@ -1,5 +1,6 @@
 from .schedule import learning_rate
-from .state import make_optimizer, set_backbone_frozen, train_step
+from .state import (make_optimizer, set_backbone_frozen, train_step,
+                    wrap_data_parallel)
 
 __all__ = ["learning_rate", "make_optimizer", "set_backbone_frozen",
-           "train_step"]
+           "train_step", "wrap_data_parallel"]

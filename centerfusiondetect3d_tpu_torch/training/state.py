@@ -17,9 +17,11 @@ live parameter's gradient is not exactly zero (state.py:57-71 there).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 WEIGHT_DECAY = 5e-4
 
@@ -40,8 +42,29 @@ def make_optimizer(config, model: torch.nn.Module) -> torch.optim.Optimizer:
 
 def set_backbone_frozen(model, frozen: bool) -> None:
     """requires_grad off (frozen) or on for ``base``, ``dla_up``, ``ida_up``."""
-    for _, p in model.backbone_parameters():
+    for _, p in _unwrap(model).backbone_parameters():
         p.requires_grad_(not frozen)
+
+
+def wrap_data_parallel(model, frozen: bool) -> DistributedDataParallel:
+    """``model`` in ``DistributedDataParallel`` over the default process
+    group for one phase of the run: DDP takes the parameters that require
+    grad when it is built, so the backbone is frozen (or not) first and a
+    run builds one wrapper per phase, as the JAX package builds one step
+    per ``frozen``. Construction broadcasts rank 0's parameters and
+    buffers; the BatchNorm statistics are the global batch's on every rank
+    (``models/layers.py``), so buffers are not broadcast again."""
+    set_backbone_frozen(model, frozen)
+    dev = next(model.parameters()).device
+    wrapper = DistributedDataParallel(
+        model, device_ids=[dev] if dev.type == "cuda" else None,
+        broadcast_buffers=False)
+    wrapper.frozen = bool(frozen)
+    return wrapper
+
+
+def _unwrap(model):
+    return model.module if isinstance(model, DistributedDataParallel) else model
 
 
 def _microbatches(batch, n: int):
@@ -70,20 +93,34 @@ def train_step(model, optimizer, loss_fn, batch: Dict, lr: float,
     divide is rejected. Returns the loss parts (``total`` included) averaged
     over the microbatches, and ``grad_norm``, the global norm of the applied
     gradient, as 0-d tensors on the device.
+
+    ``model`` may be a ``wrap_data_parallel`` wrapper built for this
+    ``frozen``: each rank then steps on its own batch, the loss parts are
+    the global batch's on every rank (``losses/primitives.py``), every
+    microbatch but the last runs under ``no_sync`` and the applied gradient
+    is that of the global batch.
     """
     b = batch["image"].shape[0]
     if accum_steps < 1 or b % accum_steps:
         raise ValueError(f"TRAIN.GRAD_ACCUM={accum_steps} must divide the "
                          f"batch size {b}")
     model.train()
+    ddp = isinstance(model, DistributedDataParallel)
+    if ddp and model.frozen != frozen:
+        raise ValueError("train_step: the DistributedDataParallel wrapper "
+                         f"was built for frozen={model.frozen}, not {frozen}")
     set_backbone_frozen(model, frozen)
     optimizer.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
-    for micro in _microbatches(batch, accum_steps):
-        outputs = model(micro["image"], micro.get("pc_dep"),
-                        micro.get("calib"), micro.get("pc_hm"), train=True)
-        total, parts = loss_fn([outputs], micro)
-        (total / accum_steps).backward()
+    micros = _microbatches(batch, accum_steps)
+    for i, micro in enumerate(micros):
+        sync = not ddp or i + 1 == len(micros)
+        with contextlib.nullcontext() if sync else model.no_sync():
+            outputs = model(micro["image"], micro.get("pc_dep"),
+                            micro.get("calib"), micro.get("pc_hm"),
+                            train=True)
+            total, parts = loss_fn([outputs], micro)
+            (total / accum_steps).backward()
         for k, v in parts.items():
             v = v.detach()
             sums[k] = sums[k] + v if k in sums else v

@@ -5,8 +5,9 @@ The port of ``centerfusiondetect3d_tpu/utils/observability.py`` (reference
 ``src/lib/utils/utils.py:20-339``, ``logger.py:369-485``,
 ``trainer.py:100-124``):
 
-- ``create_logger``: the run directory ``<root>/<name>/<timestamp>`` and a
-  logger to the console and its ``train.log``;
+- ``create_logger``: the run directory ``<root>/<name>/<timestamp>`` (rank
+  0's under a process group) and a logger to the console and its
+  ``train.log``;
 - ``AverageMeter``, ``StageTimer`` (on a CUDA device ``stop`` first waits
   for the calling thread's current stream, so a stage's time covers its
   device work and not other threads' streams, such as the Loader's decodes
@@ -45,8 +46,19 @@ DEVICE_LAUNCHES = 200  # calls per event pair of a device time alone
 
 def create_logger(output_root: str, name: str):
     """(logger, run directory ``<output_root>/<name>/<timestamp>``): a
-    logger to the console and to ``train.log`` there."""
+    logger to the console and to ``train.log`` there. Under a process group
+    rank 0 names the directory and broadcasts it, so that every rank writes
+    into one run directory (the minute could differ between ranks); a rank
+    r > 0 logs to ``train.rank<r>.log`` there."""
     out_dir = os.path.join(output_root, name, time.strftime("%Y-%m-%d-%H-%M"))
+    log_name = "train.log"
+    if torch.distributed.is_initialized():
+        shared = [out_dir]
+        torch.distributed.broadcast_object_list(shared, src=0)
+        out_dir = shared[0]
+        rank = torch.distributed.get_rank()
+        if rank:
+            log_name = f"train.rank{rank}.log"
     os.makedirs(out_dir, exist_ok=True)
     logger = logging.getLogger(f"cfd3d.{name}")
     logger.setLevel(logging.INFO)
@@ -54,7 +66,7 @@ def create_logger(output_root: str, name: str):
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
     for handler in (logging.StreamHandler(),
-                    logging.FileHandler(os.path.join(out_dir, "train.log"))):
+                    logging.FileHandler(os.path.join(out_dir, log_name))):
         handler.setFormatter(fmt)
         logger.addHandler(handler)
     return logger, out_dir

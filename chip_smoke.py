@@ -217,10 +217,45 @@ On the card it:
    then ``RESNET_STEPS`` unfrozen train steps of ``RESNET_BATCH`` in each
    dtype (the dtype's forward and backward kernels once per node per step),
    ms per step and peak memory;
-20. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
+20. serves through the artifact and trains and validates in several
+   processes (``artifact_ddp_path``): (a) exports phase 7's bf16
+   ``Detector`` (its weights and calibrated BatchNorm) at full width with
+   ``runtime/export.py`` (``torch.export``; the DCN nodes are the
+   ``cfd3d::dcn_fwd_bf16`` operator), loads the bytes in a fresh process
+   that imports ``runtime.export`` alone (checked in ``sys.modules``), runs
+   it on phase 7's frames as device tensors: ``dcn_fwd_bf16`` once per node
+   a call, no ``dcn_fwd``, every output within ``BF16_RTOL`` of
+   ``Detector._forward`` on the same tensors (bitwise or not, printed);
+   the artifact's size and export seconds, and frames/s of the artifact and
+   of ``Detector._forward``, ``ARTIFACT_CALLS`` calls each after
+   ``ARTIFACT_WARM``, ``ARTIFACT_ROUNDS`` rounds in turns; (b) two gloo
+   processes on the one card (``tools/ddp_check.py``) each take one
+   unfrozen float32 step on B=2 at full width (phase 11's seeded weights)
+   against this process's step on their B=4 union: with ``MODEL.NORM_EVAL
+   True`` that step forwarded in the ranks' halves (``halves_step``), loss
+   parts within ``DDP_LOSS_RTOL``, gradients and updated parameters (of
+   their update) in L2 within ``GRAD_FLOOR`` plus ``NOISE_MULT`` times a
+   repeat's deviation (the plain B=4 step's deviation, float32's own noise
+   on this seeded net, printed beside); with train-mode BatchNorm the B=4
+   step, loss parts and every statistic within ``NOISE_MULT`` times their
+   noise (the step on the image jittered at half a float32 spacing, and
+   the step whose BatchNorm takes the ranks' arithmetic) plus
+   ``DDP_BN_RTOL``; the steps' ms, each rank's and
+   one process's, alone on the card; per rank 16
+   ``dcn_fwd`` and 16 of each float32 backward kernel; rank 0's checkpoint
+   holds the reference names and equals rank 1's model; (c) the two ranks
+   validate the campaign's 100 val images in float32 (128x224, padded
+   shards of ``TEST.BATCH_SIZE`` 16): identical results on both ranks, each
+   image's detections paired one to one within ``VAL_RTOL`` with one
+   process's, mAP and NDS equal; (d) ``python -m torch.distributed.run
+   --nproc_per_node 1 -m centerfusiondetect3d_tpu_torch.main`` with NCCL on
+   ``DDP_MAIN_SPLITS`` of the campaign's images, one epoch and one
+   validation, rc 0; it prints the NCCL version and the card;
+21. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
    ``ycc_to_bgr`` beside the DCN and probe kernels; phase 19's launches as
-   ``resnet_launches`` and ``demo_launches``) and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   ``resnet_launches`` and ``demo_launches``, phase 20's as
+   ``artifact_launches_per_call`` and ``ddp_launches_per_rank_step``) and,
+   last, the ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
@@ -232,8 +267,9 @@ plain warp (held bitwise against numpy ``warp_image`` on 2 frames a
 case), cv2's decode, one round of 2 batches and the CLI's ``main`` in
 this process with ``--device cpu`` on 4 JPEGs, and phase 18 with the
 whole converter and then ``TINY_SPLITS`` of its output at 64x128, decoded
-by cv2, and phase 19 at 64x128 on samples of two cameras decoded by cv2;
-its last line is ``{"ok": true, "rehearsal": "cpu"}``.
+by cv2, phase 19 at 64x128 on samples of two cameras decoded by cv2, and
+phase 20 at 64x128 with its processes on the CPU (gloo, also under
+``torch.distributed.run``); its last line is ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
@@ -241,6 +277,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import functools
 import glob
 import importlib.util
 import io
@@ -284,7 +321,8 @@ from centerfusiondetect3d_tpu_torch.evaluation import (
 from centerfusiondetect3d_tpu_torch.geometry.affine import get_affine_transform
 from centerfusiondetect3d_tpu_torch.losses import GenericLoss
 from centerfusiondetect3d_tpu_torch.models import build_model
-from centerfusiondetect3d_tpu_torch.models.layers import DeformConvNode
+from centerfusiondetect3d_tpu_torch.models.layers import (
+    BatchNorm2d, DeformConvNode)
 from centerfusiondetect3d_tpu_torch.ops import dcn, probes, warp
 from centerfusiondetect3d_tpu_torch.ops.cuda_build import load_kernel_libraries
 from centerfusiondetect3d_tpu_torch.ops.rasterize import (
@@ -303,7 +341,7 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     seeded_weights,
     synthetic_frames,
 )
-from centerfusiondetect3d_tpu_torch.tools import probe_dcn
+from centerfusiondetect3d_tpu_torch.tools import ddp_check, probe_dcn
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
 from centerfusiondetect3d_tpu_torch.training.checkpoint import (
     load_torch_file, load_weights, save_checkpoint)
@@ -3993,6 +4031,691 @@ def ycc_kernel_entry(report, cases: int):
             "device_ms": y["device_ms"], "shape": y["image"]}
 
 
+# phase 20: the serving artifact and multi-process training and validation
+ARTIFACT_WARM = 3  # untimed calls of each program before the timed ones
+ARTIFACT_CALLS = 20  # timed calls of each program a round
+ARTIFACT_ROUNDS = 3  # artifact and Detector._forward in turns
+DDP_RANKS = 2  # gloo processes on the one card
+DDP_BATCH = 2  # items a rank; the single process steps on their union
+# two ranks against one process (check_ddp): NORM_EVAL loss parts, of their
+# magnitude (the updated parameters take phase 11's GRAD_FLOOR of their
+# update); train-mode BatchNorm's loss parts and statistics, beyond
+# NOISE_MULT times their noise
+DDP_LOSS_RTOL = 1e-5
+DDP_BN_RTOL = 1e-4
+# sharded validation against one process (tests/test_multiprocess.py:299)
+VAL_RTOL = 1e-3
+DDP_MAIN_SPLITS = {"mini_train": 64, "mini_val": 32}  # (d)'s short epoch
+DDP_TIMEOUT = 600  # seconds, each process phase 20 starts
+DDP_TIMED_STEPS = 3  # steps timed after each checked one
+# loads an artifact in a process that imports runtime.export alone, runs it
+# on saved inputs, counts the DCN launches and holds the outputs against
+# saved Detector._forward outputs; prints one JSON line
+ARTIFACT_LOADER = r"""
+import json, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from centerfusiondetect3d_tpu_torch.runtime.export import load_serving
+from centerfusiondetect3d_tpu_torch.ops import dcn
+path, io_path, device, calls = sys.argv[1:5]
+t0 = time.perf_counter()
+with open(path, "rb") as f:
+    fn, manifest = load_serving(f.read(), device)
+load_s = time.perf_counter() - t0
+saved = torch.load(io_path)
+inputs = [t.to(device) for t in saved["inputs"]]
+fn(*inputs)
+dcn.deform_conv2d.launches = dcn.dcn_fwd_bf16.launches = 0
+for _ in range(int(calls)):
+    out = fn(*inputs)
+if device != "cpu":
+    torch.cuda.synchronize()
+dev, bitwise = {}, True
+for k, want in saved["want"].items():
+    got = out[k].cpu()
+    scale = max(want.abs().max().item(), 1e-30)
+    dev[k] = (got.double() - want.double()).abs().max().item() / scale
+    bitwise = bitwise and got.dtype == want.dtype and torch.equal(got, want)
+mods = sorted(m for m in sys.modules if m.startswith("centerfusiondetect3d"))
+print(json.dumps({"manifest": manifest, "load_s": load_s,
+                  "calls": int(calls),
+                  "dcn_fwd_bf16": dcn.dcn_fwd_bf16.launches,
+                  "dcn_fwd": dcn.deform_conv2d.launches,
+                  "max_rel_dev": dev, "bitwise": bitwise, "modules": mods}))
+"""
+# what the artifact process may import of the package: the operator library
+ARTIFACT_MODULES = {"centerfusiondetect3d_tpu_torch",
+                    "centerfusiondetect3d_tpu_torch.ops",
+                    "centerfusiondetect3d_tpu_torch.ops.cuda_build",
+                    "centerfusiondetect3d_tpu_torch.ops.dcn",
+                    "centerfusiondetect3d_tpu_torch.runtime",
+                    "centerfusiondetect3d_tpu_torch.runtime.export"}
+
+
+def serving_inputs(det: Detector, frames):
+    """The artifact's inputs of one batch on the card: uint8 images, the
+    dense NHWC radar map (the device paint of phase 7's rows), calib and
+    the inverse affines; and the NCHW map ``Detector._forward`` takes."""
+    from centerfusiondetect3d_tpu_torch.geometry.affine import (
+        stack_inverse_transforms)
+
+    batch, metas = det.pre_process(*frames)
+    dev = det.device
+
+    def t(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    oh, ow = det.config.MODEL.OUTPUT_SIZE
+    pc = paint_rects_device_batch(t(batch["pc_boxes"]), t(batch["pc_values"]),
+                                  det.config.MODEL.OUTPUT_SIZE)
+    trans_inv = stack_inverse_transforms([m["center"] for m in metas],
+                                         [m["scale"] for m in metas],
+                                         (ow, oh))
+    image = t(batch["image"]).contiguous()
+    return ((image, pc.permute(0, 2, 3, 1).contiguous(), t(batch["calib"]),
+             t(trans_inv)), pc)
+
+
+def check_artifact(device, rehearsal: bool, serving, work: str) -> dict:
+    """Phase 20a: the bf16 ``Detector`` of phase 7 (its weights and
+    calibrated BatchNorm) exported at full width (``runtime/export.py``),
+    loaded in a fresh process that imports ``runtime.export`` alone, run on
+    phase 7's frames: ``dcn_fwd_bf16`` once per node a call, no ``dcn_fwd``,
+    every output within ``BF16_RTOL`` of ``Detector._forward`` on the same
+    tensors; then both timed in turns in this process."""
+    from centerfusiondetect3d_tpu_torch.runtime import export
+
+    cfg = load_config(opts=serving["opts"] + ["MIXED_PRECISION", "True"],
+                      num_classes=10)
+    det = Detector(cfg, state_dict=serving["sd"], device=device)
+    inputs, pc_nchw = serving_inputs(det, serving["frames"])
+    b = inputs[0].shape[0]
+
+    def forward():
+        with torch.inference_mode():
+            return det._forward(inputs[0], pc_nchw, inputs[2], inputs[3])[0]
+
+    want = forward()
+    t0 = time.perf_counter()
+    data = export.export_serving(cfg, batch_size=b, device=det.device,
+                                 model=det.model)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(work, "serving.cfd3")
+    with open(path, "wb") as f:
+        f.write(data)
+    io_path = os.path.join(work, "serving_io.pt")
+    torch.save({"inputs": [x.cpu() for x in inputs],
+                "want": {k: v.cpu() for k, v in want.items()}}, io_path)
+    calls = 2 if rehearsal else TIMED_RUNS
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_LOADER, path, io_path,
+         str(det.device), str(calls)],
+        capture_output=True, text=True, timeout=DDP_TIMEOUT,
+        env=ddp_env(), cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError("artifact process failed:\n"
+                             + proc.stderr[-4000:])
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not set(rep["modules"]) <= ARTIFACT_MODULES:
+        extra = sorted(set(rep["modules"]) - ARTIFACT_MODULES)
+        raise AssertionError(f"the artifact's process imported {extra}")
+    n_nodes = 16
+    per_call = 0 if rehearsal else n_nodes
+    if (rep["dcn_fwd_bf16"], rep["dcn_fwd"]) != (per_call * calls, 0):
+        raise AssertionError(f"artifact launches dcn_fwd_bf16 "
+                             f"{rep['dcn_fwd_bf16']}, dcn_fwd {rep['dcn_fwd']}"
+                             f" in {calls} calls, expected {per_call} and 0 a "
+                             "call")
+    worst = max(rep["max_rel_dev"].values())
+    if worst > BF16_RTOL:
+        raise AssertionError(f"artifact vs Detector._forward: "
+                             f"{rep['max_rel_dev']} (limit {BF16_RTOL})")
+    if rep["manifest"] != export.serving_manifest(cfg, b):
+        raise AssertionError(f"manifest {rep['manifest']}")
+    fn, _ = export.load_serving(data, det.device)
+    reps = 2 if rehearsal else ARTIFACT_CALLS
+    rounds = {"artifact": [], "forward": []}
+    for _ in range(1 if rehearsal else ARTIFACT_ROUNDS):
+        for name, call in (("artifact", lambda: fn(*inputs)),
+                           ("forward", forward)):
+            for _ in range(ARTIFACT_WARM):
+                call()
+            sync(det.device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            sync(det.device)
+            rounds[name].append(b * reps / (time.perf_counter() - t0))
+    return {"export_s": export_s, "mib": len(data) / 2 ** 20,
+            "load_s": rep["load_s"], "batch": b,
+            "launches_per_call": {"dcn_fwd_bf16": rep["dcn_fwd_bf16"] // calls,
+                                  "dcn_fwd": rep["dcn_fwd"] // calls},
+            "max_rel_dev": rep["max_rel_dev"], "bitwise": rep["bitwise"],
+            "frames_per_s": rounds}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def ddp_env() -> dict:
+    """The environment of the processes phase 20 starts: this checkout on
+    the path, two host threads each."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH", "")
+    return {**os.environ, "OMP_NUM_THREADS": "2",
+            "PYTHONPATH": root + (os.pathsep + path if path else "")}
+
+
+def start_ranks(spec, work: str, device, world: int = DDP_RANKS):
+    """Starts ``tools/ddp_check.py`` as ``world`` gloo processes on
+    ``device`` (two ranks on the one card); returns the function that waits
+    for them and reads what each wrote."""
+    path = os.path.join(work, "ddp_spec.pt")
+    torch.save(dict(spec, device=str(device)), path)
+    store = os.path.join(work, "ddp_store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "centerfusiondetect3d_tpu_torch.tools.ddp_check",
+         "--spec", path, "--rank", str(r), "--world", str(world),
+         "--init-method", f"file://{store}", "--backend", "gloo",
+         "--out", os.path.join(work, "ddp_out{rank}.pt")],
+        env=ddp_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+
+    def collect():
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DDP_TIMEOUT)[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} failed:\n{out[-4000:]}")
+        return [torch.load(os.path.join(work, f"ddp_out{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return collect
+
+
+def rel_dev(got, want) -> float:
+    """max |got - want| / max |want| (0 where both are 0)."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def single_step(opts, sd, batch, device, lr, dtype, timed: int,
+                jitter: int = None, halves=None,
+                batch_stats_sums: bool = False) -> dict:
+    """One unfrozen step of one process on the whole ``batch`` in ``dtype``
+    (``float64`` or None), then ``timed`` more, timed: its ``metrics``, the
+    state_dict ``before`` it and after it (``state_dict``), its ``grads``
+    and ``step_ms``,
+    the ms of the others. With a ``jitter`` seed the image is scaled
+    elementwise by 1 + u, |u| up to half its dtype's spacing: another
+    rounding of the same step, phase 11's noise draw. With ``halves`` (the
+    ranks' rows) the step's forward runs on each set of rows apart
+    (``halves_step``). With ``batch_stats_sums`` every train-mode BatchNorm
+    takes its statistics by the ranks' arithmetic (``batch_forward``
+    without a reduction) in place of cuDNN's."""
+    cfg = load_config(opts=opts, num_classes=10)
+    trainer = Trainer(cfg, device=device)
+    if dtype == "float64":
+        trainer.model.double()
+    trainer.init_state(state_dict=sd)
+    if batch_stats_sums:
+        for m in trainer.model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.forward = functools.partial(batch_stats_forward, m)
+    before = {k: v.detach().cpu().clone() for k, v in
+              trainer.model.state_dict().items()}
+    dev_batch = to_device(batch, trainer.device)
+    if jitter is not None:
+        image = dev_batch["image"]
+        u = torch.rand(image.shape, generator=torch.Generator().manual_seed(
+            jitter), dtype=torch.float64).to(image.device)
+        dev_batch["image"] = (image.double() * (
+            1 + (u - 0.5) * torch.finfo(image.dtype).eps)).to(image.dtype)
+    if halves is None:
+        metrics = train_step(trainer.model, trainer.optimizer,
+                             trainer.loss_fn, dev_batch, lr, False, 1)
+    else:
+        metrics = halves_step(trainer, dev_batch, halves, lr)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "before": before,
+           "state_dict": {k: v.detach().cpu().clone() for k, v in
+                     trainer.model.state_dict().items()},
+           "grads": ddp_check.gradients(trainer.model)}
+    out["step_ms"] = ddp_check.time_steps(
+        trainer.model, trainer, dev_batch, {"lr": lr, "timed_steps": timed},
+        False, 1)
+    return out
+
+
+def step_shares(got, ref, noise, floor: float, params: bool) -> dict:
+    """{quantity: (deviation of ``got`` from ``ref``, limit)}: each loss
+    part relative to its magnitude, each gradient tensor (``params``: and
+    each updated parameter, relative to its update) in relative L2, or
+    each BatchNorm statistic relative to its largest magnitude; the limit
+    ``NOISE_MULT`` times the deviation of the draw ``noise`` plus ``floor``
+    (``GRAD_FLOOR`` for gradients and parameters), phase 11's rule."""
+    shares = {}
+    for k, v in ref["metrics"].items():
+        scale = max(abs(v), 1e-30)
+        shares[f"loss {k}"] = (
+            abs(got["metrics"][k] - v) / scale,
+            NOISE_MULT * abs(noise["metrics"][k] - v) / scale + floor)
+    if params:
+        def l2(a, b):
+            return (a.double() - b.double()).norm().item()
+
+        for k, want in ref["grads"].items():
+            scale = max(want.double().norm().item(), 1e-30)
+            shares[f"gradient {k}"] = (
+                l2(got["grads"][k], want) / scale,
+                NOISE_MULT * l2(noise["grads"][k], want) / scale + GRAD_FLOOR)
+        for k in ref["grads"]:
+            want = ref["state_dict"][k]
+            moved = max(l2(want, ref["before"][k]), 1e-30)
+            shares[f"parameter {k}"] = (
+                l2(got["state_dict"][k], want) / moved,
+                NOISE_MULT * l2(noise["state_dict"][k], want) / moved
+                + GRAD_FLOOR)
+    else:
+        for k, want in ref["state_dict"].items():
+            if "running" in k:
+                shares[f"statistic {k}"] = (
+                    rel_dev(got["state_dict"][k], want),
+                    NOISE_MULT * rel_dev(noise["state_dict"][k], want) + floor)
+    return shares
+
+
+def batch_stats_forward(bn, x):
+    """``BatchNorm2d``'s forward with its train-mode statistics from
+    ``batch_forward`` (no reduction: one process)."""
+    if not bn.training:
+        return type(bn).forward(bn, x)
+    dt = bn.compute_dtype
+    wide = x if dt is None else x.to(torch.promote_types(x.dtype,
+                                                         torch.float32))
+    y = bn.batch_forward(wide, lambda t: t)
+    return y if dt is None else y.to(dt)
+
+
+def worst_of(shares, kind: str) -> float:
+    """The largest deviation among the ``kind`` quantities of ``shares``."""
+    return max((d for k, (d, _) in shares.items() if k.startswith(kind)),
+               default=0.0)
+
+
+def take_rows(batch, rows):
+    """The rows ``rows`` of every tensor of a (nested) device batch."""
+    return {k: take_rows(v, rows) if isinstance(v, dict) else v.index_select(
+        0, torch.tensor(rows, device=v.device)) for k, v in batch.items()}
+
+
+def halves_step(trainer, batch, halves, lr):
+    """``train_step``'s update on the whole ``batch`` (one process, the
+    global loss, its gradient), its forward run on each of the ranks' row
+    sets apart and the outputs concatenated before the loss: every image
+    goes through the kernels, plans and cuDNN algorithms of the ranks'
+    batch size, so that only the sums differ in order from the ranks'
+    step. Only where no BatchNorm is in train mode (``NORM_EVAL``) is this
+    the same function as one forward of the batch."""
+    model = trainer.model
+    model.train()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    outs = []
+    for rows in halves:
+        part = take_rows(batch, rows)
+        outs.append(model(part["image"], part.get("pc_dep"),
+                          part.get("calib"), part.get("pc_hm"), train=True))
+    outputs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    _, parts = trainer.loss_fn([outputs], batch)
+    parts["total"].backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    metrics = {k: v.detach() for k, v in parts.items()}
+    metrics["grad_norm"] = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    for group in trainer.optimizer.param_groups:
+        group["lr"] = float(lr)
+    trainer.optimizer.step()
+    return metrics
+
+
+def pair_detections(want, got, rtol: float) -> bool:
+    """Whether every detection of ``want`` pairs one to one with one of
+    ``got`` of its class whose score, bbox, location, dimension and yaw
+    each lie within ``rtol`` (absolute and relative)."""
+    if len(want) != len(got):
+        return False
+    free = list(range(len(got)))
+    for a in want:
+        for j in free:
+            b = got[j]
+            if b["class"] == a["class"] and all(
+                    np.allclose(np.asarray(a[k], np.float64),
+                                np.asarray(b[k], np.float64), rtol=rtol,
+                                atol=rtol)
+                    for k in ("score", "bbox", "location", "dimension",
+                              "yaw")):
+                free.remove(j)
+                break
+        else:
+            return False
+    return True
+
+
+def check_ddp(device, rehearsal: bool, serving, work: str) -> dict:
+    """Phase 20b-c: two gloo ranks on the one card against one process, on
+    phase 11's seeded weights. (b) one unfrozen float32 step at full width,
+    B=2 a rank, against one process's step on their B=4 union: with
+    ``MODEL.NORM_EVAL True`` the one process forwards the ranks' halves
+    apart (``halves_step``, the same function), so the loss parts must lie
+    within ``DDP_LOSS_RTOL``, the gradients and the updated parameters (of
+    their update) in L2 within ``GRAD_FLOOR`` (phase 11's floor) plus
+    ``NOISE_MULT`` times a repeat's deviation, the plain B=4 step's own
+    deviation printed beside; with train-mode BatchNorm against the B=4
+    step, loss parts and every statistic within ``NOISE_MULT`` times their
+    noise (the B=4 step on the jittered image, phase 11's draw, and the
+    step whose BatchNorm takes the ranks' arithmetic) plus
+    ``DDP_BN_RTOL``; per rank 16 ``dcn_fwd`` and 16 of each float32
+    backward kernel a step; rank 0's checkpoint holds the reference names
+    and reads back equal to rank 1's model; each step's ms, the ranks' and
+    one process's, each alone on the card. (c) sharded ``Trainer.val`` of
+    the campaign's val images in float32 (padded shards): both ranks'
+    results identical, and equal to one process's within ``VAL_RTOL``
+    (detections paired one to one), mAP and NDS equal."""
+    opts = serving["opts"] + FP32_OPTS
+    cfg = load_config(opts=opts, num_classes=10)
+    # phase 11's weights: seeded, BatchNorm at its initial statistics (the
+    # serving statistics, calibrated on other frames, blow these items'
+    # activations up and make the float32 step chaotic)
+    seeded = build_model(cfg)
+    seeded_weights(seeded, SEED)
+    sd = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    del seeded
+    items = SyntheticTrainingSet(cfg, DDP_RANKS * DDP_BATCH, seed=SEED)
+    batch = stack_items([items.get_item(i)
+                         for i in range(DDP_RANKS * DDP_BATCH)])
+    # the rehearsal's tiny train-mode BatchNorm (2x4 pixels a channel at the
+    # last level) makes its float32 forward noisy to ~1e-3 in either
+    # package: it steps in float64 there
+    dtype = "float64" if rehearsal else None
+    if dtype:
+        batch = ddp_check._float64(batch)
+    timed = 0 if rehearsal else DDP_TIMED_STEPS  # the CPU's times say nothing
+    lr = float(cfg.TRAIN.LR)
+    step_opts = {"norm_eval": opts + ["MODEL.NORM_EVAL", "True"],
+                 "train_bn": opts}
+    if rehearsal:
+        root = tiny_root(os.path.join(work, "ddp_val"))
+        val_opts = TINY_OPTS
+    else:
+        root, val_opts = DATA_ROOT, []
+    val_opts = (CAMPAIGN_OPTS + FP32_OPTS + val_opts
+                + ["DATASET.ROOT", repr(root + "/")])
+    ckpt_dir = os.path.join(work, "ddp_ckpt")
+    spec = {"state_dict": sd, "batch": batch, "dtype": dtype,
+            "steps": [{"opts": o, "frozen": False, "accum": 1, "lr": lr,
+                       "timed_steps": timed,
+                       **({"checkpoint": ckpt_dir} if k == "norm_eval"
+                          else {})} for k, o in step_opts.items()],
+            "val": [{"opts": val_opts, "dtype": None,
+                     "output_dir": os.path.join(work, "ddp_val_out"),
+                     "dataset": {"kind": "nuscenes", "split": "mini_val"}}]}
+    t0 = time.perf_counter()
+    # the ranks first, alone on the card (their steps are timed), then the
+    # single process
+    r0, r1 = start_ranks(spec, work, device)()
+    wall_s = time.perf_counter() - t0
+    singles = {k: single_step(o, sd, batch, device, lr, dtype, timed)
+               for k, o in step_opts.items()}
+    # the references and their noise draws. NORM_EVAL: one process's step
+    # forwarded in the ranks' halves (the same function; only the order of
+    # the sums and cuDNN's nondeterministic weight-gradient sums differ),
+    # its noise a second run of it; the plain B=4 step's deviation is
+    # reported beside (float32's own noise on this seeded net). Train-mode
+    # BatchNorm (whose statistics need the batch in one forward): the B=4
+    # step, its noise the step on the jittered image and the step whose
+    # BatchNorm takes its statistics by the ranks' arithmetic: the forward
+    # is chaotic there (batch statistics of nearly constant channels)
+    halves = [ddp_check.rank_rows(DDP_RANKS * DDP_BATCH, DDP_RANKS, r, 1)
+              for r in range(DDP_RANKS)]
+    eval_opts = step_opts["norm_eval"]
+    refs = {"norm_eval": single_step(eval_opts, sd, batch, device, lr, dtype,
+                                     0, halves=halves),
+            "train_bn": singles["train_bn"]}
+    bn_opts = step_opts["train_bn"]
+    noise = {"norm_eval": [single_step(eval_opts, sd, batch, device, lr,
+                                       dtype, 0, halves=halves)],
+             "train_bn": [single_step(bn_opts, sd, batch, device, lr, dtype,
+                                      0, jitter=SEED),
+                          single_step(bn_opts, sd, batch, device, lr, dtype,
+                                      0, batch_stats_sums=True)]}
+    vcfg = load_config(opts=val_opts + ["OUTPUT_DIR", repr(os.path.join(
+        work, "single_val_out"))], num_classes=10)
+    trainer = Trainer(vcfg, device=device)
+    trainer.init_state(state_dict=sd)
+    trainer.dataset_val = NuScenesDataset(vcfg, "mini_val",
+                                          device=trainer.device)
+    single_val = trainer.val()
+    single_summary = (trainer.summaries or {}).get("range_all", {})
+    report = {"ranks": DDP_RANKS, "backend": r0["backend"], "wall_s": wall_s}
+    expected = 0 if rehearsal else 16
+    for i, (name, ref) in enumerate(refs.items()):
+        g0, g1 = r0["steps"][i], r1["steps"][i]
+        if g0["metrics"] != g1["metrics"]:
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        for k, v in g0["state_dict"].items():
+            if not torch.equal(v, g1["state_dict"][k]):
+                raise AssertionError(f"{name}: ranks differ in {k}")
+        eval_bn = name == "norm_eval"
+        # the limit of each quantity from the draw that moves it most
+        draws = [step_shares(g0, ref, draw,
+                             DDP_LOSS_RTOL if eval_bn else DDP_BN_RTOL,
+                             params=eval_bn) for draw in noise[name]]
+        shares = {k: (d, max(x[k][1] for x in draws))
+                  for k, (d, _) in draws[0].items()}
+        worst = max(shares, key=lambda k: shares[k][0] / shares[k][1])
+        row = {"loss_rel_dev": worst_of(shares, "loss"),
+               "grad_rel_dev": worst_of(shares, "gradient"),
+               "param_dev_of_update": worst_of(shares, "parameter"),
+               "worst": [worst, *shares[worst]],
+               "losses": {k: (g0["metrics"][k], v)
+                          for k, v in ref["metrics"].items()},
+               # rank 0's and rank 1's ms a step against one process's on
+               # their union, each alone on the card
+               "step_ms": {"rank0": g0["step_ms"], "rank1": g1["step_ms"],
+                           "single": singles[name]["step_ms"]}}
+        over = {k: v for k, v in shares.items() if v[0] > v[1]}
+        if over:
+            raise AssertionError(f"{name}: two ranks off one process beyond "
+                                 f"{NOISE_MULT} x noise + floor: {over}")
+        if eval_bn:
+            ckpt = load_torch_file(g0["checkpoint"])
+            ref_keys = set(build_model(cfg).state_dict())
+            if set(ckpt["state_dict"]) != ref_keys:
+                raise AssertionError("rank 0's checkpoint keys are not the "
+                                     "reference names")
+            if r1["steps"][i].get("checkpoint") is not None:
+                raise AssertionError("rank 1 wrote a checkpoint")
+            for k, v in ckpt["state_dict"].items():
+                if not torch.equal(v, g1["state_dict"][k].to(v.dtype)):
+                    raise AssertionError(f"checkpoint {k} differs from rank 1")
+            row["checkpoint_keys"] = len(ref_keys)
+            # the plain B=4 step against the halves: float32's own noise
+            b4 = step_shares(singles[name], ref, ref, 0.0, params=True)
+            row["b4_vs_halves"] = {kind: worst_of(b4, kind) for kind in
+                                   ("loss", "gradient", "parameter")}
+        for got in (g0, g1):
+            want_counts = {"dcn_fwd": expected,
+                           **{k: expected for k in BWD_KERNELS}}
+            counts = {k: got["launches"][k] for k in want_counts}
+            if counts != want_counts or any(
+                    v for k, v in got["launches"].items()
+                    if k not in want_counts):
+                raise AssertionError(f"{name}: rank launches "
+                                     f"{got['launches']}, expected "
+                                     f"{want_counts}")
+        row["launches_per_rank"] = {k: g0["launches"][k]
+                                    for k in ("dcn_fwd",) + BWD_KERNELS}
+        report[name] = row
+    v0, v1 = r0["val"][0], r1["val"][0]
+    a, b = flat_results(v0["results"]), flat_results(v1["results"])
+    if sorted(v0["results"]) != sorted(v1["results"]) or sorted(a) != sorted(
+            b) or not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("the ranks' validation results differ")
+    if sorted(v0["results"]) != sorted(single_val):
+        raise AssertionError("sharded validation covers other images")
+    unpaired = [k for k in single_val
+                if not pair_detections(single_val[k], v0["results"][k],
+                                       VAL_RTOL)]
+    sharded = (v0["summaries"] or {}).get("range_all", {})
+    scores = {k: (sharded.get(k), single_summary.get(k))
+              for k in ("mean_ap", "nd_score")}
+    report["val"] = {"images": len(single_val), "unpaired": unpaired,
+                     "summary": scores,
+                     "launches_per_rank": v0["launches"]["dcn_fwd"]}
+    if unpaired:
+        raise AssertionError(f"sharded validation: images {unpaired} are "
+                             f"not within {VAL_RTOL} of one process")
+    if any(a is None or abs(a - b) > 1e-9 for a, b in scores.values()):
+        raise AssertionError(f"sharded mAP / NDS {scores} differ from one "
+                             "process's")
+    return report
+
+
+def main_py_torchrun(device, rehearsal: bool, work: str) -> dict:
+    """Phase 20d: ``python -m torch.distributed.run --nproc_per_node 1 -m
+    centerfusiondetect3d_tpu_torch.main`` (NCCL on the card, gloo in the
+    rehearsal) on ``DDP_MAIN_SPLITS`` of the campaign's images: one epoch
+    and one validation, rc 0, one run directory with rank 0's checkpoints
+    and metrics."""
+    root = tiny_root(os.path.join(work, "ddp_main"), splits=(
+        TINY_SPLITS if rehearsal else DDP_MAIN_SPLITS))
+    out = os.path.join(work, "ddp_main_out")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "centerfusiondetect3d_tpu_torch.main",
+           *(["--device", "cpu"] if rehearsal else []),
+           *CAMPAIGN_OPTS, *(TINY_OPTS if rehearsal else []),
+           "DATASET.ROOT", repr(root + "/"), "OUTPUT_DIR", repr(out),
+           "NAME", "torchrun", "TRAIN.EPOCHS", "1", "TRAIN.VAL_INTERVALS",
+           "1", "MODEL.DEFREEZE", "0", "TRAIN.SAVE_INTERVALS", "10"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=DDP_TIMEOUT, env=ddp_env(), cwd=work)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun main.py rc {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    runs = glob.glob(os.path.join(out, "torchrun", "*"))
+    if len(runs) != 1:
+        raise AssertionError(f"torchrun main.py wrote runs {runs}")
+    with open(os.path.join(runs[0], "train.log")) as f:
+        logged = f.read()
+    backend = "gloo" if rehearsal else "nccl"
+    if f"process group: {backend}, rank 0 of 1" not in logged:
+        raise AssertionError(f"main.py ran without its {backend} group")
+    ckpts = sorted(os.listdir(os.path.join(runs[0], "ckpts")))
+    if ckpts != ["model_0.pt", "model_last.pt"] or not os.path.exists(
+            os.path.join(runs[0], "metrics.jsonl")):
+        raise AssertionError(f"torchrun main.py wrote {ckpts}")
+    return {"rc": proc.returncode, "seconds": seconds, "backend": backend}
+
+
+def artifact_ddp_path(device, rehearsal: bool, card, serving) -> dict:
+    """Phase 20: the serving artifact (a), two gloo ranks on the one card
+    training (b) and validating (c), ``main.py`` under
+    ``torch.distributed.run`` (d)."""
+    report = {"torch": torch.__version__,
+              "nccl": (".".join(map(str, torch.cuda.nccl.version()))
+                       if not rehearsal else None),
+              "gloo": torch.distributed.is_gloo_available()}
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_ddp_") as work:
+        t0 = time.perf_counter()
+        art = report["artifact"] = check_artifact(device, rehearsal, serving,
+                                                  work)
+        fps = art["frames_per_s"]
+        log(f"artifact: exported in {art['export_s']:.1f} s, "
+            f"{art['mib']:.1f} MiB, loaded in {art['load_s']:.1f} s by a "
+            f"process without the model code; launches a call "
+            f"{art['launches_per_call']}; largest deviation from "
+            f"Detector._forward {max(art['max_rel_dev'].values()):.2e} of "
+            f"the magnitude (limit {BF16_RTOL}), bitwise: {art['bitwise']}")
+        log("  frames/s at B=" + str(art["batch"]) + ", artifact / "
+            "Detector._forward in turns: " + ", ".join(
+                f"{a:.2f} / {b:.2f}" for a, b in zip(fps["artifact"],
+                                                    fps["forward"]))
+            + ("" if rehearsal else f" on {card}"))
+        log(f"  20a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ddp = report["ddp"] = check_ddp(device, rehearsal, serving, work)
+        for name in ("norm_eval", "train_bn"):
+            row = ddp[name]
+            worst, dev, lim = row["worst"]
+            log(f"two {ddp['backend']} ranks vs one process, {name}: loss "
+                f"parts within {row['loss_rel_dev']:.2e} relative"
+                + (f", gradients within {row['grad_rel_dev']:.2e} and "
+                   f"updated parameters within "
+                   f"{row['param_dev_of_update']:.2e} of their update in L2, "
+                   "against the step forwarded in the ranks' halves"
+                   if name == "norm_eval" else ", statistics within "
+                   f"{NOISE_MULT} x noise + {DDP_BN_RTOL}")
+                + f"; worst share of a limit {dev / lim:.2f} ({worst}: "
+                f"{dev:.2e} of {lim:.2e})"
+                + ("; the plain B=4 step off the halves step by "
+                   + ", ".join(f"{k} {v:.2e}" for k, v in
+                               row["b4_vs_halves"].items())
+                   + f" (the working precision's noise); rank 0's checkpoint "
+                   f"({row['checkpoint_keys']} reference keys) equal to "
+                   "rank 1's model" if name == "norm_eval" else "")
+                + f"; launches per rank {row['launches_per_rank']}")
+            if not rehearsal:
+                ms = row["step_ms"]
+                log(f"  ms a step ({name}, each alone on {card}): rank 0 "
+                    + ", ".join(f"{v:.1f}" for v in ms["rank0"]) + "; rank 1 "
+                    + ", ".join(f"{v:.1f}" for v in ms["rank1"])
+                    + f" (B={DDP_BATCH} each, concurrently); one process "
+                    + ", ".join(f"{v:.1f}" for v in ms["single"])
+                    + f" (B={DDP_RANKS * DDP_BATCH})")
+        val = ddp["val"]
+        log(f"sharded validation, {ddp['ranks']} ranks: {val['images']} "
+            f"images, both ranks identical, all paired with one process "
+            f"within {VAL_RTOL}; mAP / NDS sharded vs one process "
+            f"{val['summary']}; dcn_fwd per rank {val['launches_per_rank']}")
+        log(f"  20b-c: {time.perf_counter() - t0:.1f} s (the ranks' wall "
+            f"{ddp['wall_s']:.1f} s)")
+        t0 = time.perf_counter()
+        run = report["torchrun"] = main_py_torchrun(device, rehearsal, work)
+        log(f"torch.distributed.run main.py ({run['backend']}, 1 rank): rc "
+            f"{run['rc']} in {run['seconds']:.1f} s")
+        log(f"  20d: {time.perf_counter() - t0:.1f} s")
+    log(f"NCCL {report['nccl']}, gloo available {report['gloo']}, torch "
+        f"{report['torch']}" + ("" if rehearsal else f"; card: {card}"))
+    return report
+
+
+def add_phase20_launches(kernels, report) -> None:
+    """Phase 20's launches beside each kernel's main-path count: the
+    artifact's a call, each rank's a step of (b)."""
+    art = report["artifact"]["launches_per_call"]
+    for entry in kernels:
+        name = entry["name"]
+        if art.get(name):
+            entry["artifact_launches_per_call"] = art[name]
+        per_rank = report["ddp"]["norm_eval"]["launches_per_rank"]
+        if per_rank.get(name):
+            entry["ddp_launches_per_rank_step"] = per_rank[name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -4164,6 +4887,10 @@ def main(argv=None) -> int:
                     for k, (a, b, c) in worst16.items()))
     log(f"phase bf16 heads: {time.perf_counter() - t0:.1f} s")
     serving_launches = launches
+    # phase 20 exports phase 7's detector: its weights and statistics
+    serving = {"opts": opts, "frames": frames,
+               "sd": {k: v.detach().cpu().clone()
+                      for k, v in det.model.state_dict().items()}}
     del det, det16
     if not rehearsal:
         torch.cuda.empty_cache()
@@ -4248,6 +4975,12 @@ def main(argv=None) -> int:
                                   work)
     work_dir.cleanup()
     log(f"phase demo+eval+kitti+resnet: {time.perf_counter() - t0:.1f} s")
+
+    # 20. the serving artifact; two gloo ranks training and validating;
+    # main.py under torch.distributed.run
+    t0 = time.perf_counter()
+    parallel_run = artifact_ddp_path(args.device, rehearsal, card, serving)
+    log(f"phase artifact+ddp: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -4267,12 +5000,14 @@ def main(argv=None) -> int:
     kernels += probe_kernel_entries(probe_rows)
     kernels += [warp_kernel_entry(files), ycc_kernel_entry(files, n_ycc)]
     add_phase19_launches(kernels, extra)
+    add_phase20_launches(kernels, parallel_run)
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
     log(json.dumps({"serving_files": files}))
     log(json.dumps({"training_run": run}))
     log(json.dumps({"demo_eval_kitti_resnet": extra}))
+    log(json.dumps({"artifact_ddp": parallel_run}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

@@ -10,8 +10,10 @@ files (phase 17: the plain warp, ``run``, ``run_stream``, flip and
 multi-scale TTA, and the inference CLI's ``main``, serial with
 ``--save-dir`` and ``--show-attention``, then streamed), the training
 run's host side (phase 18: the converter, the native paint, the threaded
-Loader and ``tools rehearse``) and phase 19 (the demo, the evaluation CLI,
-KITTI, the ResNet backbones), to its last line; ``--help`` of the demo and
+Loader and ``tools rehearse``), phase 19 (the demo, the evaluation CLI,
+KITTI, the ResNet backbones) and phase 20 (the serving artifact, two gloo
+ranks training and validating, ``main.py`` under
+``torch.distributed.run``), to its last line; ``--help`` of the demo and
 of the evaluation CLI runs there too.
 opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
 reads its JPEGs): there the subprocess lets only that module import it, and
@@ -112,7 +114,10 @@ NEW_MODULES = ("ops/warp.py", "ops/tta.py", "utils/visualize.py",
                "tools/rehearse.py", "tools/__main__.py",
                "tools/profile_train_loader.py", "demo.py",
                "evaluation/cli.py", "evaluation/kitti.py",
-               "evaluation/kitti_export.py", "models/resnet.py")
+               "evaluation/kitti_export.py", "models/resnet.py",
+               "runtime/export.py", "parallel/__init__.py",
+               "parallel/distributed.py", "parallel/mesh.py",
+               "tools/ddp_check.py")
 # entry points whose --help runs with the JAX stack hidden
 HELP_MODULES = ("centerfusiondetect3d_tpu_torch.demo",
                 "centerfusiondetect3d_tpu_torch.evaluation.cli")
@@ -134,6 +139,14 @@ def _imports(tree):
             continue
         for name in names:
             yield name.split(".")[0], id(node) in top
+
+
+def test_the_scan_covers_the_artifact_and_the_parallel_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in _sources()
+               if p != SMOKE}
+    assert {"runtime/export.py", "parallel/__init__.py",
+            "parallel/distributed.py", "parallel/mesh.py",
+            "tools/ddp_check.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
@@ -203,7 +216,7 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
         "phase bf16-backward-vs-plain", "phase bf16 training",
         "phase bf16 step-vs-plain", "phase probes", "phase main.py",
         "phase serving files", "phase training run",
-        "phase demo+eval+kitti+resnet"
+        "phase demo+eval+kitti+resnet", "phase artifact+ddp"
     ], report["phases"]
     for name in HELP_MODULES:
         code, text = report["helps"][name]
