@@ -64,6 +64,8 @@ def head_tower(cin: int, nout: int, hidden: Sequence[int],
                        nn.ReLU(inplace=True)]
         cin = hidden[-1]
     out = Conv2d(cin, nout, 1, compute_dtype=dt)
+    for conv in layers[::2]:  # the tower's biases start at zero, as in JAX
+        nn.init.zeros_(conv.bias)
     nn.init.constant_(out.bias, -4.6 if is_heatmap else 0.0)
     return nn.Sequential(*layers, out)
 

@@ -96,3 +96,53 @@ def learning_rate(config, epoch: int, start_epoch: int = 0) -> float:
         return start_lr * (0.1 ** n)
 
     raise ValueError(f"unknown LR scheduler {sched!r}")
+
+
+def schedule_trace(config, epochs=None, start_epoch: int = 0):
+    """Per-epoch LR values for the configured schedule (list of floats)."""
+    n = int(epochs if epochs is not None else config.TRAIN.EPOCHS)
+    return [learning_rate(config, e, start_epoch)
+            for e in range(start_epoch, n)]
+
+
+def main(argv=None):
+    """LR-schedule inspector: the reference's ``learningRateTest`` /
+    ``debugLearningRate`` standalone (modelWithLoss.py:364-432,
+    trainer.py:73-89) — print the per-epoch LR trace and optionally plot it.
+
+        python -m centerfusiondetect3d_tpu_torch.training.schedule \
+            [--cfg configs/Centerfusion_Middle.yaml] [--plot lr.png] \
+            [--start-epoch N] [KEY VAL ...]
+
+    Dotted overrides alone need no YAML reader. The trace is host
+    arithmetic: ``--device`` is accepted as every entry point of the port
+    accepts it, and nothing runs on a device.
+    """
+    import argparse
+    import os
+
+    from ..config import load_config
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--cfg", default=None)
+    ap.add_argument("--plot", default=None, help="write a PNG of the trace")
+    ap.add_argument("--start-epoch", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="accepted and unused: the trace runs on the host")
+    ap.add_argument("opts", nargs="*", default=[])
+    args = ap.parse_args(argv)
+    cfg = load_config(args.cfg, opts=args.opts, num_classes=10)
+    trace = schedule_trace(cfg, start_epoch=args.start_epoch)
+    for e, lr in enumerate(trace, start=args.start_epoch):
+        print(f"epoch {e:4d}  lr {lr:.3e}")
+    if args.plot:
+        from ..utils.observability import plot_lr_schedule
+
+        plot_lr_schedule(cfg, args.plot, args.start_epoch)
+        print(f"wrote {args.plot}" if os.path.exists(args.plot)
+              else "matplotlib is not installed: no plot written")
+    return trace
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

@@ -251,11 +251,30 @@ On the card it:
    --nproc_per_node 1 -m centerfusiondetect3d_tpu_torch.main`` with NCCL on
    ``DDP_MAIN_SPLITS`` of the campaign's images, one epoch and one
    validation, rc 0; it prints the NCCL version and the card;
-21. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
+21. the run-level entry points (``campaign_overfit_path``): (a)
+   ``tools/overfit.py`` at 448x800, batch 4, DeformConv nodes, bf16, 400
+   steps across its boundary at 150, with the script's assertions (loss
+   5x down, a continuous boundary, recovery within 20x and descent after
+   it, GT recovered), its seconds and the trained offset table, counting
+   the launches of every step: ``dcn_fwd_bf16`` a node a step on both
+   sides, the bf16 backward kernels none a frozen step and one a node an
+   unfrozen step (``OVERFIT_*_KERNELS``; any other count fails); (b)
+   ``tools/train_campaign.py --scale smoke`` under a temporary ``--out``
+   with its own tables (baseline, two phases with a resume at e1, the final
+   eval): ``resume_ok``, finite losses, every summary written, its launches;
+   (c) ``python -m ...training.schedule`` for each of the campaign's phase
+   configs, its printed LRs equal to those the campaign's Trainer logged
+   (``metrics.jsonl``); (d) ``tools/dcn_select.py``: ``dcn_fwd_bf16`` with
+   ``max_offset=1`` within ``BF16_RTOL`` of its plain version, the plain
+   select formulation's forward and gradients within ``SELECT_RTOL``, the
+   times and the ``VERDICT:`` line;
+22. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
    ``ycc_to_bgr`` beside the DCN and probe kernels; phase 19's launches as
    ``resnet_launches`` and ``demo_launches``, phase 20's as
-   ``artifact_launches_per_call`` and ``ddp_launches_per_rank_step``) and,
-   last, the ``{"ok": true, "device": {...}}`` line.
+   ``artifact_launches_per_call`` and ``ddp_launches_per_rank_step``,
+   phase 21's as ``overfit_launches_per_step`` and
+   ``campaign_smoke_launches``) and, last, the ``{"ok": true, "device":
+   {...}}`` line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
@@ -269,7 +288,10 @@ this process with ``--device cpu`` on 4 JPEGs, and phase 18 with the
 whole converter and then ``TINY_SPLITS`` of its output at 64x128, decoded
 by cv2, phase 19 at 64x128 on samples of two cameras decoded by cv2, and
 phase 20 at 64x128 with its processes on the CPU (gloo, also under
-``torch.distributed.run``); its last line is ``{"ok": true, "rehearsal": "cpu"}``.
+``torch.distributed.run``), and phase 21 with the overfit at 128x64 in
+float32 with Conv nodes for ``TINY_OVERFIT_STEPS`` steps, the smoke campaign
+with Conv nodes in float32 and the select probes at ``TINY_SELECT_SHAPE``;
+its last line is ``{"ok": true, "rehearsal": "cpu"}``.
 """
 
 from __future__ import annotations
@@ -341,8 +363,10 @@ from centerfusiondetect3d_tpu_torch.runtime.synthetic import (
     seeded_weights,
     synthetic_frames,
 )
-from centerfusiondetect3d_tpu_torch.tools import ddp_check, probe_dcn
+from centerfusiondetect3d_tpu_torch.tools import (
+    dcn_select, ddp_check, overfit, probe_dcn, train_campaign)
 from centerfusiondetect3d_tpu_torch.training import make_optimizer, train_step
+from centerfusiondetect3d_tpu_torch.training import schedule as cfd_schedule
 from centerfusiondetect3d_tpu_torch.training.checkpoint import (
     load_torch_file, load_weights, save_checkpoint)
 from centerfusiondetect3d_tpu_torch.utils import quaternion as cfd_quat
@@ -4716,6 +4740,165 @@ def add_phase20_launches(kernels, report) -> None:
             entry["ddp_launches_per_rank_step"] = per_rank[name]
 
 
+# phase 21: the kernels a frozen and an unfrozen overfit step launch, each
+# once a DeformConv node (16 in DLA-34)
+OVERFIT_FROZEN_KERNELS = ("dcn_fwd_bf16",)
+OVERFIT_UNFROZEN_KERNELS = ("dcn_fwd_bf16",) + BWD_KERNELS_BF16
+TINY_OVERFIT_STEPS, TINY_OVERFIT_DEFREEZE = 100, 50
+TINY_OVERFIT_WH = (128, 64)
+TINY_CAMPAIGN_OPTS = ["MODEL.DLA.NODE", "Conv", "MIXED_PRECISION", "False"]
+TINY_SELECT_SHAPE = (2, 16, 24, 8)
+SELECT_RTOL = 1e-4  # the plain select formulation against the clamped DCN
+
+
+def counted_overfit(device, rehearsal: bool, n_nodes: int) -> dict:
+    """21a: ``tools/overfit.py`` with each step's launches by kernel; every
+    frozen and every unfrozen step must launch each of
+    ``OVERFIT_*_KERNELS`` once a node and nothing else (nothing in the
+    rehearsal)."""
+    per_step = []
+
+    def on_step(i, frozen):
+        now = launch_counts()
+        per_step.append((frozen, {k: v - last[k] for k, v in now.items()
+                                  if v != last[k]}))
+        last.update(now)
+
+    reset_launch_counts()
+    last = launch_counts()
+    kw = (dict(steps=TINY_OVERFIT_STEPS, defreeze=TINY_OVERFIT_DEFREEZE,
+               img_wh=TINY_OVERFIT_WH, opts=TINY_CAMPAIGN_OPTS)
+          if rehearsal else {})
+    rec = overfit.run(device, on_step=on_step, log=log, **kw)
+    totals = launch_counts()
+    for frozen, names in ((True, OVERFIT_FROZEN_KERNELS),
+                          (False, OVERFIT_UNFROZEN_KERNELS)):
+        want = {} if rehearsal else {k: n_nodes for k in names}
+        got = [c for f, c in per_step if f == frozen]
+        bad = [c for c in got if c != want]
+        if bad:
+            kind = "frozen" if frozen else "unfrozen"
+            raise AssertionError(f"overfit {kind} step launches {bad[0]}, "
+                                 f"expected {want}")
+        rec["launches_frozen" if frozen else "launches_unfrozen"] = want
+    rec["launches_total"] = {k: v for k, v in totals.items() if v}
+    rec["steps"] = len(per_step)
+    rec.pop("losses")
+    return rec
+
+
+def campaign_schedules(out: str, scale: str, extra) -> dict:
+    """21c: ``training.schedule``'s printed trace for each phase config of
+    the campaign in ``out`` against the LRs its Trainer logged (every
+    epoch's ``lr`` in ``metrics.jsonl``); returns the epochs compared a
+    phase."""
+    logged = {}
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        for line in f:
+            event = json.loads(line)
+            if "lr" in event:
+                logged[int(event["step"])] = event["lr"]
+    args = train_campaign.parse_args(["--out", out, "--scale", scale]
+                                     + list(extra))
+    sc = train_campaign.SCALES[scale]
+    root = os.path.join(out, "data", "nuscenes")
+    cfgs = train_campaign.phase_cfgs(args, sc, root, out)
+    compared = {}
+    for name, cfg in cfgs.items():
+        if name == "final":
+            continue
+        start = train_campaign.phase_start_epoch(sc, name)
+        argv = train_campaign.schedule_argv(cfg, start)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            trace = cfd_schedule.main(argv)
+        printed = [float(line.split()[-1])
+                   for line in text.getvalue().splitlines()]
+        epochs = list(range(start, start + len(trace)))
+        want = [logged.get(e) for e in epochs]
+        if want != trace or [f"{v:.3e}" for v in want] != [
+                f"{v:.3e}" for v in printed]:
+            raise AssertionError(f"{name}: schedule {trace} (printed "
+                                 f"{printed}), the campaign logged {want}")
+        compared[name] = len(epochs)
+    return compared
+
+
+def campaign_overfit_path(device, rehearsal: bool, card, n_nodes: int) -> dict:
+    """Phase 21: the overfit (a), the smoke campaign (b), the schedule CLI
+    against the campaign's LRs (c), the select probes (d)."""
+    report = {}
+    t0 = time.perf_counter()
+    ov = report["overfit"] = counted_overfit(device, rehearsal, n_nodes)
+    log(f"overfit: {ov['steps']} steps in {ov['seconds']:.1f} s, loss "
+        f"{ov['first']:.2f} -> {ov['last']:.2f} ({ov['ratio']:.1f}x), "
+        f"boundary pre {ov['pre']:.3f} at {ov['at_boundary']:.3f} post-max "
+        f"{ov['post_max']:.3f}, GT {ov['hits']} hit / {ov['misses']} missed; "
+        f"launches a frozen step {ov['launches_frozen']}, an unfrozen step "
+        f"{ov['launches_unfrozen']}, in all {ov['launches_total']}"
+        + ("" if rehearsal else f" on {card}"))
+    log(f"  21a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_campaign_") as out:
+        extra = TINY_CAMPAIGN_OPTS if rehearsal else []
+        reset_launch_counts()
+        rc = train_campaign.main(["--out", out, "--scale", "smoke",
+                                  "--device", str(device), "--fresh"] + extra)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        with open(os.path.join(out, "campaign_report.json")) as f:
+            camp = json.load(f)
+        losses = [camp[p]["train_loss_last"] for p in ("phase1", "phase2")]
+        summaries = [camp["baseline"], camp["phase1"]["val"],
+                     camp["phase2"]["val"], camp["final"]["val"]]
+        if (rc != 0 or not camp["resume_ok"] or not camp["passed"]
+                or not all(math.isfinite(v) for v in losses)
+                or not all(s and "mAP" in s for s in summaries)):
+            raise AssertionError(f"smoke campaign: rc {rc}, report {camp}")
+        report["campaign"] = {
+            "rc": rc, "resume_start_epoch":
+                camp["phase2"]["resume_start_epoch"],
+            "train_loss_last": losses, "final_mAP": camp["final_mAP"],
+            "wall_s": camp["wall_s_total"],
+            "phase_wall_s": [camp[p]["wall_s"] for p in ("phase1", "phase2")],
+            "steps": [camp[p]["steps"] for p in ("phase1", "phase2")],
+            "launches": counts}
+        log(f"smoke campaign: rc {rc}, resumed at epoch "
+            f"{camp['phase2']['resume_start_epoch']}, last losses "
+            + ", ".join(f"{v:.3f}" for v in losses)
+            + f", final present-class mAP {camp['final_mAP']}, "
+            f"{camp['wall_s_total']:.1f} s; launches {counts}")
+        log(f"  21b: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        report["schedules"] = campaign_schedules(out, "smoke", extra)
+        log("schedule CLI against the campaign's logged LRs, epochs equal a "
+            f"phase: {report['schedules']}")
+        log(f"  21c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sel = report["select"] = dcn_select.run(
+        device, TINY_SELECT_SHAPE if rehearsal else dcn_select.SHAPE, log=log)
+    worst = max([sel["select_plain"]["fwd_rel_err"]]
+                + list(sel["select_plain"]["grad_rel_err"].values()))
+    if sel["select"]["rel_err"] > BF16_RTOL or worst > SELECT_RTOL:
+        raise AssertionError(f"select probes: {sel}")
+    log(f"  21d: {time.perf_counter() - t0:.1f} s")
+    return report
+
+
+def add_phase21_launches(kernels, report) -> None:
+    """Phase 21's launches beside each kernel's main-path count: the
+    overfit's a frozen and an unfrozen step, the smoke campaign's in all."""
+    ov = report["overfit"]
+    for entry in kernels:
+        name = entry["name"]
+        per_step = {k: ov[f"launches_{k}"].get(name, 0)
+                    for k in ("frozen", "unfrozen")}
+        if any(per_step.values()):
+            entry["overfit_launches_per_step"] = per_step
+        if report["campaign"]["launches"].get(name):
+            entry["campaign_smoke_launches"] = \
+                report["campaign"]["launches"][name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -4981,6 +5164,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parallel_run = artifact_ddp_path(args.device, rehearsal, card, serving)
     log(f"phase artifact+ddp: {time.perf_counter() - t0:.1f} s")
+
+    # 21. the overfit across its boundary, the smoke campaign, the schedule
+    # CLI, the select probes
+    t0 = time.perf_counter()
+    campaign = campaign_overfit_path(args.device, rehearsal, card, n_nodes)
+    log(f"phase campaign+overfit: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -5001,6 +5190,7 @@ def main(argv=None) -> int:
     kernels += [warp_kernel_entry(files), ycc_kernel_entry(files, n_ycc)]
     add_phase19_launches(kernels, extra)
     add_phase20_launches(kernels, parallel_run)
+    add_phase21_launches(kernels, campaign)
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
@@ -5008,6 +5198,7 @@ def main(argv=None) -> int:
     log(json.dumps({"training_run": run}))
     log(json.dumps({"demo_eval_kitti_resnet": extra}))
     log(json.dumps({"artifact_ddp": parallel_run}))
+    log(json.dumps({"campaign_overfit": campaign}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

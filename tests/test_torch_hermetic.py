@@ -13,8 +13,10 @@ run's host side (phase 18: the converter, the native paint, the threaded
 Loader and ``tools rehearse``), phase 19 (the demo, the evaluation CLI,
 KITTI, the ResNet backbones) and phase 20 (the serving artifact, two gloo
 ranks training and validating, ``main.py`` under
-``torch.distributed.run``), to its last line; ``--help`` of the demo and
-of the evaluation CLI runs there too.
+``torch.distributed.run``) and phase 21 (the overfit across its boundary,
+the smoke campaign, the schedule CLI, the select probes), to its last line;
+``--help`` of the demo, the evaluation CLI, the schedule CLI and the
+campaign, overfit, DCN-parity and select tools runs there too.
 opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
 reads its JPEGs): there the subprocess lets only that module import it, and
 the rehearsal's ``main.py`` phase decodes through it. An AST scan checks the
@@ -117,10 +119,17 @@ NEW_MODULES = ("ops/warp.py", "ops/tta.py", "utils/visualize.py",
                "evaluation/kitti_export.py", "models/resnet.py",
                "runtime/export.py", "parallel/__init__.py",
                "parallel/distributed.py", "parallel/mesh.py",
-               "tools/ddp_check.py")
+               "tools/ddp_check.py", "training/schedule.py",
+               "tools/train_campaign.py", "tools/overfit.py",
+               "tools/dcn_parity.py", "tools/dcn_select.py")
 # entry points whose --help runs with the JAX stack hidden
 HELP_MODULES = ("centerfusiondetect3d_tpu_torch.demo",
-                "centerfusiondetect3d_tpu_torch.evaluation.cli")
+                "centerfusiondetect3d_tpu_torch.evaluation.cli",
+                "centerfusiondetect3d_tpu_torch.training.schedule",
+                "centerfusiondetect3d_tpu_torch.tools.train_campaign",
+                "centerfusiondetect3d_tpu_torch.tools.overfit",
+                "centerfusiondetect3d_tpu_torch.tools.dcn_parity",
+                "centerfusiondetect3d_tpu_torch.tools.dcn_select")
 
 
 def _sources():
@@ -216,7 +225,8 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
         "phase bf16-backward-vs-plain", "phase bf16 training",
         "phase bf16 step-vs-plain", "phase probes", "phase main.py",
         "phase serving files", "phase training run",
-        "phase demo+eval+kitti+resnet", "phase artifact+ddp"
+        "phase demo+eval+kitti+resnet", "phase artifact+ddp",
+        "phase campaign+overfit"
     ], report["phases"]
     for name in HELP_MODULES:
         code, text = report["helps"][name]
