@@ -16,10 +16,13 @@ approximation or a TPU runtime setting are accepted and ignored:
 - ``MODEL.DLA.DCN_IMPL``, ``DCN_DEEP_IMPL``, ``DCN_DEEP_MIN_CH``,
   ``DCN_MAX_OFFSET``, ``DCN_CORRECT_FRAC``, ``DCN_CORRECT_APPROX`` and
   ``S2D_STEM``: every DCN node runs the unclamped op on the plain stem;
-- ``MODEL.APPROX_TOPK`` and ``MODEL.FUSED_HEAD_TOWERS``: top-k is exact and
-  every head tower runs on its own;
-- ``TEST.MAX_DEVICE_BATCH``, ``TEST.DEVICE_BATCH_MAP`` and every ``TPU.*``
-  key but two.
+- ``MODEL.APPROX_TOPK``: top-k is exact;
+- ``TEST.MAX_DEVICE_BATCH``, ``TEST.DEVICE_BATCH_MAP`` and the ``TPU.*``
+  keys but five.
+
+``MODEL.FUSED_HEAD_TOWERS`` runs each stage's ``tower_0`` convs as one conv
+(``models/heads.py``), as JAX does. ``TPU.MESH_DATA``, ``MESH_SPATIAL`` and
+``MESH_MODEL`` lay the Trainer's ranks out (``parallel/mesh.py``).
 
 ``runtime/fit.py``'s Trainer reads ``TPU.PREFETCH`` (the batches that
 ``data/pipeline.py:device_prefetch`` moves to the device ahead of the
@@ -79,7 +82,7 @@ def default_config() -> ConfigNode:
     c.MODEL.FUSION_STRATEGY = "middle"  # early | middle | None
     c.MODEL.FRUSTUM = True
     c.MODEL.K = 100
-    c.MODEL.FUSED_HEAD_TOWERS = False  # ignored
+    c.MODEL.FUSED_HEAD_TOWERS = False  # one conv for each stage's tower_0
     c.MODEL.APPROX_TOPK = True  # ignored: top-k is exact
     c.MODEL.INPUT_SIZE = (448, 800)
     c.MODEL.DLA = ConfigNode()

@@ -116,17 +116,26 @@
 // that the columns never reach device memory, wgmma and TMA are the next
 // steps.
 //
+// The row origin: offset and mask may hold Ho <= H rows, the output rows
+// [row0, row0 + Ho) of the op on the whole x (a rank's rows of a
+// height-sharded map, models/layers.py): output row h samples as row
+// row0 + h. cols, dcols, doffset and dmask have the Ho output rows; x and
+// dx the whole H, and col2im scatters the rank's samples into the whole
+// dx (its map has a segment for every pixel of x). With row0 = 0 and
+// Ho = H every index and every value is the op's own.
+//
 // Layouts: x (B, H, W, C) channels-last (im2col, coord); offset
-// (B, 18, H, W) f32 with offset[2k] = dy_k and offset[2k+1] = dx_k, taps
-// k = 3i + j in row-major order; mask (B, 9, H, W) f32, already sigmoided;
-// cols and dcols (B*HW, 9, C): row pix*9 + k holds the C channels of tap k
-// of pixel pix = b*HW + p (col2im: (B*HW, 9, Cp)); dx (B, C, H, W), every
-// element written by col2im; doffset (B, 18, H, W) f32; dmask (B, 9, H, W)
-// f32. col2im's map, int32, allocated by the wrapper: count (B*HW + 1,
-// zeroed; the last element counts the long segments), ends (B*HW), entries
-// (36*B*HW pairs {key, f32 weight bits}, the first ends[B*HW-1] used),
-// long_q (B*HW) and bits (long_blocks * ceil(9*HW / 32)). Every tensor is
-// contiguous in that layout, all on one device.
+// (B, 18, Ho, W) f32 with offset[2k] = dy_k and offset[2k+1] = dx_k, taps
+// k = 3i + j in row-major order; mask (B, 9, Ho, W) f32, already sigmoided;
+// cols and dcols (B*HoW, 9, C): row pix*9 + k holds the C channels of tap
+// k of output pixel pix = b*HoW + p (col2im: (B*HoW, 9, Cp)); dx
+// (B, C, H, W), every element written by col2im; doffset (B, 18, Ho, W)
+// f32; dmask (B, 9, Ho, W) f32. col2im's map, int32, allocated by the
+// wrapper: count (B*HW + 1, zeroed; the last element counts the long
+// segments), ends (B*HW), entries (36*B*HoW pairs {key, f32 weight bits},
+// the first ends[B*HW-1] used), long_q (B*HW) and bits (long_blocks *
+// ceil(9*HoW / 32)). Every tensor is contiguous in that layout, all on one
+// device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,8 +162,9 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Where tap k of output pixel p samples: its upper-left corner and the
-// fractional parts.
+// Where tap k of output pixel p (of the Ho*W output plane, its row from
+// row0) samples in x (H rows): its upper-left corner and the fractional
+// parts.
 struct Sample {
   int y0, x0;      // floor of the sampling position, clamped to [-2, H (W)]
   float ly, lx;    // fractional parts of the sampling position
@@ -164,7 +174,7 @@ struct Sample {
 
 // The geometry of one tap at one output pixel.
 struct Tap {
-  int idx[4];      // flat index of each corner in the H*W plane, 0 outside
+  int idx[4];      // flat index of each corner in x's H*W plane, 0 outside
   float valid[4];  // 1 for a corner inside the image, 0 outside
   float ly, lx;
   bool pass_y;
@@ -173,8 +183,9 @@ struct Tap {
 
 __device__ __forceinline__ Sample make_sample(const float* __restrict__ offset,
                                               int b, int k, int p, int H,
-                                              int W, float max_offset) {
-  const int hw = H * W;
+                                              int W, int Ho, int row0,
+                                              float max_offset) {
+  const int hw = Ho * W;
   const int h = p / W;
   const int w = p - h * W;
   float dy = offset[((size_t)b * 18 + 2 * k) * hw + p];
@@ -188,7 +199,7 @@ __device__ __forceinline__ Sample make_sample(const float* __restrict__ offset,
     dy = fminf(fmaxf(dy, -max_offset), max_offset);
     dx = fminf(fmaxf(dx, -max_offset), max_offset);
   }
-  const float py = (float)(h + k / 3 - 1) + dy;
+  const float py = (float)(row0 + h + k / 3 - 1) + dy;
   const float px = (float)(w + k % 3 - 1) + dx;
   const float fy = floorf(py);
   const float fx = floorf(px);
@@ -203,8 +214,8 @@ __device__ __forceinline__ Sample make_sample(const float* __restrict__ offset,
 
 __device__ __forceinline__ Tap make_tap(const float* __restrict__ offset,
                                         int b, int k, int p, int H, int W,
-                                        float max_offset) {
-  const Sample s = make_sample(offset, b, k, p, H, W, max_offset);
+                                        int Ho, int row0, float max_offset) {
+  const Sample s = make_sample(offset, b, k, p, H, W, Ho, row0, max_offset);
   Tap t;
   t.ly = s.ly;
   t.lx = s.lx;
@@ -250,8 +261,9 @@ __device__ __forceinline__ void corner_weights(const Tap& t, float scale,
 constexpr int kBwdThreads = 256;  // threads per block (im2col, coord)
 constexpr int kBwdBlocks = 4;     // blocks per SM: at most 64 registers
 
-// Where tap k of one pixel samples: row, the channels-last row of x of
-// corner (0, 0) (b * HW + y0 * W + x0; the others lie 1, W and W + 1 rows
+// Where tap k of one output pixel samples: row, the channels-last row of x
+// of corner (0, 0) (b * HW + y0 * W + x0, x's H*W; the others lie 1, W and
+// W + 1 rows
 // on); ly, lx the fractional parts; m the mask; flags bit c for corner
 // c = 2 * cy + cx inside the image, kPassY / kPassX for an offset inside the
 // clamp range.
@@ -265,14 +277,14 @@ constexpr int kPassX = 32;
 
 __device__ __forceinline__ Geo make_geo(const float* __restrict__ offset,
                                         const float* __restrict__ mask,
-                                        int pix, int k, int H, int W,
-                                        float max_offset) {
-  const int hw = H * W;
+                                        int pix, int k, int H, int W, int Ho,
+                                        int row0, float max_offset) {
+  const int hw = Ho * W;  // the output plane
   const int b = pix / hw;
   const int q = pix - b * hw;
-  const Sample s = make_sample(offset, b, k, q, H, W, max_offset);
+  const Sample s = make_sample(offset, b, k, q, H, W, Ho, row0, max_offset);
   Geo g;
-  g.row = b * hw + s.y0 * W + s.x0;
+  g.row = b * H * W + s.y0 * W + s.x0;
   g.ly = s.ly;
   g.lx = s.lx;
   g.m = mask[((size_t)b * 9 + k) * hw + q];
@@ -288,17 +300,15 @@ __device__ __forceinline__ Geo make_geo(const float* __restrict__ offset,
 
 // The geometry of this lane's taps (sub, sub + G) of pixel pix; zeros past
 // the last pixel.
-template <int G, int kSlots>
-__device__ __forceinline__ void lane_geo(Geo (&mine)[kSlots],
-                                         const float* __restrict__ offset,
-                                         const float* __restrict__ mask,
-                                         int pix, int sub, int npix, int H,
-                                         int W, float max_offset) {
+template <int G, int kSlots, typename P>
+__device__ __forceinline__ void lane_geo(Geo (&mine)[kSlots], const P& p,
+                                         int pix, int sub) {
 #pragma unroll
   for (int t = 0; t < kSlots; ++t) {
     const int k = sub + t * G;
-    mine[t] = (k < 9 && pix < npix)
-                  ? make_geo(offset, mask, pix, k, H, W, max_offset)
+    mine[t] = (k < 9 && pix < p.npix)
+                  ? make_geo(p.offset, p.mask, pix, k, p.H, p.W, p.Ho,
+                             p.row0, p.max_offset)
                   : Geo{0, 0.f, 0.f, 0.f, 0};
   }
 }
@@ -320,9 +330,10 @@ __device__ __forceinline__ Geo share_geo(const Geo (&mine)[kSlots], int k) {
 template <typename T>
 struct SampleParams {
   const T* x;           // (B, H, W, C) channels-last
-  const float* offset;  // (B, 18, H, W)
-  const float* mask;    // (B, 9, H, W)
-  int C, H, W, npix, nvec;
+  const float* offset;  // (B, 18, Ho, W)
+  const float* mask;    // (B, 9, Ho, W)
+  // npix: the B*Ho*W output pixels; xpix: x's B*H*W rows
+  int C, H, W, Ho, row0, npix, xpix, nvec;
   int vec;  // C a multiple of V and every pointer 16-byte aligned
   float max_offset;
 };
@@ -355,7 +366,7 @@ template <typename T>
 __device__ __forceinline__ uint4 load_corner(const SampleParams<T>& p,
                                              int row, int corner, int c0) {
   const int r = row + (corner >> 1) * p.W + (corner & 1);
-  return load_vec<T, false>(p.x, (size_t)min(max(r, 0), p.npix - 1), c0,
+  return load_vec<T, false>(p.x, (size_t)min(max(r, 0), p.xpix - 1), c0,
                             p.C, p.vec);
 }
 
@@ -395,8 +406,7 @@ dcn_im2col_kernel(const SampleParams<T> p, T* __restrict__ cols) {
   const int sub = threadIdx.x % G;
   const int pix = blockIdx.x * (kBwdThreads / G) + threadIdx.x / G;
   Geo mine[kSlots];
-  lane_geo<G>(mine, p.offset, p.mask, pix, sub, p.npix, p.H, p.W,
-              p.max_offset);
+  lane_geo<G>(mine, p, pix, sub);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const Geo geo = share_geo<G>(mine, k);
@@ -454,8 +464,7 @@ dcn_col2im_coord_kernel(const SampleParams<T> p, const T* __restrict__ dcols,
   const int p0 = blockIdx.x * kP;
   const int pix = p0 + j;
   Geo mine[kSlots];
-  lane_geo<G>(mine, p.offset, p.mask, pix, sub, p.npix, p.H, p.W,
-              p.max_offset);
+  lane_geo<G>(mine, p, pix, sub);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const Geo geo = share_geo<G>(mine, k);
@@ -499,7 +508,7 @@ dcn_col2im_coord_kernel(const SampleParams<T> p, const T* __restrict__ dcols,
     }
   }
   __syncthreads();
-  const int hw = p.H * p.W;
+  const int hw = p.Ho * p.W;  // the output plane
   for (int t = threadIdx.x; t < 27 * kP; t += kBwdThreads) {
     const int r = t / kP;
     const int q_pix = p0 + t % kP;
@@ -524,19 +533,19 @@ __global__ void __launch_bounds__(kPix)
 dcn_col2im_map_kernel(const float* __restrict__ offset,
                       const float* __restrict__ mask, int* __restrict__ count,
                       const int* __restrict__ ends, int2* __restrict__ entries,
-                      int H, int W, float max_offset) {
-  const int hw = H * W;
+                      int H, int W, int Ho, int row0, float max_offset) {
+  const int hwo = Ho * W;  // the output plane
   const int p = blockIdx.x * kPix + threadIdx.x;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
-  if (p >= hw) return;
-  const Tap t = make_tap(offset, b, k, p, H, W, max_offset);
+  if (p >= hwo) return;
+  const Tap t = make_tap(offset, b, k, p, H, W, Ho, row0, max_offset);
   float wgt[4];
-  corner_weights(t, mask[((size_t)b * 9 + k) * hw + p], wgt);
+  corner_weights(t, mask[((size_t)b * 9 + k) * hwo + p], wgt);
 #pragma unroll
   for (int corner = 0; corner < 4; ++corner) {
     if (t.valid[corner] == 0.f || wgt[corner] == 0.f) continue;
-    const size_t bq = (size_t)b * hw + t.idx[corner];
+    const size_t bq = (size_t)b * H * W + t.idx[corner];
     if (!kFill) {
       atomicAdd(count + bq, 1);
     } else {
@@ -682,15 +691,16 @@ dcn_col2im_scan_kernel(const int* __restrict__ count,
 // that is q, as corner_weights computes it.
 __device__ __forceinline__ float entry_weight(
     const float* __restrict__ offset, const float* __restrict__ mask, int b,
-    int k, int p, int qy, int qx, int H, int W, float max_offset) {
-  const Sample s = make_sample(offset, b, k, p, H, W, max_offset);
+    int k, int p, int qy, int qx, int H, int W, int Ho, int row0,
+    float max_offset) {
+  const Sample s = make_sample(offset, b, k, p, H, W, Ho, row0, max_offset);
   const float wy = qy != s.y0 ? s.ly : 1.f - s.ly;
   const float wx = qx != s.x0 ? s.lx : 1.f - s.lx;
-  return mask[((size_t)b * 9 + k) * (H * W) + p] * wy * wx;
+  return mask[((size_t)b * 9 + k) * (Ho * W) + p] * wy * wx;
 }
 
 // Step 4 for the long segments, one block per segment at a time: each key
-// sets its bit in this block's bitmap of the 9*HW keys, then each thread
+// sets its bit in this block's bitmap of the 9*HoW keys, then each thread
 // counts the set bits of its run of words and, after a block scan, writes
 // them back in key order, each with its weight taken again from offset and
 // mask.
@@ -702,11 +712,11 @@ dcn_col2im_sort_long_kernel(const float* __restrict__ offset,
                             const int* __restrict__ long_q,
                             const int* __restrict__ n_long,
                             unsigned* __restrict__ bits_all, int H, int W,
-                            float max_offset) {
+                            int Ho, int row0, float max_offset) {
   __shared__ int s_scan[kLongSortThreads];
-  const int hw = H * W;
+  const int hw = H * W;  // x's plane: the segments
   const int tid = threadIdx.x;
-  const int n_words = (9 * hw + 31) / 32;
+  const int n_words = (9 * Ho * W + 31) / 32;
   unsigned* bits = bits_all + (size_t)blockIdx.x * n_words;
   const int per = (n_words + kLongSortThreads - 1) / kLongSortThreads;
   const int w0 = min(tid * per, n_words);
@@ -733,8 +743,8 @@ dcn_col2im_sort_long_kernel(const float* __restrict__ offset,
         const int key = w * 32 + (__ffs(m) - 1);
         entries[out++] = make_int2(
             key, __float_as_int(entry_weight(offset, mask, b, key % 9,
-                                             key / 9, q / W, q % W, H, W,
-                                             max_offset)));
+                                             key / 9, q / W, q % W, H, W, Ho,
+                                             row0, max_offset)));
       }
     }
     __syncthreads();
@@ -801,7 +811,7 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
 dcn_col2im_gather_kernel(const T* __restrict__ dcols,
                          const int* __restrict__ ends,
                          const int2* __restrict__ entries, T* __restrict__ dx,
-                         int C, int Cp, int hw) {
+                         int C, int Cp, int hw, int hwo) {
   __shared__ float s_dx[32][kGatherPix + 1];
   __shared__ bool s_long[kGatherPix];
   const int sub = threadIdx.x % kGroup;
@@ -809,7 +819,7 @@ dcn_col2im_gather_kernel(const T* __restrict__ dcols,
   const int q = blockIdx.x * kGatherPix + j;
   const int b = blockIdx.z;
   const T* image =
-      dcols + (size_t)b * hw * 9 * Cp + blockIdx.y * 32 + 4 * sub;
+      dcols + (size_t)b * hwo * 9 * Cp + blockIdx.y * 32 + 4 * sub;
   int start = 0;
   int n = 0;
   if (q < hw) {
@@ -848,7 +858,8 @@ dcn_col2im_gather_long_kernel(const T* __restrict__ dcols,
                               const int2* __restrict__ entries,
                               const int* __restrict__ long_q,
                               const int* __restrict__ n_long,
-                              T* __restrict__ dx, int C, int Cp, int hw) {
+                              T* __restrict__ dx, int C, int Cp, int hw,
+                              int hwo) {
   constexpr int kGroups = kGatherWarps * 32 / kGroup;
   __shared__ float s_acc[kGroups][33];
   const int sub = threadIdx.x % kGroup;
@@ -864,7 +875,7 @@ dcn_col2im_gather_long_kernel(const T* __restrict__ dcols,
     // the groups of a warp take consecutive chunks of each stride
     constexpr int kPerWarp = 32 / kGroup;
     gather_entries(
-        dcols + (size_t)b * hw * 9 * Cp + blockIdx.y * 32 + 4 * sub,
+        dcols + (size_t)b * hwo * 9 * Cp + blockIdx.y * 32 + 4 * sub,
         entries + start, n, n, (g - g % kPerWarp) * kGroup,
         (g % kPerWarp) * kGroup, kGroups * kGroup, Cp, sub, acc);
 #pragma unroll
@@ -890,18 +901,24 @@ bool bad_map(int B, int H, int W) {
          (long long)kMaxEntriesPerPixel * B * H * W >= (1LL << 31);
 }
 
+// The output rows [row0, row0 + Ho) lie inside x's H rows.
+bool bad_rows(int H, int Ho, int row0) {
+  return Ho <= 0 || row0 < 0 || row0 + Ho > H;
+}
+
 // B*H*W pixels index x's rows and 9 column rows each as int
-bool bad_pixels(int B, int C, int H, int W) {
-  return bad_shape(B, C, H, W) || (long long)9 * B * H * W >= (1LL << 31);
+bool bad_pixels(int B, int C, int H, int W, int Ho, int row0) {
+  return bad_shape(B, C, H, W) || bad_rows(H, Ho, row0) ||
+         (long long)9 * B * H * W >= (1LL << 31);
 }
 
 template <typename T>
 SampleParams<T> sample_params(const T* x, const float* offset,
                               const float* mask, int B, int C, int H, int W,
-                              int vec, float max_offset) {
+                              int Ho, int row0, int vec, float max_offset) {
   constexpr int V = 16 / sizeof(T);
-  return {x, offset, mask, C, H, W, B * H * W, (C + V - 1) / V, vec,
-          max_offset};
+  return {x, offset, mask, C, H, W, Ho, row0, B * Ho * W, B * H * W,
+          (C + V - 1) / V, vec, max_offset};
 }
 
 // The group of lanes a pixel gets: C / V vectors rounded up to 8, 16 or 32.
@@ -920,11 +937,11 @@ unsigned bwd_grid(int npix, int G) {
 
 template <typename T>
 int im2col(const T* x, const float* offset, const float* mask, T* cols,
-           int B, int C, int H, int W, int vec, float max_offset,
-           void* stream) {
-  if (bad_pixels(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  const SampleParams<T> p =
-      sample_params(x, offset, mask, B, C, H, W, vec, max_offset);
+           int B, int C, int H, int W, int Ho, int row0, int vec,
+           float max_offset, void* stream) {
+  if (bad_pixels(B, C, H, W, Ho, row0)) return (int)cudaErrorInvalidValue;
+  const SampleParams<T> p = sample_params(x, offset, mask, B, C, H, W, Ho,
+                                          row0, vec, max_offset);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (group_lanes<T>(C)) {
     case 8: dcn_im2col_kernel<T, 8>
@@ -942,11 +959,11 @@ int im2col(const T* x, const float* offset, const float* mask, T* cols,
 template <typename T>
 int col2im_coord(const T* dcols, const T* x, const float* offset,
                  const float* mask, float* doffset, float* dmask, int B,
-                 int C, int H, int W, int vec, float max_offset,
-                 void* stream) {
-  if (bad_pixels(B, C, H, W)) return (int)cudaErrorInvalidValue;
-  const SampleParams<T> p =
-      sample_params(x, offset, mask, B, C, H, W, vec, max_offset);
+                 int C, int H, int W, int Ho, int row0, int vec,
+                 float max_offset, void* stream) {
+  if (bad_pixels(B, C, H, W, Ho, row0)) return (int)cudaErrorInvalidValue;
+  const SampleParams<T> p = sample_params(x, offset, mask, B, C, H, W, Ho,
+                                          row0, vec, max_offset);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (group_lanes<T>(C)) {
     case 8: dcn_col2im_coord_kernel<T, 8>
@@ -966,21 +983,24 @@ int col2im_coord(const T* dcols, const T* x, const float* offset,
 template <typename T>
 int col2im(const T* dcols, const int* count, const int* ends,
            const int2* entries, const int* long_q, T* dx, int B, int C,
-           int H, int W, int long_blocks, void* stream) {
-  if (bad_shape(B, C, H, W) || bad_map(B, H, W) || long_blocks <= 0)
+           int H, int W, int Ho, int long_blocks, void* stream) {
+  if (bad_shape(B, C, H, W) || bad_map(B, H, W) || bad_rows(H, Ho, 0) ||
+      long_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int hw = H * W;
+  const int hwo = Ho * W;
   const int cp = (C + 31) / 32 * 32;
   dcn_col2im_gather_kernel<T>
       <<<dim3((hw + kGatherPix - 1) / kGatherPix, cp / 32, B),
-         kGatherWarps * 32, 0, s>>>(dcols, ends, entries, dx, C, cp, hw);
+         kGatherWarps * 32, 0, s>>>(dcols, ends, entries, dx, C, cp, hw,
+                                    hwo);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   dcn_col2im_gather_long_kernel<T>
       <<<dim3(long_blocks, cp / 32), kGatherWarps * 32, 0, s>>>(
           dcols, ends, entries, long_q, count + (size_t)B * hw, dx, C, cp,
-          hw);
+          hw, hwo);
   return (int)cudaGetLastError();
 }
 
@@ -993,25 +1013,29 @@ const __nv_bfloat16* bf16(const void* p) {
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
 // success) after each of its launches. The bf16 ones take bf16 x, cols,
 // dcols and dx as void pointers. x is channels-last (B, H, W, C); cols and
-// dcols are (B*H*W, 9, C); vec = 1 where C is a multiple of the 16-byte
-// vector (4 float32, 8 bf16) and x, cols and dcols are 16-byte aligned.
+// dcols are (B*Ho*W, 9, C), offset and mask of Ho rows: the output rows
+// [row0, row0 + Ho) (Ho = H and row0 = 0 for the whole op); vec = 1 where
+// C is a multiple of the 16-byte vector (4 float32, 8 bf16) and x, cols
+// and dcols are 16-byte aligned.
 
 extern "C" int cfd_dcn_im2col(const float* x, const float* offset,
                               const float* mask, float* cols, int B, int C,
-                              int H, int W, int vec, float max_offset,
-                              void* stream) {
-  return im2col(x, offset, mask, cols, B, C, H, W, vec, max_offset, stream);
+                              int H, int W, int Ho, int row0, int vec,
+                              float max_offset, void* stream) {
+  return im2col(x, offset, mask, cols, B, C, H, W, Ho, row0, vec,
+                max_offset, stream);
 }
 
-// col2im's map, steps 1 and 2: count (B*HW + 1 int32) gets the number of
-// entries of each pixel and a 0 after them, ends (B*HW int32) their
-// inclusive prefix sum; sums (ceil(B*HW / 4096) int32) is the scan's
-// scratch.
+// col2im's map, steps 1 and 2: count (B*HW + 1 int32, x's pixels) gets
+// the number of entries of each pixel and a 0 after them, ends (B*HW
+// int32) their inclusive prefix sum; sums (ceil(B*HW / 4096) int32) is the
+// scan's scratch.
 extern "C" int cfd_dcn_col2im_count(const float* offset, const float* mask,
                                     int* count, int* ends, int* sums, int B,
-                                    int H, int W, float max_offset,
-                                    void* stream) {
-  if (bad_map(B, H, W)) return (int)cudaErrorInvalidValue;
+                                    int H, int W, int Ho, int row0,
+                                    float max_offset, void* stream) {
+  if (bad_map(B, H, W) || bad_rows(H, Ho, row0))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t n_seg = (size_t)B * H * W;
   dcn_col2im_zero_kernel<<<(unsigned)((n_seg + 256) / 256), 256, 0, s>>>(
@@ -1019,8 +1043,8 @@ extern "C" int cfd_dcn_col2im_count(const float* offset, const float* mask,
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   dcn_col2im_map_kernel<false>
-      <<<dim3((H * W + kPix - 1) / kPix, 9, B), kPix, 0, s>>>(
-          offset, mask, count, nullptr, nullptr, H, W, max_offset);
+      <<<dim3((Ho * W + kPix - 1) / kPix, 9, B), kPix, 0, s>>>(
+          offset, mask, count, nullptr, nullptr, H, W, Ho, row0, max_offset);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const unsigned tiles = (unsigned)((n_seg + kScanTile - 1) / kScanTile);
@@ -1034,23 +1058,24 @@ extern "C" int cfd_dcn_col2im_count(const float* offset, const float* mask,
 }
 
 // Steps 3 and 4, after ends = the inclusive prefix sum of count[0 .. B*HW):
-// fills entries (36*B*HW {key, weight bits}) segment by segment, leaving
+// fills entries (36*B*HoW {key, weight bits}) segment by segment, leaving
 // count[0 .. B*HW) at 0, and sorts each segment; the long segments' pixels
 // go to long_q, their number to count[B*HW], and bits (long_blocks *
-// ceil(9*HW/32) int32) is the long sort's scratch.
+// ceil(9*HoW/32) int32) is the long sort's scratch.
 extern "C" int cfd_dcn_col2im_fill(const float* offset, const float* mask,
                                    int* count, const int* ends,
                                    int2* entries, int* long_q, unsigned* bits,
-                                   int B, int H, int W, int long_blocks,
-                                   float max_offset, void* stream) {
-  if (bad_map(B, H, W) || long_blocks <= 0)
+                                   int B, int H, int W, int Ho, int row0,
+                                   int long_blocks, float max_offset,
+                                   void* stream) {
+  if (bad_map(B, H, W) || bad_rows(H, Ho, row0) || long_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int hw = H * W;
   const size_t n_seg = (size_t)B * hw;
   dcn_col2im_map_kernel<true>
-      <<<dim3((hw + kPix - 1) / kPix, 9, B), kPix, 0, s>>>(
-          offset, mask, count, ends, entries, H, W, max_offset);
+      <<<dim3((Ho * W + kPix - 1) / kPix, 9, B), kPix, 0, s>>>(
+          offset, mask, count, ends, entries, H, W, Ho, row0, max_offset);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   dcn_col2im_sort_kernel<<<(unsigned)((n_seg + kSortWarps - 1) /
@@ -1060,46 +1085,47 @@ extern "C" int cfd_dcn_col2im_fill(const float* offset, const float* mask,
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   dcn_col2im_sort_long_kernel<<<long_blocks, kLongSortThreads, 0, s>>>(
-      offset, mask, ends, entries, long_q, count + n_seg, bits, H, W,
-      max_offset);
+      offset, mask, ends, entries, long_q, count + n_seg, bits, H, W, Ho,
+      row0, max_offset);
   return (int)cudaGetLastError();
 }
 
-// The gathers, after the map: dcols (B, HW, 9, Cp), Cp = C rounded up to
+// The gathers, after the map: dcols (B, HoW, 9, Cp), Cp = C rounded up to
 // 32 (the padding is read and never stored), dx (B, C, H, W) gets every
 // element written.
 extern "C" int cfd_dcn_col2im(const float* dcols, const int* count,
                               const int* ends, const int2* entries,
                               const int* long_q, float* dx, int B, int C,
-                              int H, int W, int long_blocks, void* stream) {
-  return col2im(dcols, count, ends, entries, long_q, dx, B, C, H, W,
+                              int H, int W, int Ho, int long_blocks,
+                              void* stream) {
+  return col2im(dcols, count, ends, entries, long_q, dx, B, C, H, W, Ho,
                 long_blocks, stream);
 }
 
 extern "C" int cfd_dcn_col2im_coord(const float* dcols, const float* x,
                                     const float* offset, const float* mask,
                                     float* doffset, float* dmask, int B,
-                                    int C, int H, int W, int vec,
-                                    float max_offset, void* stream) {
+                                    int C, int H, int W, int Ho, int row0,
+                                    int vec, float max_offset, void* stream) {
   return col2im_coord(dcols, x, offset, mask, doffset, dmask, B, C, H, W,
-                      vec, max_offset, stream);
+                      Ho, row0, vec, max_offset, stream);
 }
 
 extern "C" int cfd_dcn_im2col_bf16(const void* x, const float* offset,
                                    const float* mask, void* cols, int B,
-                                   int C, int H, int W, int vec,
-                                   float max_offset, void* stream) {
+                                   int C, int H, int W, int Ho, int row0,
+                                   int vec, float max_offset, void* stream) {
   return im2col(bf16(x), offset, mask, static_cast<__nv_bfloat16*>(cols), B,
-                C, H, W, vec, max_offset, stream);
+                C, H, W, Ho, row0, vec, max_offset, stream);
 }
 
 extern "C" int cfd_dcn_col2im_bf16(const void* dcols, const int* count,
                                    const int* ends, const int2* entries,
                                    const int* long_q, void* dx, int B, int C,
-                                   int H, int W, int long_blocks,
+                                   int H, int W, int Ho, int long_blocks,
                                    void* stream) {
   return col2im(bf16(dcols), count, ends, entries, long_q,
-                static_cast<__nv_bfloat16*>(dx), B, C, H, W, long_blocks,
+                static_cast<__nv_bfloat16*>(dx), B, C, H, W, Ho, long_blocks,
                 stream);
 }
 
@@ -1107,8 +1133,8 @@ extern "C" int cfd_dcn_col2im_coord_bf16(const void* dcols, const void* x,
                                          const float* offset,
                                          const float* mask, float* doffset,
                                          float* dmask, int B, int C, int H,
-                                         int W, int vec, float max_offset,
-                                         void* stream) {
+                                         int W, int Ho, int row0, int vec,
+                                         float max_offset, void* stream) {
   return col2im_coord(bf16(dcols), bf16(x), offset, mask, doffset, dmask, B,
-                      C, H, W, vec, max_offset, stream);
+                      C, H, W, Ho, row0, vec, max_offset, stream);
 }

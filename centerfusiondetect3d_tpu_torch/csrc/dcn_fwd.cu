@@ -176,13 +176,15 @@ struct Fp32Engine {
 // overlap variant (dcn_fwd::Overlapped), for comparison. Returns the CUDA
 // error of the launches (0 on success). vec = 1 when C is
 // a multiple of 4 and the channels-last x and the weight are 16-byte
-// aligned.
+// aligned. Ho and row0: the output rows [row0, row0 + Ho) of an x of H
+// rows (dcn_fwd_common.cuh; Ho = H and row0 = 0 for the whole op).
 extern "C" int cfd_dcn_fwd(const float* x, float* xh, const float* offset,
                            const float* mask, const float* weight,
                            const float* bias, float* out, float* partial,
-                           int B, int C, int H, int W, int O, int tile_p,
-                           int tile_o, int group, int splits, int vec,
-                           int overlap, float max_offset, void* stream) {
+                           int B, int C, int H, int W, int Ho, int row0,
+                           int O, int tile_p, int tile_o, int group,
+                           int splits, int vec, int overlap,
+                           float max_offset, void* stream) {
   using dcn_fwd::Overlapped;
   const auto run =
       O <= 64    ? overlap ? dcn_fwd::run<Overlapped<Fp32Engine<64>>, float>
@@ -191,8 +193,8 @@ extern "C" int cfd_dcn_fwd(const float* x, float* xh, const float* offset,
                            : dcn_fwd::run<Fp32Engine<128>, float>
       : overlap  ? dcn_fwd::run<Overlapped<Fp32Engine<256>>, float>
                  : dcn_fwd::run<Fp32Engine<256>, float>;
-  return run(x, xh, offset, mask, weight, bias, out, partial, B, C, H, W, O,
-             tile_p, tile_o, group, splits, vec, max_offset, stream);
+  return run(x, xh, offset, mask, weight, bias, out, partial, B, C, H, W, Ho,
+             row0, O, tile_p, tile_o, group, splits, vec, max_offset, stream);
 }
 
 // The channels-last copy of an NCHW fp32 x: (B, C, H*W) -> (B, H*W, C).

@@ -202,15 +202,16 @@ struct Bf16Engine {
 // overlap variant (dcn_fwd::Overlapped; O <= 128 only), for comparison.
 // Returns the CUDA error of the launches (0 on success). vec = 1 when C is
 // a multiple of 8 and the channels-last x and the weight are 16-byte
-// aligned.
+// aligned. Ho and row0: the output rows [row0, row0 + Ho) of an x of H
+// rows (dcn_fwd_common.cuh; Ho = H and row0 = 0 for the whole op).
 extern "C" int cfd_dcn_fwd_bf16(const void* x, void* xh,
                                 const float* offset, const float* mask,
                                 const void* weight, const void* bias,
                                 void* out, float* partial, int B, int C,
-                                int H, int W, int O, int tile_p,
-                                int tile_o, int group, int splits, int vec,
-                                int overlap, float max_offset,
-                                void* stream) {
+                                int H, int W, int Ho, int row0, int O,
+                                int tile_p, int tile_o, int group,
+                                int splits, int vec, int overlap,
+                                float max_offset, void* stream) {
   using dcn_fwd::Overlapped;
   using U = unsigned short;
   if (overlap && O > 128) return (int)cudaErrorInvalidValue;
@@ -220,8 +221,8 @@ extern "C" int cfd_dcn_fwd_bf16(const void* x, void* xh,
       : O <= 128 ? overlap ? dcn_fwd::run<Overlapped<Bf16Engine<128>>, U>
                            : dcn_fwd::run<Bf16Engine<128>, U>
                  : dcn_fwd::run<Bf16Engine<256>, U>;
-  return run(x, xh, offset, mask, weight, bias, out, partial, B, C, H, W, O,
-             tile_p, tile_o, group, splits, vec, max_offset, stream);
+  return run(x, xh, offset, mask, weight, bias, out, partial, B, C, H, W, Ho,
+             row0, O, tile_p, tile_o, group, splits, vec, max_offset, stream);
 }
 
 // The channels-last copy of an NCHW bf16 x: (B, C, H*W) -> (B, H*W, C).

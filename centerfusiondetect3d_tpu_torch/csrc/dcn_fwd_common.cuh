@@ -47,6 +47,12 @@
 // Any C works: where C is not a multiple of the vector width (or a pointer
 // is not 16-byte aligned) the wrapper passes vec = 0 and the gather and the
 // weight stages take a masked per-channel path.
+// The row origin: offset and mask may hold Ho <= H rows, the output rows
+// [row0, row0 + Ho) of the op on the whole x (a rank's rows of a
+// height-sharded map, models/layers.py): output row h samples as row
+// row0 + h, x is read whole and the output has Ho rows. Pixel tiles cut
+// the B*Ho*W output pixels. With row0 = 0 and Ho = H every index and
+// every value is the op's own.
 
 #pragma once
 
@@ -119,20 +125,23 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T>
 struct Params {
   const T* x;            // (B, H, W, C) channels-last
-  const float* offset;   // (B, 18, H, W)
-  const float* mask;     // (B, 9, H, W)
+  const float* offset;   // (B, 18, Ho, W)
+  const float* mask;     // (B, 9, Ho, W)
   const T* weight;       // (O, C, 3, 3)
   const T* bias;         // (O,) or null
-  T* out;                // (B, O, H, W)
-  float* partial;        // (splits, O, B*H*W) float32 when splits > 1
-  int C, H, W, O, hw, npix, groups, groups_per_split, splits, vec;
+  T* out;                // (B, O, Ho, W)
+  float* partial;        // (splits, O, B*Ho*W) float32 when splits > 1
+  // hw, npix: the output's Ho*W and B*Ho*W; xhw, xpix: x's H*W and B*H*W
+  int C, H, W, O, hw, npix, xhw, xpix, row0, groups, groups_per_split,
+      splits, vec;
   float max_offset;
 };
 
 // Corner tables of a tile, for tap k of pixel p at t = p * 9 + k: wgt[t]
 // the mask-folded bilinear weights of the corners (cy, cx) = (0, 0),
 // (0, 1), (1, 0), (1, 1) (0 outside the image or past the last pixel), and
-// row[t] the NHWC row of x (b * H * W + y * W + x) of corner (0, 0); the
+// row[t] the NHWC row of x (b * H * W + y * W + x, y counted from x's
+// first row) of corner (0, 0); the
 // others lie 1, W and W + 1 rows on (a corner outside the image has weight
 // 0, and its row is clamped into x). 20 bytes a (pixel, tap).
 template <int kP>
@@ -161,7 +170,7 @@ __device__ __forceinline__ void build_tables(Tables<kP>& tab,
         dx = fminf(fmaxf(dx, -prm.max_offset), prm.max_offset);
       }
       const float m = prm.mask[((size_t)b * 9 + k) * prm.hw + q];
-      const float py = (float)(h + k / 3 - 1) + dy;
+      const float py = (float)(prm.row0 + h + k / 3 - 1) + dy;
       const float px = (float)(w + k % 3 - 1) + dx;
       const float fy = floorf(py);
       const float fx = floorf(px);
@@ -182,7 +191,7 @@ __device__ __forceinline__ void build_tables(Tables<kP>& tab,
         }
       }
       // y0 in [-1, H - 1] and x0 in [-1, W - 1] where a corner is inside
-      if (any) row = b * prm.hw + y0 * prm.W + x0;
+      if (any) row = b * prm.xhw + y0 * prm.W + x0;
     }
     const int at = (t % kP) * 9 + k;
     tab.row[at] = row;
@@ -243,7 +252,7 @@ struct Gather {
         item((n0 + n) * kThreads + threadIdx.x, t, v);
         const int row = tab.row[t];
         const int c = c0 + v * kV;
-        const int last = prm.npix - 1;
+        const int last = prm.xpix - 1;
         raw[n][0] = load(prm, min(max(row, 0), last), c);
         raw[n][1] = load(prm, min(max(row + 1, 0), last), c);
         raw[n][2] = load(prm, min(max(row + prm.W, 0), last), c);
@@ -500,10 +509,12 @@ int launch_engine(const Params<typename E::T>& prm, void* stream) {
 template <class E, typename U>
 int run(const void* x, void* xh, const float* offset, const float* mask,
         const void* weight, const void* bias, void* out, float* partial,
-        int B, int C, int H, int W, int O, int tile_p, int tile_o, int group,
-        int splits, int vec, float max_offset, void* stream) {
+        int B, int C, int H, int W, int Ho, int row0, int O, int tile_p,
+        int tile_o, int group, int splits, int vec, float max_offset,
+        void* stream) {
   using T = typename E::T;
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || O <= 0 || splits <= 0 ||
+      Ho <= 0 || row0 < 0 || row0 + Ho > H ||
       (long long)B * H * W >= (1LL << 31) || (splits > 1 && !partial) ||
       tile_p != E::kP || tile_o != E::kNO || group != E::kGC)
     return (int)cudaErrorInvalidValue;
@@ -528,8 +539,11 @@ int run(const void* x, void* xh, const float* offset, const float* mask,
   prm.H = H;
   prm.W = W;
   prm.O = O;
-  prm.hw = H * W;
-  prm.npix = B * H * W;
+  prm.hw = Ho * W;
+  prm.npix = B * Ho * W;
+  prm.xhw = H * W;
+  prm.xpix = B * H * W;
+  prm.row0 = row0;
   prm.groups = groups;
   prm.groups_per_split = groups_per_split;
   prm.splits = splits;

@@ -18,6 +18,7 @@ import torch
 
 from ..models.heads import sigmoid_depth
 from ..parallel.distributed import is_multiprocess
+from ..parallel.mesh import DATA_AXIS, active_layout, whole_rows
 from .primitives import (
     bbox2d_loss,
     bbox3d_loss,
@@ -80,9 +81,23 @@ class GenericLoss:
         """Returns (total, dict of per-head scalars, ``total`` included).
 
         In training under a process group of more than one rank every part
-        is the global batch's, on every rank (``primitives.global_sums``);
-        validation (``train=False``) keeps each rank's own."""
-        with global_sums(train and is_multiprocess()):
+        is the global batch's, on every rank (``primitives.global_sums``;
+        under a layout, over its data group: the spatial and model ranks
+        hold the same whole outputs and targets); validation
+        (``train=False``) keeps each rank's own."""
+        lay = active_layout()
+        if lay is not None:
+            enabled, group = lay.n_data > 1, lay.group(DATA_AXIS)
+            if lay.n_spatial > 1:  # the heatmap targets whole
+                batch = dict(batch)
+                for i, out in enumerate(outputs):
+                    key = f"heatmap{i}"
+                    if key in batch:
+                        batch[key] = whole_rows(
+                            batch[key], out["heatmap"].shape[2], lay)
+        else:
+            enabled, group = is_multiprocess(), None
+        with global_sums(train and enabled, group):
             return self._losses(outputs, batch, train)
 
     def _losses(self, outputs, batch, train):

@@ -11,10 +11,12 @@ batch without targets gives the same numbers there and here. Head maps are
 Inside ``global_sums()`` (``GenericLoss`` in training under a process group
 of more than one rank) every sum, count and mean is over the global batch,
 as the JAX package's are under SPMD ``jit``: each local sum is all-reduced
-with the differentiable ``all_reduce``, so every rank computes the global
-loss, and the all-reduce's backward hands each rank the world size times its
-share of the gradient, which ``DistributedDataParallel``'s average over the
-ranks turns into the global loss's gradient.
+with the differentiable ``all_reduce`` over the group (the default one, or
+a layout's data group), so every rank computes the global loss, and the
+all-reduce's backward hands each rank the group's size times its share of
+the gradient, which ``DistributedDataParallel``'s average over the ranks
+(``parallel/mesh.py:reduce_gradients`` under a layout) turns into the
+global loss's gradient.
 """
 
 from __future__ import annotations
@@ -27,13 +29,14 @@ import torch
 from ..geometry.transforms3d import get_3d_box, get_alpha, img_to_cam_coord
 from ..ops.decode import gather_feature
 
-_GLOBAL = contextvars.ContextVar("cfd3d_global_sums", default=False)
+_GLOBAL = contextvars.ContextVar("cfd3d_global_sums", default=None)
 
 
 @contextlib.contextmanager
-def global_sums(enabled: bool = True):
-    """Sums, counts and means over every rank's batch inside the block."""
-    token = _GLOBAL.set(bool(enabled))
+def global_sums(enabled: bool = True, group=None):
+    """Sums, counts and means over every rank's batch (the ranks of
+    ``group``, the default group if None) inside the block."""
+    token = _GLOBAL.set((group,) if enabled else None)
     try:
         yield
     finally:
@@ -43,21 +46,24 @@ def global_sums(enabled: bool = True):
 def _sum(x):
     """x.sum(), over every rank inside ``global_sums``."""
     total = x.sum()
-    if not _GLOBAL.get():
+    over = _GLOBAL.get()
+    if over is None:
         return total
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(total)
+    return all_reduce(total) if over[0] is None else all_reduce(
+        total, group=over[0])
 
 
 def _mean(x):
     """x.mean(), over every rank's (equally shaped) x inside
     ``global_sums``."""
-    if not _GLOBAL.get():
+    over = _GLOBAL.get()
+    if over is None:
         return x.mean()
     import torch.distributed as dist
 
-    return _sum(x) / (x.numel() * dist.get_world_size())
+    return _sum(x) / (x.numel() * dist.get_world_size(over[0]))
 
 
 def _masked_mean(x, mask):

@@ -30,6 +30,13 @@ keeps float32 parameters and BatchNorm statistics, casts the normalized
 image to bf16, computes the backbone, neck and head towers in bf16
 (``models/layers.py``) and returns head outputs in float32; the radar maps
 and the frustum association stay float32.
+
+Inside a layout whose spatial axis is wider than 1 (``parallel/mesh.py``)
+``image`` is this rank's rows (``shard_batch``): the backbone and the neck
+run on the rank's rows, the stride-4 features are gathered whole along H,
+and the heads, the frustum and the outputs are those of the whole image
+(the radar maps are gathered whole where they come as the rank's rows).
+The whole height must be a multiple of 32 * n_spatial.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ import torch
 from torch import nn
 
 from ..ops.frustum import get_pc_frustum_heatmap
+from ..parallel.mesh import (active_layout, check_spatial_height, row_shard,
+                             whole_rows)
 from .dla import DLA, DLA34_CHANNELS
 from .heads import SECONDARY_HEADS, DetectHeadSet, resize_nearest
 from .resnet import RESNET_SPECS, ResNetBackbone
@@ -60,7 +69,8 @@ class CenterFusionDLA(nn.Module):
                  "middle", radar_pc: bool = True, frustum: bool = True,
                  one_hot_pc: bool = False, max_pc_dist: float = 60.0,
                  top_k: int = 100, norm_eval: bool = False,
-                 compute_dtype=None, arch: str = "dla_34"):
+                 compute_dtype=None, arch: str = "dla_34",
+                 fused_heads: bool = False):
         super().__init__()
         if arch not in ARCHS:
             raise NotImplementedError(f"architecture {arch!r} is not "
@@ -92,7 +102,7 @@ class CenterFusionDLA(nn.Module):
                      if fusion_strategy == "middle" and radar_pc else ())
         self.detectHead_0 = DetectHeadSet(
             channels[FIRST_LEVEL], heads, head_conv, secondary, pc_channels,
-            dt)
+            dt, fuse_towers=fused_heads)
 
     def backbone_parameters(self):
         """(name, parameter) of ``base``, ``dla_up`` and ``ida_up``."""
@@ -115,10 +125,17 @@ class CenterFusionDLA(nn.Module):
         return int(self.max_pc_dist) if self.one_hot_pc else 1
 
     def img2feats(self, x):
-        feats = self.base(x)
-        pyramid = self.dla_up(feats)
-        y = list(pyramid[: LAST_LEVEL - FIRST_LEVEL])
-        return self.ida_up(y, 0, len(y))[-1]
+        """The stride-4 features of the image; under a height-sharded
+        layout the backbone and neck run on this rank's rows and the
+        features come back whole."""
+        lay = active_layout()
+        rows = lay.rows() if lay is not None else None
+        with row_shard(rows):
+            feats = self.base(x)
+            pyramid = self.dla_up(feats)
+            y = list(pyramid[: LAST_LEVEL - FIRST_LEVEL])
+            out = self.ida_up(y, 0, len(y))[-1]
+        return out if rows is None else rows.gather(out)
 
     def frustum_heatmap(self, y: Dict[str, torch.Tensor], pc_dep, calib):
         """Radar heatmap from the first-stage boxes (pointcloud.py:331-394)."""
@@ -134,6 +151,13 @@ class CenterFusionDLA(nn.Module):
         float32 (plus ``calib``)."""
         x = image if self.compute_dtype is None else image.to(
             self.compute_dtype)
+        lay = active_layout()
+        if lay is not None and lay.n_spatial > 1:
+            # image: this rank's rows; the radar maps whole for the heads
+            height = image.shape[2] * lay.n_spatial
+            check_spatial_height(height, lay.n_spatial)
+            pc_dep = whole_rows(pc_dep, height // 4, lay)
+            pc_hm = whole_rows(pc_hm, height // 4, lay)
         if train:
             if self.radar_pc and pc_hm is None:
                 raise ValueError("forward(train=True) needs the batch's "
@@ -145,7 +169,11 @@ class CenterFusionDLA(nn.Module):
             pc_hm = torch.cat([1.0 - pc_dep[:, :s] / self.max_pc_dist,
                                pc_dep[:, s:]], dim=1)
         if self.radar_pc and self.fusion_strategy == "early":
-            x = torch.cat([x, resize_nearest(pc_hm, x.shape[-2:]).to(x.dtype)],
+            pc_in = pc_hm
+            if lay is not None and lay.n_spatial > 1:  # this rank's rows
+                rows = pc_hm.shape[2] // lay.n_spatial
+                pc_in = pc_hm.narrow(2, lay.rows().row0(rows), rows)
+            x = torch.cat([x, resize_nearest(pc_in, x.shape[-2:]).to(x.dtype)],
                           dim=1)
 
         feats = self.img2feats(x)
@@ -190,5 +218,6 @@ def build_model(config, dtype=None) -> CenterFusionDLA:
         norm_eval=bool(config.MODEL.NORM_EVAL),
         compute_dtype=dtype if mixed else None,
         arch=str(config.MODEL.ARCH),
+        fused_heads=bool(config.MODEL.get("FUSED_HEAD_TOWERS", False)),
     )
     return model if mixed else model.to(dtype)

@@ -17,6 +17,17 @@ to bf16 and return bf16, BatchNorm normalizes in float32 and returns bf16,
 and a DCN node promotes its offset/mask projection to float32 before the
 slice and the sigmoid and feeds the DCN bf16 ``x``, weight and bias
 (``centerfusiondetect3d_tpu/models/layers.py:66, 88, 226-229, 304-306``).
+
+Under a height-sharded layout (``parallel/mesh.py``: inside ``row_shard``)
+each module computes exactly its rank's rows of the unsharded module: a
+convolution taller than a row, or strided, takes halo rows from the
+neighbouring ranks (``parallel/collectives.py:conv_halo``; zeros at the
+image's edges) and pads only W; the transposed upsampler takes one row on
+each side and keeps its rows of the result; a DeformConv node gathers its
+input's rows and writes its own output rows through the DCN's row origin.
+BatchNorm totals over the layout's data and spatial ranks. A conv that
+``parallel/mesh.py:shard_params_tp`` split over the model axis gathers its
+output channels before the next layer.
 """
 
 from __future__ import annotations
@@ -27,28 +38,63 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import deform_conv2d
+from ..parallel.collectives import conv_halo, gather_channels, transpose_halo
 from ..parallel.distributed import is_multiprocess
+from ..parallel.mesh import (MODEL_AXIS, STATS_GROUP, active_layout,
+                             current_rows)
 
 
 def _cast(t, dtype):
     return t if dtype is None or t is None else t.to(dtype)
 
 
+def _operands(module, x):
+    """x, weight and bias of a conv module in its ``compute_dtype``."""
+    dt = module.compute_dtype
+    return _cast(x, dt), _cast(module.weight, dt), _cast(module.bias, dt)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype``: input, weight and bias
     are cast to it and so is the result (the JAX package's
-    ``nn.Conv(dtype=...)``); the parameters keep their own dtype."""
+    ``nn.Conv(dtype=...)``); the parameters keep their own dtype.
+
+    On a height-sharded map it reads its halo rows; with ``tp_shards`` > 1
+    (``parallel/mesh.py:shard_params_tp``) it holds its model rank's output
+    channels and gathers the rest."""
+
+    tp_shards = 1
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  _cast(self.bias, dt))
+        rows = current_rows()
+        kh, sh, ph = self.kernel_size[0], self.stride[0], self.padding[0]
+        if rows is not None and (kh > 1 or sh > 1):
+            if x.shape[2] % sh:
+                raise ValueError(f"a stride-{sh} conv on {x.shape[2]} rows a "
+                                 "rank: the slices must stay aligned")
+            y = self._conv(rows.halo(x, *conv_halo(kh, sh, ph)),
+                           (0, self.padding[1]))
+        else:
+            y = self._conv(x, self.padding)
+        return y if self.tp_shards == 1 else tp_gather(y, self.tp_shards)
+
+    def _conv(self, x, padding):
+        return F.conv2d(*_operands(self, x), self.stride, padding,
+                        self.dilation, self.groups)
+
+
+def tp_gather(y, shards: int):
+    """The output channels of every model rank of the active layout
+    (``parallel/collectives.py:gather_channels``)."""
+    lay = active_layout()
+    if lay is None or lay.n_model != shards:
+        raise RuntimeError(f"a conv split {shards} ways over the model axis "
+                           "runs only inside its layout (parallel.layout)")
+    return gather_channels(y, lay.group(MODEL_AXIS))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -57,8 +103,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``TorchBatchNorm`` with a ``dtype``).
 
     In train mode under a process group of more than one rank
-    (``parallel/distributed.py``) the batch statistics are those of the
-    global batch, as JAX's are under SPMD ``jit``: the per-channel sums and
+    (``parallel/distributed.py``; under a layout, its data and spatial
+    ranks: the model ranks hold copies of the same rows) the batch
+    statistics are those of the global batch, as JAX's are under SPMD
+    ``jit``: the per-channel sums and
     counts, then the sums of squared deviations from the global mean, are
     all-reduced with the differentiable ``all_reduce`` (so gradients flow
     through the global statistics); it normalizes by the global mean and
@@ -74,10 +122,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         dt = self.compute_dtype
         if dt is not None:
             x = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training and is_multiprocess():
+        lay = active_layout() if self.training else None
+        if lay is not None:
+            multi, kw = lay.size(STATS_GROUP) > 1, {}
+            if lay.group(STATS_GROUP) is not None:
+                kw["group"] = lay.group(STATS_GROUP)
+        else:
+            multi, kw = self.training and is_multiprocess(), {}
+        if multi:
             from torch.distributed.nn.functional import all_reduce
 
-            y = self.batch_forward(x, all_reduce)
+            y = self.batch_forward(x, lambda t: all_reduce(t, **kw))
         else:
             y = super().forward(x)
         return y if dt is None else y.to(dt)
@@ -120,12 +175,18 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        return F.conv_transpose2d(
-            x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation)
+        rows = current_rows()
+        if rows is None:
+            return self._conv(x, self.padding)
+        above, below, first = transpose_halo(
+            self.kernel_size[0], self.stride[0], self.padding[0])
+        y = self._conv(rows.halo(x, above, below), (0, self.padding[1]))
+        return y.narrow(2, first, self.stride[0] * x.shape[2])
+
+    def _conv(self, x, padding):
+        return F.conv_transpose2d(*_operands(self, x), self.stride, padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class ConvNode(nn.Module):
@@ -198,8 +259,13 @@ class DeformConvNode(nn.Module):
         offset = om[:, :18].contiguous()
         mask = torch.sigmoid(om[:, 18:]).contiguous()
         dt = self.compute_dtype
+        rows = current_rows()
+        # a rank's output rows read every row of x: no offset clamp
+        kw = {} if rows is None else {"row0": rows.row0(x.shape[2])}
+        if rows is not None:
+            x = rows.gather(x)
         y = self.dcn_fn(_cast(x, dt).contiguous(), offset, mask,
-                        _cast(self.weight, dt), _cast(self.bias, dt))
+                        _cast(self.weight, dt), _cast(self.bias, dt), **kw)
         return self.activation(y)
 
 

@@ -144,18 +144,19 @@ def local_device(device=None) -> torch.device:
     return dev
 
 
-def collective_device() -> torch.device:
-    """Where the default group's tensors must lie for a gather: the card
-    under NCCL, host memory under gloo."""
-    if dist.get_backend() == "nccl":
+def collective_device(group=None) -> torch.device:
+    """Where a group's tensors must lie for a gather: the card under NCCL,
+    host memory under gloo."""
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
-def all_gather_detections(detections: Mapping[str, Any]
+def all_gather_detections(detections: Mapping[str, Any], group=None
                           ) -> Dict[str, np.ndarray]:
-    """Every rank's fixed-size detection arrays, concatenated on the batch
-    axis in rank order, on every rank (rank 0 scores them).
+    """Every rank's (of ``group``, the default one if None) fixed-size
+    detection arrays, concatenated on the batch axis in rank order, on
+    every rank (rank 0 scores them).
 
     One process: a host fetch. Several: one all-gather of every array
     packed into one float64 vector (float32 values and integer ids up to
@@ -164,14 +165,14 @@ def all_gather_detections(detections: Mapping[str, Any]
     """
     host = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.asarray(v)) for k, v in detections.items()}
-    n = world_size()
+    n = dist.get_world_size(group) if world_size() > 1 else 1
     if n == 1:
         return host
     keys = sorted(host)
     flat = np.concatenate([host[k].astype(np.float64).ravel() for k in keys])
-    mine = torch.from_numpy(flat).to(collective_device())
+    mine = torch.from_numpy(flat).to(collective_device(group))
     parts = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(parts, mine)
+    dist.all_gather(parts, mine, group=group)
     parts = [p.cpu().numpy() for p in parts]
     out = {}
     offset = 0

@@ -67,12 +67,20 @@ own device, through one ``DistributedDataParallel`` wrapper a frozen phase
 (``training/state.py:wrap_data_parallel``); with more than one rank the
 BatchNorm statistics and the loss normalisers are the global batch's, so a
 step is the JAX package's step on the global batch (``fit.py:162-230``
-there) and every rank logs the global loss. ``TPU.MESH_DATA`` must be -1 or
-the world size (``parallel/mesh.py``). Validation shards the split into
-padded equal shards (``pad_to_batch``), runs each on its rank's device with
-no collective inside the forward, and merges the fixed-size detections and
-their image ids with one all-gather a batch, so every rank returns the
-whole results dict (``fit.py:313-508`` there). Checkpoints,
+there) and every rank logs the global loss. ``TPU.MESH_DATA``,
+``MESH_SPATIAL`` and ``MESH_MODEL`` lay the ranks out (``parallel/mesh.py``;
+their product is the world size). With a spatial or model axis wider than
+1 each data group loads one Loader shard (``shard=(data_rank, n_data)``),
+its ranks take their rows through ``shard_batch``, the step runs under the
+layout without a DDP wrapper and applies the gradient of
+``parallel/mesh.py:reduce_gradients``; the parameters stay replicated, as
+the JAX Trainer replicates them (``shard_params_tp`` is the dry run's,
+``tools/dryrun_multichip.py``). Validation shards the split over the data
+axis into padded equal shards (``pad_to_batch``), runs each on its ranks'
+devices (under the layout: with its collectives inside the forward), and
+merges the fixed-size detections and their image ids with one all-gather a
+batch over the data group, so every rank returns the whole results dict
+(``fit.py:313-508`` there). Checkpoints,
 ``metrics.jsonl``, scoring and the loss plots are rank 0's alone;
 ``ValVisualizer`` and the FLOPs report run only in a single process, as in
 JAX; ``DeviceHealthMonitor`` checks each rank's card. The training
@@ -100,7 +108,8 @@ from ..ops.decode import fusion_decode
 from ..ops.postprocess import post_process
 from ..ops.tta import flip_forward
 from ..parallel import distributed as parallel
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import (DATA_AXIS, gather_detections, layout,
+                             make_mesh, shard_batch)
 from ..training import (learning_rate, make_optimizer, train_step,
                         wrap_data_parallel)
 from ..training.checkpoint import load_torch_file, load_weights, save_checkpoint
@@ -226,8 +235,7 @@ class Trainer:
         if self.optimizer is None:
             self.init_state()
         self._refuse_validation_without_data()
-        shard = ((parallel.rank(), parallel.world_size())
-                 if parallel.is_multiprocess() else None)
+        shard = self._data_shard()
         loader = Loader(self.dataset_train, cfg.TRAIN.BATCH_SIZE,
                         shuffle=cfg.TRAIN.SHUFFLE, seed=cfg.RANDOM_SEED,
                         augment=True, shard=shard,
@@ -255,9 +263,12 @@ class Trainer:
             with profile, contextlib.closing(batches):
                 for i, batch in enumerate(batches):
                     self.timer.start("step")
+                    mesh = self._layout()
+                    if mesh is not None:
+                        batch = shard_batch(batch, mesh)
                     metrics = train_step(self._step_model(frozen),
                                          self.optimizer, self.loss_fn, batch,
-                                         lr, frozen, accum)
+                                         lr, frozen, accum, mesh)
                     seconds = self.timer.stop("step")
                     metrics = {k: float(v) for k, v in metrics.items()}
                     for k, v in metrics.items():
@@ -300,11 +311,22 @@ class Trainer:
             plot_history(self.history, cfg.OUTPUT_DIR)
         return self.history
 
+    def _layout(self):
+        """The mesh a step and a validation forward run under: None for
+        one process or the data axis alone (DDP's arithmetic)."""
+        return None if self.mesh.data_parallel_only else self.mesh
+
+    def _data_shard(self):
+        """(data rank, data ranks) of the Loader, or None for one."""
+        if self.mesh.n_data == 1:
+            return None
+        return self.mesh.coords[DATA_AXIS], self.mesh.n_data
+
     def _step_model(self, frozen: bool):
-        """The module a step runs: the model itself in a single process,
-        else its ``DistributedDataParallel`` wrapper for this phase (one a
-        phase; the previous one is let go)."""
-        if not torch.distributed.is_initialized():
+        """The module a step runs: the model itself in a single process or
+        under a layout, else its ``DistributedDataParallel`` wrapper for
+        this phase (one a phase; the previous one is let go)."""
+        if not torch.distributed.is_initialized() or self._layout():
             return self.model
         if self._ddp is None or self._ddp.frozen != frozen:
             self._ddp = None  # its reducer's hooks go before the next's
@@ -352,8 +374,11 @@ class Trainer:
         cfg = self.config
         forward = flip_forward if cfg.TEST.FLIP_TEST else (
             lambda model, *args: model(*args))
-        outputs = [forward(self.model, batch["image"], batch.get("pc_dep"),
-                           batch.get("calib"), batch.get("pc_hm"))]
+        mesh = self._layout()
+        maps = batch if mesh is None else shard_batch(batch, mesh)
+        with layout(mesh):
+            outputs = [forward(self.model, maps["image"], maps.get("pc_dep"),
+                               maps.get("calib"), maps.get("pc_hm"))]
         dets = fusion_decode(outputs, cfg.MODEL.OUTPUT_SIZE, k=cfg.MODEL.K,
                              norm2d=cfg.MODEL.NORM_2D)
         processed = post_process(dets, trans_mat, cfg.MODEL.OUTPUT_SIZE,
@@ -375,20 +400,19 @@ class Trainer:
         scoring summaries land in ``summaries``, ``metrics`` gets ``val/*``
         and its summary."""
         cfg = self.config
-        multi = parallel.is_multiprocess()
+        multi = self.mesh.n_data > 1  # the split is sharded over the data
         default_loader = loader is None
         if loader is None:
             if self.dataset_val is None:
                 raise ValueError("Trainer.val needs a dataset_val or a loader")
             loader = Loader(self.dataset_val, cfg.TEST.BATCH_SIZE,
                             shuffle=False, drop_last=False, drop_keys=(),
-                            shard=((parallel.rank(), parallel.world_size())
-                                   if multi else None),
+                            shard=self._data_shard(),
                             pad_to_batch=multi,
                             **loader_threads(cfg.WORKERS))
         if self.optimizer is None:
             self.init_state()
-        if not self._cost_reported and not multi:
+        if not self._cost_reported and not parallel.is_multiprocess():
             self._cost_reported = True
             self._report_cost(loader)
         t0 = time.perf_counter()
@@ -397,7 +421,8 @@ class Trainer:
         meters = defaultdict(AverageMeter)
         oh, ow = cfg.MODEL.OUTPUT_SIZE
         viz = None
-        if int(cfg.DEBUG) > 0 and self.dataset_val is not None and not multi:
+        if (int(cfg.DEBUG) > 0 and self.dataset_val is not None
+                and not parallel.is_multiprocess()):
             # first-val-image renders (WandbLogger, logger.py:78-171)
             from ..utils.visualize import ValVisualizer
 
@@ -438,7 +463,7 @@ class Trainer:
                     if multi:
                         # ids ride with the rows, so the two stay paired
                         dets["_img_ids"] = np.asarray(img_ids, np.int64)
-                        dets = parallel.all_gather_detections(dets)
+                        dets = gather_detections(dets, self.mesh)
                         img_ids = dets.pop("_img_ids").tolist()
                     results.update(detections_to_results(dets, img_ids))
                     if viz is not None and viz.image is None and meta is not None:
@@ -484,7 +509,7 @@ class Trainer:
         padded index stream (``data/pipeline.py:Loader._indices``), the JAX
         package's formula (``fit.py:412-424``): a rank-local counter would
         repeat across ranks and collapse in the merge."""
-        rank, world = parallel.rank(), parallel.world_size()
+        rank, world = self.mesh.coords[DATA_AXIS], self.mesh.n_data
         n = len(self.dataset_val)
         m = -(-n // world)  # the padded shard's length
         return [int((rank + world * ((seen + i) % m)) % n)

@@ -117,6 +117,11 @@ def kernel_call(name: str, module, inputs):
     x, off, mask, wt, bias, g = inputs
     same = lambda out: out
     if name == "dcn_fwd":
+        # on the card the tree's own kernel wrapper: the operator
+        # cfd3d::dcn_fwd (PR 20 on) is one registration for both trees
+        launch = (getattr(module, "_launch", None) if x.is_cuda else None)
+        if launch is not None:
+            return lambda: launch(x, off, mask, wt, bias, None), same
         return lambda: module.deform_conv2d(x, off, mask, wt, bias), same
     if name == "dcn_fwd_bf16":
         return lambda: module.dcn_fwd_bf16(x, off, mask, wt, bias), same
@@ -396,11 +401,12 @@ def time_turns(fn_other, fn_this, reps: int):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def compare_dcn(names, other, args, device, report) -> None:
+def compare_dcn(names, other, args, device, report, node_shapes) -> None:
     """Adds to ``report`` the entries of DCN kernels ``names`` against
     ``other`` (the other tree's ``ops/dcn.py``, or None with ``--overlap``)
-    at the training node shapes (``args.batch``: at that batch)."""
-    shapes, accum = training_node_shapes(device)
+    at the training node shapes ``node_shapes`` (``training_node_shapes``;
+    ``args.batch``: at that batch)."""
+    shapes, accum = node_shapes
     micro = shapes[0][0]
     shapes = at_batch(shapes, args.batch)
     batch = shapes[0][0]
@@ -496,6 +502,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=False).stdout.strip().splitlines()
     print(card[0] if card else "nvidia-smi: no reading")
+    names = [k for k in args.kernel
+             if k not in PROBE_KERNELS + WARP_KERNELS]
+    # this tree's model runs before the other tree is loaded: the DCN
+    # operators (cfd3d::dcn_fwd*) are registered once, by the last import
+    node_shapes = training_node_shapes(device) if names else None
     other = None if args.overlap else load_other(other_root)
     report = {"card": card[0] if card else None,
               "other": "overlap" if args.overlap else args.other,
@@ -504,11 +515,9 @@ def main(argv=None) -> int:
         report["kernels"][name] = compare_probe(name, other.probes, device)
     if "warp_affine" in args.kernel:
         compare_warp(load_other_warp(other_root), device, report)
-    names = [k for k in args.kernel
-             if k not in PROBE_KERNELS + WARP_KERNELS]
     if names:
         compare_dcn(names, None if other is None else other.dcn, args,
-                    device, report)
+                    device, report, node_shapes)
     print(json.dumps(report))
     return 0
 

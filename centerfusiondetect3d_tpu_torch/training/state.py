@@ -23,6 +23,8 @@ from typing import Dict
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from ..parallel.mesh import gradient_norm, layout, reduce_gradients
+
 WEIGHT_DECAY = 5e-4
 
 
@@ -81,7 +83,7 @@ def _microbatches(batch, n: int):
 
 
 def train_step(model, optimizer, loss_fn, batch: Dict, lr: float,
-               frozen: bool = False, accum_steps: int = 1
+               frozen: bool = False, accum_steps: int = 1, mesh=None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer update on a device batch (``data/pipeline.py:to_device``).
 
@@ -99,6 +101,12 @@ def train_step(model, optimizer, loss_fn, batch: Dict, lr: float,
     the global batch's on every rank (``losses/primitives.py``), every
     microbatch but the last runs under ``no_sync`` and the applied gradient
     is that of the global batch.
+
+    ``mesh`` (``parallel/mesh.py``; with a plain module, not a DDP
+    wrapper) runs the forwards and losses under that layout, on the rank's
+    ``shard_batch`` of its data shard, and applies the gradient that
+    ``reduce_gradients`` makes of the ranks' backwards; ``grad_norm``
+    counts every model rank's tensor-parallel slices.
     """
     b = batch["image"].shape[0]
     if accum_steps < 1 or b % accum_steps:
@@ -109,6 +117,9 @@ def train_step(model, optimizer, loss_fn, batch: Dict, lr: float,
     if ddp and model.frozen != frozen:
         raise ValueError("train_step: the DistributedDataParallel wrapper "
                          f"was built for frozen={model.frozen}, not {frozen}")
+    if ddp and mesh is not None:
+        raise ValueError("train_step: a layout's step takes the module, "
+                         "not its DistributedDataParallel wrapper")
     set_backbone_frozen(model, frozen)
     optimizer.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
@@ -116,18 +127,19 @@ def train_step(model, optimizer, loss_fn, batch: Dict, lr: float,
     for i, micro in enumerate(micros):
         sync = not ddp or i + 1 == len(micros)
         with contextlib.nullcontext() if sync else model.no_sync():
-            outputs = model(micro["image"], micro.get("pc_dep"),
-                            micro.get("calib"), micro.get("pc_hm"),
-                            train=True)
-            total, parts = loss_fn([outputs], micro)
+            with layout(mesh):
+                outputs = model(micro["image"], micro.get("pc_dep"),
+                                micro.get("calib"), micro.get("pc_hm"),
+                                train=True)
+                total, parts = loss_fn([outputs], micro)
             (total / accum_steps).backward()
         for k, v in parts.items():
             v = v.detach()
             sums[k] = sums[k] + v if k in sums else v
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if mesh is not None:
+        reduce_gradients(model, mesh)
     metrics = {k: v / accum_steps for k, v in sums.items()}
-    metrics["grad_norm"] = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    metrics["grad_norm"] = gradient_norm(model, mesh)
     for group in optimizer.param_groups:
         group["lr"] = float(lr)
     optimizer.step()

@@ -268,13 +268,32 @@ On the card it:
    ``max_offset=1`` within ``BF16_RTOL`` of its plain version, the plain
    select formulation's forward and gradients within ``SELECT_RTOL``, the
    times and the ``VERDICT:`` line;
-22. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
+22. the (data, spatial, model) layout (``mesh_path``): (a) at the 16
+   nodes' distinct shapes at B=2 the four DCN kernels of both dtypes on
+   the lower half of the rows (the whole x, a row origin > 0), each
+   against its plain version (``row_origin_kernels``); (b) four gloo ranks
+   on the one card, layout ``MESH_LAYOUT`` (data 1, spatial 2, model 2),
+   the head towers split, at full width on B=2: a float32 unfrozen step
+   and eval forward with DeformConv nodes against the float64 step and
+   forward, each loss part, ``grad_norm``, the gradients and the updated
+   parameters within ``NOISE_MULT`` times float32's own noise of each, a
+   DeformConv node alone within ``NODE_RTOL`` of the whole node in
+   float32, and a float64 step with Conv nodes within ``EXACT_RTOL`` of
+   one process's (``check_mesh``); per rank 16 ``dcn_fwd`` and 16 of each
+   float32 backward kernel a step; each rank's ms a step beside one
+   process's; (c) ``python -m ...tools.dryrun_multichip 4``
+   (``dryrun_on_card``); (d) ``MODEL.FUSED_HEAD_TOWERS``: the head set's
+   fused towers against per-head ones in both dtypes, timed in turns
+   (``fused_heads``);
+23. prints a ``{"kernels": [...]}`` line (``warp_affine`` and
    ``ycc_to_bgr`` beside the DCN and probe kernels; phase 19's launches as
    ``resnet_launches`` and ``demo_launches``, phase 20's as
    ``artifact_launches_per_call`` and ``ddp_launches_per_rank_step``,
    phase 21's as ``overfit_launches_per_step`` and
-   ``campaign_smoke_launches``) and, last, the ``{"ok": true, "device":
-   {...}}`` line.
+   ``campaign_smoke_launches``, phase 22's as
+   ``mesh_launches_per_rank_step`` and the row origin's error as
+   ``row0_max_abs_err``) and, last, the ``{"ok": true, "device": {...}}``
+   line.
 
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA card and without ``--device cpu --tiny`` it fails. The
@@ -290,8 +309,10 @@ by cv2, phase 19 at 64x128 on samples of two cameras decoded by cv2, and
 phase 20 at 64x128 with its processes on the CPU (gloo, also under
 ``torch.distributed.run``), and phase 21 with the overfit at 128x64 in
 float32 with Conv nodes for ``TINY_OVERFIT_STEPS`` steps, the smoke campaign
-with Conv nodes in float32 and the select probes at ``TINY_SELECT_SHAPE``;
-its last line is ``{"ok": true, "rehearsal": "cpu"}``.
+with Conv nodes in float32 and the select probes at ``TINY_SELECT_SHAPE``,
+and phase 22 at 64x128 with its ranks on the CPU in float64 and the dry
+run with ``--device cpu``; its last line is ``{"ok": true, "rehearsal":
+"cpu"}``.
 """
 
 from __future__ import annotations
@@ -4277,7 +4298,8 @@ def rel_dev(got, want) -> float:
 
 def single_step(opts, sd, batch, device, lr, dtype, timed: int,
                 jitter: int = None, halves=None,
-                batch_stats_sums: bool = False) -> dict:
+                batch_stats_sums: bool = False,
+                plain_dcn: bool = False) -> dict:
     """One unfrozen step of one process on the whole ``batch`` in ``dtype``
     (``float64`` or None), then ``timed`` more, timed: its ``metrics``, the
     state_dict ``before`` it and after it (``state_dict``), its ``grads``
@@ -4288,7 +4310,8 @@ def single_step(opts, sd, batch, device, lr, dtype, timed: int,
     ranks' rows) the step's forward runs on each set of rows apart
     (``halves_step``). With ``batch_stats_sums`` every train-mode BatchNorm
     takes its statistics by the ranks' arithmetic (``batch_forward``
-    without a reduction) in place of cuDNN's."""
+    without a reduction) in place of cuDNN's. With ``plain_dcn`` every
+    DeformConv node runs the plain DCN (a float64 step on the card)."""
     cfg = load_config(opts=opts, num_classes=10)
     trainer = Trainer(cfg, device=device)
     if dtype == "float64":
@@ -4298,6 +4321,10 @@ def single_step(opts, sd, batch, device, lr, dtype, timed: int,
         for m in trainer.model.modules():
             if isinstance(m, BatchNorm2d):
                 m.forward = functools.partial(batch_stats_forward, m)
+    if plain_dcn:
+        for m in trainer.model.modules():
+            if isinstance(m, DeformConvNode):
+                m.dcn_fn = dcn.deform_conv2d_plain
     before = {k: v.detach().cpu().clone() for k, v in
               trainer.model.state_dict().items()}
     dev_batch = to_device(batch, trainer.device)
@@ -4899,6 +4926,556 @@ def add_phase21_launches(kernels, report) -> None:
                 report["campaign"]["launches"][name]
 
 
+# phase 22: the (data, spatial, model) layout
+MESH_LAYOUT = (1, 2, 2)  # (b)'s (data, spatial, model): four gloo ranks
+MESH_BATCH = 2  # (b)'s batch, and (a)'s
+MESH_TIMED_STEPS = 2  # steps timed after (b)'s checked one
+DRYRUN_RANKS = 4  # (c): data 2 x model 2, as JAX picks it for 4 devices
+# (b): the float64 step of Conv nodes against one process's, of each
+# quantity's magnitude
+EXACT_RTOL = 1e-9
+# (b): the layout's float32 update of the parameters off the float64
+# step's, of that update in L2, at most: a step left unapplied reads 1.0
+PARAM_LIMIT = 0.9
+# (b): one process's float32 steps on the jittered image, beside the plain
+# one and the one image by image, that set float32's noise
+MESH_JITTER_DRAWS = 3
+# (b): the DeformConv node alone on the ranks against this process, float32,
+# of each output's magnitude; the stride-4 node's channels
+NODE_RTOL = 1e-5
+NODE_CHANNELS = 64
+# (d): the head set's calls timed in turns, fused and per-head towers
+FUSED_REPS = 20
+# the first-stage outputs (b) holds against the float64 eval forward
+FIRST_STAGE = ("heatmap", "reg", "widthHeight", "depth", "rotation",
+               "dimension", "amodal_offset")
+
+
+def row_origin_kernels(shapes, device, rehearsal: bool) -> dict:
+    """22a: at each distinct node shape (C, H, W, O) of ``shapes``, B =
+    ``MESH_BATCH``, the four DCN kernels of both dtypes on the lower half
+    of the rows (the whole x, offsets and mask of rows [row0, H), row0 =
+    H - H // 2 > 0, as a height-split rank's node calls them), each against
+    its plain version with the same row origin: the float32 kernels within
+    ``KERNEL_RTOL`` (``GRAD_RTOL`` for the backward ones), the bf16 ones'
+    bf16 outputs within ``BF16_RTOL``, their float32 ones within
+    ``GRAD_RTOL``. Returns {kernel: largest max |kernel - plain|}, with the
+    calls counted apart from the main path's."""
+    distinct = sorted({s[1:] for s in shapes}, key=lambda s: -s[1])
+    errs, rels, calls = {}, {}, 0
+    for c, h, w, o in distinct:
+        shape = (MESH_BATCH, c, h, w, o)
+        x, offset, mask, weight, bias = dcn_inputs(shape, device, SEED)
+        ho = max(1, h // 2)
+        row0 = h - ho
+        off = offset[:, :, row0:].contiguous()
+        msk = mask[:, :, row0:].contiguous()
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        dcols = torch.randn((MESH_BATCH, ho * w, 9, c), generator=gen,
+                            device=device)
+        for bf16 in (False, True):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            xx, ww, bb, dc = (t.to(dt) for t in (x, weight, bias, dcols))
+            sfx = "_bf16" if bf16 else ""
+            with torch.no_grad():
+                pairs = {
+                    "dcn_fwd" + sfx: (
+                        lambda: (dcn.dcn_fwd_bf16 if bf16 else
+                                 dcn.deform_conv2d)(xx, off, msk, ww, bb,
+                                                    row0=row0),
+                        lambda: dcn.deform_conv2d_plain(xx, off, msk, ww, bb,
+                                                        row0=row0)),
+                    "dcn_im2col" + sfx: (
+                        lambda: (dcn.dcn_im2col_bf16 if bf16 else
+                                 dcn.dcn_im2col)(xx, off, msk, row0=row0),
+                        lambda: (dcn.dcn_im2col_bf16_plain if bf16 else
+                                 dcn.dcn_im2col_plain)(xx, off, msk,
+                                                       row0=row0)),
+                    "dcn_col2im" + sfx: (
+                        lambda: (dcn.dcn_col2im_bf16 if bf16 else
+                                 dcn.dcn_col2im)(dc, off, msk, row0=row0,
+                                                 height=h),
+                        lambda: (dcn.dcn_col2im_bf16_plain if bf16 else
+                                 dcn.dcn_col2im_plain)(dc, xx, off, msk,
+                                                       row0=row0)),
+                    "dcn_col2im_coord" + sfx: (
+                        lambda: (dcn.dcn_col2im_coord_bf16 if bf16 else
+                                 dcn.dcn_col2im_coord)(dc, xx, off, msk,
+                                                       row0=row0),
+                        lambda: (dcn.dcn_col2im_coord_bf16_plain if bf16 else
+                                 dcn.dcn_col2im_coord_plain)(dc, xx, off, msk,
+                                                             row0=row0)),
+                }
+                for name, (kernel, plain) in pairs.items():
+                    got, want = kernel(), plain()
+                    calls += 1
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    for g, v in zip(got, want):
+                        if g.shape != v.shape or g.dtype != v.dtype:
+                            raise AssertionError(
+                                f"{name} row0={row0}: {tuple(g.shape)} "
+                                f"{g.dtype}, plain {tuple(v.shape)} "
+                                f"{v.dtype}")
+                        rel = rel_err(g.float(), v.float())
+                        limit = (BF16_RTOL if g.dtype == torch.bfloat16
+                                 else KERNEL_RTOL if "fwd" in name
+                                 else GRAD_RTOL)
+                        if not (math.isfinite(rel) and rel <= limit):
+                            raise AssertionError(
+                                f"{name} at {shape} rows [{row0}, {h}): "
+                                f"{rel:.3e} of the plain version's "
+                                f"magnitude > {limit}")
+                        err = float((g.float() - v.float()).abs().max())
+                        errs[name] = max(errs.get(name, 0.0), err)
+                        rels[name] = max(rels.get(name, 0.0), rel)
+            sync(device)
+    return {"shapes": [(MESH_BATCH,) + s for s in distinct],
+            "max_abs_err": errs, "max_rel_err": rels, "calls": calls}
+
+
+def single_forward(opts, sd, batch, device, dtype, jitter=None,
+                   plain_dcn: bool = False) -> dict:
+    """One process's eval forward of ``batch`` (``jitter``: on the image
+    scaled elementwise by 1 + u, phase 11's noise draw; ``plain_dcn``: the
+    plain DCN in every node, a float64 forward on the card): its outputs
+    on the host."""
+    cfg = load_config(opts=opts, num_classes=10)
+    model = build_model(cfg).to(device)
+    if dtype == "float64":
+        model.double()
+    model.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    model.eval()
+    if plain_dcn:
+        for m in model.modules():
+            if isinstance(m, DeformConvNode):
+                m.dcn_fn = dcn.deform_conv2d_plain
+    dev_batch = to_device(batch, device)
+    image = dev_batch["image"]
+    if jitter is not None:
+        u = torch.rand(image.shape, generator=torch.Generator().manual_seed(
+            jitter), dtype=torch.float64).to(image.device)
+        image = (image.double() * (
+            1 + (u - 0.5) * torch.finfo(image.dtype).eps)).to(image.dtype)
+    with torch.no_grad():
+        y = model(image, dev_batch.get("pc_dep"), dev_batch.get("calib"))
+    return {k: v.detach().cpu() for k, v in y.items()}
+
+
+def step_deviation(got, ref) -> dict:
+    """How far step ``got`` lies from step ``ref``: the relative deviation
+    of each loss part (``loss <part>``) and of ``grad_norm``, the relative
+    L2 deviation of all gradients together, and the L2 deviation of all
+    updated parameters over the L2 of ``ref``'s update."""
+    def l2(pairs):
+        return math.sqrt(sum(float((a.double() - b.double()).square().sum())
+                             for a, b in pairs))
+
+    keys = list(ref["grads"])
+    zero = {k: torch.zeros_like(ref["grads"][k]) for k in keys}
+    out = {(k if k == "grad_norm" else f"loss {k}"):
+           abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+           for k, v in ref["metrics"].items()}
+    out["gradients"] = (l2((got["grads"][k], ref["grads"][k]) for k in keys)
+                        / max(l2((ref["grads"][k], zero[k]) for k in keys),
+                              1e-30))
+    out["parameters"] = (
+        l2((got["state_dict"][k], ref["state_dict"][k]) for k in keys)
+        / max(l2((ref["state_dict"][k], ref["before"][k]) for k in keys),
+              1e-30))
+    return out
+
+
+def mesh_node_case(cfg) -> dict:
+    """(b)'s DeformConv node alone: the stride-4 node's shape at the
+    config's input (``NODE_CHANNELS`` in and out, B = ``MESH_BATCH``), a
+    float32 x and output gradient N(0, 1), weights from a numpy seed with
+    offsets of about 3 px (across the spatial ranks' boundary)."""
+    rng = np.random.RandomState(SEED)
+    c = NODE_CHANNELS
+    h, w = (n // 4 for n in cfg.MODEL.INPUT_SIZE)
+    sd = {k: v.numpy().copy() for k, v in DeformConvNode(c, c).state_dict()
+          .items()}
+    scale = 1.0 / math.sqrt(9 * c)
+    sd["weight"] = scale * rng.randn(c, c, 3, 3)
+    sd["bias"] = 0.1 * rng.randn(c)
+    sd["conv_offset_mask.weight"] = 3.0 * scale * rng.randn(27, c, 3, 3)
+    sd["conv_offset_mask.bias"] = rng.randn(27)
+    sd = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+          for k, v in sd.items()}
+    return {"layout": MESH_LAYOUT, "state_dict": sd,
+            "x": rng.randn(MESH_BATCH, c, h, w).astype(np.float32),
+            "grad": rng.randn(MESH_BATCH, c, h, w).astype(np.float32)}
+
+
+def check_mesh_node(case, ranks, device) -> dict:
+    """(b)'s DeformConv node on the ranks (``ddp_check`` spec ``dcn_node``:
+    the offset conv with its halo, x gathered, the kernels' row origin, the
+    gather's summing adjoint) against the whole node in this process, both
+    on the kernels in float32: each rank's output rows, its input rows'
+    gradient and the parameters' gradients within ``NODE_RTOL`` of their
+    magnitude. Returns the largest deviation of each."""
+    node = DeformConvNode(case["x"].shape[1], case["grad"].shape[1])
+    node.load_state_dict({k: torch.from_numpy(v)
+                          for k, v in case["state_dict"].items()})
+    node.to(device).eval()
+    x = torch.from_numpy(case["x"]).to(device).requires_grad_(True)
+    y = node(x)
+    (y * torch.from_numpy(case["grad"]).to(device)).sum().backward()
+    want = {"y": y.detach().cpu(), "x_grad": x.grad.cpu()}
+    want.update({f"grad {k}": p.grad.cpu()
+                 for k, p in node.named_parameters()})
+    devs = {k: 0.0 for k in want}
+    for r, out in enumerate(ranks):
+        got = out["dcn_node"]
+        r0, h = got["row0"], got["y"].shape[2]
+        mine = {"y": got["y"], "x_grad": got["x_grad"]}
+        mine.update({f"grad {k}": v for k, v in got["grads"].items()})
+        for k, v in want.items():
+            ref = v[:, :, r0:r0 + h] if k in ("y", "x_grad") else v
+            dev = rel_dev(mine[k], ref)
+            if not (math.isfinite(dev) and dev <= NODE_RTOL):
+                raise AssertionError(
+                    f"rank {r}'s DeformConv node under the layout: {k} "
+                    f"{dev:.3e} of its magnitude off the whole node's > "
+                    f"{NODE_RTOL}")
+            devs[k] = max(devs[k], dev)
+    if sorted({o["dcn_node"]["row0"] for o in ranks}) != [
+            0, case["x"].shape[2] // MESH_LAYOUT[1]]:
+        raise AssertionError("the node's ranks did not split its rows")
+    return devs
+
+
+def check_mesh(device, rehearsal: bool, serving, work: str) -> dict:
+    """22b: four gloo ranks on the one card, layout ``MESH_LAYOUT``, at full
+    width, B = ``MESH_BATCH``, phase 11's seeded weights, the head towers
+    split over the model axis, against this process on the same batch and
+    weights:
+
+    - float32 with DeformConv nodes (the DCN kernels with their row
+      origin), ``MODEL.NORM_EVAL True``: one unfrozen step and one eval
+      forward. This seeded net is chaotic in float32 (one process's
+      gradients lie ~0.11 off the float64 step in L2, and AdamW's first
+      step turns a small gradient's flipped sign into a whole update), so
+      the step is held, by phase 20's rule, against the float64 step
+      (the plain DCN): each loss part, ``grad_norm``, all gradients and
+      all updated parameters (of their update) within ``NOISE_MULT``
+      times float32's own noise of that quantity, the largest deviation
+      from that step of one process's float32 steps (plain, on the image
+      jittered ``MESH_JITTER_DRAWS`` ways, image by image), plus
+      ``DDP_LOSS_RTOL`` (loss parts, ``grad_norm``) or ``GRAD_FLOOR``, the
+      parameters also within ``PARAM_LIMIT`` of the update; the first-stage
+      outputs of the forward within ``NOISE_MULT`` times one process's
+      float32 forwards' deviation from the float64 forward plus
+      ``HEADS_RTOL``;
+    - float64 with Conv nodes (cuDNN in float64, the layout's collectives
+      and halos alone): one unfrozen step, every loss part, gradient and
+      updated parameter (of its update) within ``EXACT_RTOL`` of one
+      process's float64 step;
+    - a DeformConv node alone in float32 at the stride-4 node's shape,
+      forward and backward, within ``NODE_RTOL`` of the whole node
+      (``check_mesh_node``).
+
+    Every rank reports the same loss and holds the same whole weights; per
+    rank 16 ``dcn_fwd`` and 16 of each float32 backward kernel a float32
+    step, 16 ``dcn_fwd`` a forward. The ranks' ms a step beside one
+    process's."""
+    base = serving["opts"] + FP32_OPTS + ["MODEL.NORM_EVAL", "True"]
+    conv = base + ["MODEL.DLA.NODE", "Conv"]
+    n_data, n_spatial, n_model = MESH_LAYOUT
+    layout_opts = ["TPU.MESH_DATA", str(n_data), "TPU.MESH_SPATIAL",
+                   str(n_spatial), "TPU.MESH_MODEL", str(n_model)]
+    cfg = load_config(opts=base, num_classes=10)
+    seeded = build_model(cfg)
+    seeded_weights(seeded, SEED)
+    sd = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    seeded = build_model(load_config(opts=conv, num_classes=10))
+    seeded_weights(seeded, SEED)
+    sd_conv = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    del seeded
+    items = SyntheticTrainingSet(cfg, MESH_BATCH, seed=SEED)
+    batch = stack_items([items.get_item(i) for i in range(MESH_BATCH)])
+    batch64 = ddp_check._float64(batch)
+    # the rehearsal steps in float64 (phase 20's reason: its tiny
+    # train-mode statistics); on the card float32 is the point
+    dtype = "float64" if rehearsal else None
+    timed = 0 if rehearsal else MESH_TIMED_STEPS
+    lr = float(cfg.TRAIN.LR)
+    world = n_data * n_spatial * n_model
+    if dtype:
+        batch = batch64
+    spec = {"state_dict": sd, "batch": batch, "dtype": dtype,
+            "digests": True,
+            "steps": [{"opts": base + layout_opts, "tp": True,
+                       "frozen": False, "accum": 1, "lr": lr,
+                       "timed_steps": timed},
+                      {"opts": conv + layout_opts, "tp": True,
+                       "frozen": False, "accum": 1, "lr": lr,
+                       "dtype": "float64", "state_dict": sd_conv,
+                       "batch": batch64}],
+            "forward": [{"opts": base + layout_opts, "tp": True}],
+            "dcn_node": mesh_node_case(cfg)}
+    t0 = time.perf_counter()
+    collect = start_ranks(spec, work, device, world=world)
+    # on the card the ranks step alone (their ms are reported); the
+    # rehearsal builds this process's references while they run
+    ranks = None if rehearsal else collect()
+    wall_s = time.perf_counter() - t0
+    exact = single_step(base, sd, batch64, device, lr, "float64", 0,
+                        plain_dcn=True)
+    ref = single_step(base, sd, batch, device, lr, dtype, timed)
+    draws = [ref, single_step(base, sd, batch, device, lr, dtype, 0,
+                              halves=[[i] for i in range(MESH_BATCH)])]
+    # the rehearsal's float64 draws all lie ~1e-14 off: one shows the path
+    draws += [single_step(base, sd, batch, device, lr, dtype, 0,
+                          jitter=SEED + i)
+              for i in range(1 if rehearsal else MESH_JITTER_DRAWS)]
+    fwd_exact = single_forward(base, sd, batch64, device, "float64",
+                               plain_dcn=True)
+    fwd_draws = [single_forward(base, sd, batch, device, dtype),
+                 single_forward(base, sd, batch, device, dtype,
+                                jitter=SEED)]
+    ref64 = single_step(conv, sd_conv, batch64, device, lr, "float64", 0)
+    if ranks is None:
+        ranks = collect()
+        wall_s = time.perf_counter() - t0
+    g0, c0 = ranks[0]["steps"]
+    for r, out in enumerate(ranks[1:], 1):
+        for got, want in zip(out["steps"], ranks[0]["steps"]):
+            if got["metrics"] != want["metrics"]:
+                raise AssertionError(f"rank {r}'s loss parts differ from "
+                                     "rank 0's")
+            for key in ("grads_digest", "state_dict_digest"):
+                if got[key] != want[key]:
+                    raise AssertionError(f"rank {r}'s {key[:-7]} differ "
+                                         "from rank 0's")
+    # (1) float32, DeformConv nodes: against the float64 step
+    mine = step_deviation(g0, exact)
+    noise = {k: max(step_deviation(d, exact)[k] for d in draws)
+             for k in mine}
+    limits = {k: NOISE_MULT * noise[k] + (
+        GRAD_FLOOR if k in ("gradients", "parameters") else DDP_LOSS_RTOL)
+        for k in mine}
+    limits["parameters"] = min(limits["parameters"], PARAM_LIMIT)
+    over = {k: (mine[k], limits[k]) for k in mine if not mine[k] <= limits[k]}
+    if over:
+        raise AssertionError(f"the layout's float32 step off the float64 "
+                             f"step beyond {NOISE_MULT} x float32's noise + "
+                             f"floor: {over}")
+    y0 = ranks[0]["forward"][0]["outputs"]
+    fwd = {}
+    for k in FIRST_STAGE:
+        dev = rel_dev(y0[k], fwd_exact[k])
+        n = max(rel_dev(d[k], fwd_exact[k]) for d in fwd_draws)
+        fwd[k] = (dev, n, NOISE_MULT * n + HEADS_RTOL)
+        if not (math.isfinite(dev) and dev <= fwd[k][2]):
+            raise AssertionError(f"the layout's eval {k} off the float64 "
+                                 f"forward: {dev:.3e} > {fwd[k][2]:.3e}")
+    height = cfg.MODEL.INPUT_SIZE[0]
+    for r, out in enumerate(ranks):
+        if out["forward"][0]["image_rows"] * n_spatial != height:
+            raise AssertionError(f"rank {r} ran the forward on "
+                                 f"{out['forward'][0]['image_rows']} rows")
+        if any(not torch.equal(out["forward"][0]["outputs"][k], y0[k])
+               for k in y0 if k != "calib"):
+            raise AssertionError(f"rank {r}'s eval outputs differ from "
+                                 "rank 0's")
+    node = check_mesh_node(spec["dcn_node"], ranks, device)
+    # (2) float64, Conv nodes: the layout's arithmetic, exact
+    exact_shares = step_shares(c0, ref64, ref64, EXACT_RTOL, params=True)
+    exact_over = {k: v for k, v in exact_shares.items() if v[0] > v[1]}
+    if exact_over:
+        raise AssertionError(f"the layout's float64 step off one process "
+                             f"beyond {EXACT_RTOL}: {exact_over}")
+    expected = 0 if rehearsal else 16
+    step_want = {"dcn_fwd": expected, **{k: expected for k in BWD_KERNELS}}
+    for r, out in enumerate(ranks):
+        for what, got, want in (
+                ("float32 step", out["steps"][0]["launches"], step_want),
+                ("float64 Conv step", out["steps"][1]["launches"], {}),
+                ("forward", out["forward"][0]["launches"],
+                 {"dcn_fwd": expected})):
+            if any(got.get(k, 0) != want.get(k, 0) for k in
+                   set(got) | set(want)):
+                raise AssertionError(f"rank {r} {what} launches {got}, "
+                                     f"expected {want}")
+    return {
+        "layout": dict(zip(("data", "spatial", "model"), MESH_LAYOUT)),
+        "ranks": world, "wall_s": wall_s,
+        "float32_step": {k: {"deviation": mine[k], "noise": noise[k],
+                             "limit": limits[k]} for k in mine},
+        "float32_vs_one_process": step_deviation(g0, ref),
+        "losses": {k: (g0["metrics"][k], ref["metrics"][k],
+                       exact["metrics"][k]) for k in ref["metrics"]},
+        "forward": {k: {"deviation": d, "noise": n, "limit": lim}
+                    for k, (d, n, lim) in fwd.items()},
+        "dcn_node": node,
+        "float64_conv_step": {kind: worst_of(exact_shares, kind)
+                              for kind in ("loss", "gradient",
+                                           "parameter")},
+        "launches_per_rank_step": {k: g0["launches"][k] for k in step_want},
+        "launches_per_rank_forward": ranks[0]["forward"][0]["launches"][
+            "dcn_fwd"],
+        "step_ms": {f"rank{r}": out["steps"][0]["step_ms"]
+                    for r, out in enumerate(ranks)} | {
+            "single": ref["step_ms"]},
+        "first_step_ms": {f"rank{r}": out["steps"][0]["first_ms"]
+                          for r, out in enumerate(ranks)},
+    }
+
+
+def dryrun_on_card(device, rehearsal: bool) -> dict:
+    """22c: ``python -m ...tools.dryrun_multichip 4`` (on the card; with
+    ``--device cpu`` in the rehearsal): rc 0 and its two lines."""
+    cmd = [sys.executable, "-m",
+           "centerfusiondetect3d_tpu_torch.tools.dryrun_multichip",
+           str(DRYRUN_RANKS), *(["--device", "cpu"] if rehearsal else [])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=DDP_TIMEOUT, env=ddp_env())
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("dryrun_multichip(")]
+    if proc.returncode != 0 or len(lines) != 2 or ": ok," not in lines[1]:
+        raise AssertionError(f"dryrun_multichip {DRYRUN_RANKS}: rc "
+                             f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return {"rc": proc.returncode, "seconds": seconds, "lines": lines}
+
+
+def fused_heads(device, rehearsal: bool, serving) -> dict:
+    """22d: ``MODEL.FUSED_HEAD_TOWERS`` on the flagship's head set at the
+    serving batch (``SERVE_BATCH`` x 64 x the output size, seeded weights,
+    radar heatmap N(0, 1) in absolute value), in float32 and bf16: both
+    stages with each stage's ``tower_0`` as one conv against one conv a
+    head, every output's raw values (the depth maps before
+    ``sigmoid_depth``) within ``KERNEL_RTOL`` (float32) or ``BF16_RTOL``
+    (bf16) of the per-head towers'; on the card both timed in turns
+    (``time_pair``, CUDA events). Returns per dtype the largest deviation
+    and the two ms."""
+    out = {}
+    for name, extra in (("float32", FP32_OPTS),
+                        ("bf16", ["MIXED_PRECISION", "True"])):
+        cfg = load_config(opts=serving["opts"] + extra, num_classes=10)
+        model = build_model(cfg)
+        seeded_weights(model, SEED)
+        model.to(device).eval()
+        heads = model.detectHead_0
+        h, w = cfg.MODEL.OUTPUT_SIZE
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        feats = torch.randn((SERVE_BATCH, 64, h, w), generator=gen,
+                            device=device)
+        pc_hm = torch.randn((SERVE_BATCH, 3, h, w), generator=gen,
+                            device=device).abs()
+        if heads.compute_dtype is not None:
+            feats = feats.to(heads.compute_dtype)
+
+        def run(fused: bool):
+            heads.fuse_towers = fused
+            with torch.no_grad():
+                first = heads.first_stage(feats)
+                second = heads.second_stage(feats, pc_hm, model.pc_slice)
+            raw = {f"first {k}": v for k, v in first.items() if k != "depth"}
+            raw.update({f"second {k}": v for k, v in second.items()
+                        if k != "depth2"})
+            return raw
+
+        want, got = run(False), run(True)
+        limit = BF16_RTOL if name == "bf16" else KERNEL_RTOL
+        worst = max(rel_err(got[k].float(), want[k].float()) for k in want)
+        if set(got) != set(want) or not (math.isfinite(worst)
+                                          and worst <= limit):
+            raise AssertionError(f"fused head towers ({name}) off the "
+                                 f"per-head towers: {worst:.3e} > {limit}")
+        entry = {"max_rel_err": worst, "limit": limit}
+        if not rehearsal:
+            entry["per_head_ms"], entry["fused_ms"] = time_pair(
+                lambda: run(False), lambda: run(True), FUSED_REPS)
+        out[name] = entry
+        del model, heads
+    return out
+
+
+def mesh_path(device, rehearsal: bool, card, shapes, serving) -> dict:
+    """Phase 22: the DCN kernels' row origin (a), four gloo ranks on a
+    (data, spatial, model) layout against one process (b), the multi-chip
+    dry run (c), the fused head towers against per-head ones (d)."""
+    report = {}
+    t0 = time.perf_counter()
+    a = report["row_origin"] = row_origin_kernels(shapes, device, rehearsal)
+    log(f"row origin: {a['calls']} calls of the four DCN kernels x 2 dtypes "
+        f"on the lower half of the rows at {len(a['shapes'])} node shapes "
+        f"(B={MESH_BATCH}), each within its limit of its plain version; "
+        "largest relative " + ", ".join(
+            f"{k} {v:.2e}" for k, v in a["max_rel_err"].items()))
+    log(f"  22a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cfd_smoke_mesh_") as work:
+        b = report["mesh"] = check_mesh(device, rehearsal, serving, work)
+    log(f"{b['ranks']} gloo ranks, layout {b['layout']}, towers split over "
+        "the model axis; the float32 step (DeformConv nodes) against the "
+        "float64 step, deviation / float32's noise / limit ("
+        f"{NOISE_MULT} x noise + {DDP_LOSS_RTOL} or {GRAD_FLOOR}, parameters "
+        f"at most {PARAM_LIMIT}): " +
+        ", ".join(f"{k} {v['deviation']:.2e}/{v['noise']:.2e}/"
+                  f"{v['limit']:.2e}" for k, v in b["float32_step"].items())
+        + "; against one process's float32 step: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in b["float32_vs_one_process"].items()))
+    log("  eval forward against the float64 forward, deviation / noise / "
+        f"limit ({NOISE_MULT} x noise + {HEADS_RTOL}): " + ", ".join(
+            f"{k} {v['deviation']:.2e}/{v['noise']:.2e}/{v['limit']:.2e}"
+            for k, v in b["forward"].items()))
+    log(f"  the DeformConv node alone ({NODE_CHANNELS} channels, stride 4) "
+        "on the ranks against the whole node in float32, largest share of "
+        "its magnitude: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in b["dcn_node"].items())
+        + f" (limit {NODE_RTOL})")
+    log(f"  the float64 step (Conv nodes) against one process: largest "
+        "share of its magnitude " + ", ".join(
+            f"{k} {v:.2e}" for k, v in b["float64_conv_step"].items())
+        + f" (limit {EXACT_RTOL})")
+    log(f"  launches per rank: a step {b['launches_per_rank_step']}, a "
+        f"forward dcn_fwd {b['launches_per_rank_forward']}")
+    if not rehearsal:
+        ms = b["step_ms"]
+        log(f"  ms a step ({MESH_BATCH} images, {card}): " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.1f}" for v in vals)
+            for k, vals in ms.items()) + " (the ranks concurrently, one "
+            "process alone); first steps " + ", ".join(
+                f"{k} {v:.1f}" for k, v in b["first_step_ms"].items()))
+    log(f"  22b: {time.perf_counter() - t0:.1f} s (the ranks' wall "
+        f"{b['wall_s']:.1f} s)")
+    t0 = time.perf_counter()
+    c = report["dryrun"] = dryrun_on_card(device, rehearsal)
+    for line in c["lines"]:
+        log(line)
+    log(f"  22c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d = report["fused_heads"] = fused_heads(device, rehearsal, serving)
+    log(f"fused head towers ({SERVE_BATCH} x 64 x the output size) against "
+        "per-head towers, both stages: " + "; ".join(
+            f"{k} {v['max_rel_err']:.2e} of the magnitude (limit "
+            f"{v['limit']})" + (f", {v['per_head_ms']:.3f} ms per-head, "
+                                f"{v['fused_ms']:.3f} ms fused ({card})"
+                                if "fused_ms" in v else "")
+            for k, v in d.items()))
+    log(f"  22d: {time.perf_counter() - t0:.1f} s")
+    return report
+
+
+def add_phase22_launches(kernels, report) -> None:
+    """Phase 22's numbers beside each kernel's: a mesh rank's launches a
+    step (b) and the row origin's largest error against plain (a)."""
+    per_rank = report["mesh"]["launches_per_rank_step"]
+    row0 = report["row_origin"]["max_abs_err"]
+    for entry in kernels:
+        name = entry["name"]
+        if name in per_rank:
+            entry["mesh_launches_per_rank_step"] = per_rank[name]
+        if name in row0:
+            entry["row0_max_abs_err"] = row0[name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -5170,6 +5747,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     campaign = campaign_overfit_path(args.device, rehearsal, card, n_nodes)
     log(f"phase campaign+overfit: {time.perf_counter() - t0:.1f} s")
+
+    # 22. the (data, spatial, model) layout: the DCN kernels' row origin,
+    # four gloo ranks against one process, the multi-chip dry run
+    t0 = time.perf_counter()
+    mesh = mesh_path(args.device, rehearsal, card, shapes, serving)
+    log(f"phase mesh: {time.perf_counter() - t0:.1f} s")
     log(f"total wall: {time.perf_counter() - t_all:.1f} s")
 
     if rehearsal:
@@ -5191,6 +5774,7 @@ def main(argv=None) -> int:
     add_phase19_launches(kernels, extra)
     add_phase20_launches(kernels, parallel_run)
     add_phase21_launches(kernels, campaign)
+    add_phase22_launches(kernels, mesh)
     log(json.dumps({"backward_per_node_shape": bwd_rows,
                     "bf16_backward_per_node_shape": bwd_rows16}))
     log(json.dumps({"main_py": main_py, "decode_vs_cv2": decode_err}))
@@ -5199,6 +5783,7 @@ def main(argv=None) -> int:
     log(json.dumps({"demo_eval_kitti_resnet": extra}))
     log(json.dumps({"artifact_ddp": parallel_run}))
     log(json.dumps({"campaign_overfit": campaign}))
+    log(json.dumps({"mesh": mesh}))
     log(json.dumps({"training": train, "step_kernel_vs_plain": step,
                     "bf16_training": train16,
                     "bf16_step_kernel_vs_plain": step16}))

@@ -111,6 +111,30 @@ def test_kernel_call_runs_each_kernel_in_its_dtype(name):
         assert layout_free(out) is out
 
 
+def test_dcn_fwd_of_a_tree_on_the_card_is_its_own_kernel_wrapper():
+    """The operator ``cfd3d::dcn_fwd`` is one registration for both trees,
+    so on a CUDA tensor ``dcn_fwd`` calls each tree's ``_launch``."""
+    calls = []
+
+    class Tree:
+        def _launch(self, *args):
+            calls.append(("launch", args[-1]))
+
+        def deform_conv2d(self, *args):
+            calls.append(("op",))
+
+    class Cuda(torch.Tensor):
+        is_cuda = True
+
+    inputs = list(ck.node_inputs((2, 8, 5, 6, 4), torch.float32, "cpu", 0))
+    call, _ = ck.kernel_call("dcn_fwd", Tree(),
+                             [inputs[0].as_subclass(Cuda)] + inputs[1:])
+    call()
+    call, _ = ck.kernel_call("dcn_fwd", Tree(), inputs)
+    call()
+    assert calls == [("launch", None), ("op",)]
+
+
 class _NchwColumnsTree:
     """A stand-in for a tree whose backward kernels read an NCHW x and lay
     their columns out (B, 9C, H*W), row c*9 + k, lying (9C, B, H*W) (the

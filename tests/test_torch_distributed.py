@@ -22,7 +22,8 @@ Two gloo processes (``tools/ddp_check.py``, a ``file://`` store in
   directory.
 
 The process group's refusals (a half-configured environment, two NCCL
-ranks on one card, a mesh other than data-parallel) run in this process.
+ranks on one card, a layout that is not the world or whose height split
+is misaligned) run in this process.
 """
 
 from __future__ import annotations
@@ -88,8 +89,11 @@ def _start_ranks(spec, tmp_path, world=2):
                 p.kill()
         for r, (p, log) in enumerate(zip(procs, logs)):
             assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
-        return [torch.load(tmp_path / f"out{r}.pt", weights_only=False)
+        outs = [torch.load(tmp_path / f"out{r}.pt", weights_only=False)
                 for r in range(world)]
+        for name in [f"out{r}.pt" for r in range(world)] + ["spec.pt"]:
+            os.remove(tmp_path / name)  # a model's tensors a rank: 100s of MB
+        return outs
 
     return collect
 
@@ -136,12 +140,21 @@ def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
 
 
 def test_mesh_is_data_parallel_only():
+    """The default layout is the data axis alone (one process: 1 x 1 x 1,
+    no layout for the step); the axes must multiply to the world size; a
+    height split needs the input height to be a multiple of 32 x
+    n_spatial."""
     mesh = parallel.make_mesh(-1, device="cpu")
     assert mesh.shape == {parallel.DATA_AXIS: 1, parallel.SPATIAL_AXIS: 1,
                           parallel.MODEL_AXIS: 1}
     assert mesh.device == torch.device("cpu") and mesh.rank == 0
-    for kw in ({"n_model": 2}, {"n_spatial": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert mesh.data_parallel_only
+    cfg0 = load_config(opts=["MIXED_PRECISION", "False"], num_classes=10)
+    trainer = Trainer(cfg0, device="cpu")
+    assert trainer.mesh.data_parallel_only and trainer._layout() is None
+    assert trainer._data_shard() is None
+    for kw in ({"n_model": 2}, {"n_spatial": 2}):  # 2 ranks of a world of 1
+        with pytest.raises(ValueError, match="world size 1"):
             parallel.make_mesh(-1, device="cpu", **kw)
     with pytest.raises(ValueError, match="MESH_DATA"):
         parallel.make_mesh(8, device="cpu")
@@ -149,6 +162,11 @@ def test_mesh_is_data_parallel_only():
                             "False"], num_classes=10)
     with pytest.raises(ValueError, match="MESH_DATA"):
         Trainer(cfg, device="cpu")
+    model = trainer.model.eval()
+    with parallel.layout(parallel.describe(1, 2, 1)), pytest.raises(
+            ValueError, match="multiple of 32 x 2 = 64"):
+        model(torch.zeros(1, 3, 48, 128), torch.zeros(1, 3, 24, 32),
+              torch.zeros(1, 3, 4))
     batch = {"image": np.zeros((2, 8, 8, 3), np.float32),
              "calib": np.zeros((2, 3, 4), np.float32)}
     put = parallel.shard_batch(batch, mesh)

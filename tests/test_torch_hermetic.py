@@ -13,10 +13,12 @@ run's host side (phase 18: the converter, the native paint, the threaded
 Loader and ``tools rehearse``), phase 19 (the demo, the evaluation CLI,
 KITTI, the ResNet backbones) and phase 20 (the serving artifact, two gloo
 ranks training and validating, ``main.py`` under
-``torch.distributed.run``) and phase 21 (the overfit across its boundary,
-the smoke campaign, the schedule CLI, the select probes), to its last line;
+``torch.distributed.run``), phase 21 (the overfit across its boundary,
+the smoke campaign, the schedule CLI, the select probes) and phase 22 (the
+DCN's row origin, four gloo ranks on a (data, spatial, model) layout, the
+multi-chip dry run), to its last line;
 ``--help`` of the demo, the evaluation CLI, the schedule CLI and the
-campaign, overfit, DCN-parity and select tools runs there too.
+campaign, overfit, DCN-parity, select and dry-run tools runs there too.
 opencv is the CPU's image decoder (``data/image_io.py``, as the JAX package
 reads its JPEGs): there the subprocess lets only that module import it, and
 the rehearsal's ``main.py`` phase decodes through it. An AST scan checks the
@@ -121,7 +123,8 @@ NEW_MODULES = ("ops/warp.py", "ops/tta.py", "utils/visualize.py",
                "parallel/distributed.py", "parallel/mesh.py",
                "tools/ddp_check.py", "training/schedule.py",
                "tools/train_campaign.py", "tools/overfit.py",
-               "tools/dcn_parity.py", "tools/dcn_select.py")
+               "tools/dcn_parity.py", "tools/dcn_select.py",
+               "parallel/collectives.py", "tools/dryrun_multichip.py")
 # entry points whose --help runs with the JAX stack hidden
 HELP_MODULES = ("centerfusiondetect3d_tpu_torch.demo",
                 "centerfusiondetect3d_tpu_torch.evaluation.cli",
@@ -129,7 +132,8 @@ HELP_MODULES = ("centerfusiondetect3d_tpu_torch.demo",
                 "centerfusiondetect3d_tpu_torch.tools.train_campaign",
                 "centerfusiondetect3d_tpu_torch.tools.overfit",
                 "centerfusiondetect3d_tpu_torch.tools.dcn_parity",
-                "centerfusiondetect3d_tpu_torch.tools.dcn_select")
+                "centerfusiondetect3d_tpu_torch.tools.dcn_select",
+                "centerfusiondetect3d_tpu_torch.tools.dryrun_multichip")
 
 
 def _sources():
@@ -226,7 +230,7 @@ def test_port_and_rehearsal_run_with_the_jax_stack_hidden():
         "phase bf16 step-vs-plain", "phase probes", "phase main.py",
         "phase serving files", "phase training run",
         "phase demo+eval+kitti+resnet", "phase artifact+ddp",
-        "phase campaign+overfit"
+        "phase campaign+overfit", "phase mesh"
     ], report["phases"]
     for name in HELP_MODULES:
         code, text = report["helps"][name]

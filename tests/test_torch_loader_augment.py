@@ -88,14 +88,15 @@ def test_loader_matches_jax_loader_over_two_epochs(shuffle, augment):
 
 
 class RecordingSet(SyntheticTrainingSet):
-    """The synthetic training set, recording the rng each item gets."""
+    """The synthetic training set, recording each item's index and the rng
+    it gets (the Loader's threads build items in any order)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.rngs = []
 
     def get_item(self, index, rng=None):
-        self.rngs.append(rng)
+        self.rngs.append((int(index), rng))
         return super().get_item(index, rng)
 
 
@@ -115,9 +116,9 @@ def test_trainer_builds_items_with_the_augmentation_rng(tmp_path):
     trainer = Trainer(cfg, data, device="cpu")
     trainer.train()
     assert len(trainer.steps) == 1
-    assert len(data.rngs) == 2
-    assert all(isinstance(r, np.random.RandomState) for r in data.rngs)
+    assert sorted(i for i, _ in data.rngs) == [0, 1]
+    assert all(isinstance(r, np.random.RandomState) for _, r in data.rngs)
     seed = int(cfg.RANDOM_SEED)
-    for i, rng in enumerate(data.rngs):
+    for i, rng in data.rngs:
         want = np.random.RandomState(seed * 1_000_003 + i)
         assert rng.get_state()[1].tolist() == want.get_state()[1].tolist()
